@@ -6,14 +6,26 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc``, holds each kernel bitwise against its plain PyTorch version on the
-card, times it, and then drives the main path — the paper's Table-6 level-L1
-log (10^6 cases, ~7x10^6 events, 26 activities) written as an EDF file with
-524,288-row groups and streamed from disk through the out-of-core DFG
-engine on the card.  The streamed DFG must equal, bitwise, the same stream
-through the plain versions on the CPU, the whole-log DFG on the card, the
-literal shift-and-count DFG on the card, and a numpy count made straight
-from the generator's columns.
+``nvcc`` (one process per source, all at once), holds each kernel bitwise
+against its plain PyTorch version, times it, and then drives three paths
+over the paper's Table-6 level-L1 log (10^6 cases, ~7x10^6 events, 26
+activities, timestamps) written as an EDF file with 524,288-row groups and
+streamed from disk onto the card:
+
+* ``main_path`` — the out-of-core DFG.  It must equal, bitwise, the same
+  stream through the plain versions on the CPU, the whole-log DFG on the
+  card, the literal shift-and-count DFG on the card, and a numpy count made
+  straight from the generator's columns.
+* ``stats_path`` — the four statistics fused into one pass
+  (``stats_kernel``).  Bitwise equal to the CPU plain stream, the whole-log
+  result on the card and numpy oracles (``bincount``,
+  ``minimum/maximum.reduceat``, ``np.add.at`` in float32).
+* ``filter_path`` — the most common activity, the two-pass case filter
+  "cases containing it", and the DFG of the kept rows, bitwise equal to a
+  numpy oracle.
+
+Each path's launch counts are set to 0 just before it runs and read just
+after, and must show its kernels.
 
 Every line of standard output is one JSON object; the last one is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
@@ -38,8 +50,13 @@ SEED = 1
 # 32-bit rate (the counting kernels do one integer add per event)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+NUM_CASES = 1_000_000
 PAIR_COUNT_TPU = "src/repro/kernels/segment_ops/pair_count.py:74"
 HISTOGRAM_TPU = "src/repro/kernels/segment_ops/histogram.py:56"
+SEGMENT_REDUCE_TPU = "src/repro/kernels/segment_ops/segment_reduce.py:92"
+# no Pallas kernel: the JAX package's row-order XLA scatter
+ORDERED_FOLD_TPU = "none: XLA scatter, src/repro/kernels/segment_ops/ref.py:58"
+KERNELS = ("pair_count", "histogram", "segment_reduce", "ordered_histogram")
 
 
 def emit(obj) -> None:
@@ -68,6 +85,25 @@ def time_ms(torch, fn, n_inputs: int, iters: int = 200) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 5) -> float:
+    """Mean host wall time of ``fn()`` (for plain versions that run on the
+    CPU), after one warm-up call."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def reset_launches(so) -> None:
+    for name in KERNELS:
+        getattr(so, name + "_cuda").launches = 0
+
+
+def read_launches(so) -> dict:
+    return {name: getattr(so, name + "_cuda").launches for name in KERNELS}
 
 
 def profile_device(torch, fn) -> dict:
@@ -114,9 +150,16 @@ def graph_ms(torch, fn, launches: int, replays: int = 50) -> float:
 
 
 def check_kernels(torch, so) -> dict:
-    """Each kernel against its plain version on the card, bitwise, over the
-    shape sweep: ids include -1 and >= the bound, weights 0/1 and signed.
-    Sizes 242 and 300 (and 242^2 bins) take the global-atomic branch."""
+    """Each kernel against its plain version, bitwise, over the shape sweep.
+
+    Counting kernels: ids include -1 and >= the bound, weights 0/1 and
+    signed; sizes 242 and 300 (and 242^2 bins) take the global-atomic
+    branch.  ``segment_reduce``: sorted ids with leading -1s, skipped ids
+    and ids >= S, int32 / float32 / bool values, sum / min / max, up to a
+    524,288-row chunk into 10^6 segments and one run over a whole chunk.
+    The row-order float fold (and a float32 segment sum) is held against
+    the plain version on CPU copies of the inputs: CUDA ``index_add_`` adds
+    in no fixed order, so the card has no plain row-order fold."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dev = "cuda"
 
@@ -129,15 +172,28 @@ def check_kernels(torch, so) -> dict:
         return torch.randint(lo, hi, (n,), generator=gen, device=dev,
                              dtype=torch.int32)
 
+    def fweights(n):
+        mag = 10.0 ** torch.randint(-3, 5, (n,), generator=gen, device=dev)
+        return (torch.randn(n, generator=gen, device=dev) * mag).float()
+
+    def sorted_ids(n, s, single_run=False):
+        if single_run:
+            return torch.full((n,), s // 2, dtype=torch.int32, device=dev)
+        p = min(1.0, (s + 3) / max(n, 1))
+        step = (torch.rand(n, generator=gen, device=dev) < p).to(torch.int32)
+        step[torch.rand(n, generator=gen, device=dev) < 0.01] = 3
+        return (torch.cumsum(step, 0) - 2).to(torch.int32)
+
     sizes_e = (0, 1, 511, 524_288, 7_000_000)
-    out = {"pair_count": {"cases": 0, "max_abs_err": 0},
-           "histogram": {"cases": 0, "max_abs_err": 0}}
+    out = {name: {"cases": 0, "max_abs_err": 0.0} for name in KERNELS}
 
     def record(name, got, want, what):
-        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        got, want = got.cpu(), want.cpu()
+        err = (float((got.double() - want.double()).abs().max())
+               if got.numel() else 0.0)
         out[name]["cases"] += 1
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
-        if not torch.equal(got, want):
+        if got.dtype != want.dtype or not torch.equal(got, want):
             raise AssertionError(f"{name} kernel != plain version at {what}: "
                                  f"max abs err {err}")
 
@@ -156,6 +212,35 @@ def check_kernels(torch, so) -> dict:
                 got = so.histogram_cuda(v, w, b)
                 want = so.histogram_ref(v, b, w)
                 record("histogram", got, want, f"B={b} E={e} w={kind}")
+    for n, s, single in ((0, 10, False), (1, 10, False), (511, 300, False),
+                         (524_288, 75_000, False), (524_288, NUM_CASES, False),
+                         (524_288, NUM_CASES, True)):
+        seg = sorted_ids(n, s, single)
+        for dtype in ("int32", "float32", "bool"):
+            if dtype == "int32":
+                vals = torch.randint(-1000, 1000, (n,), generator=gen,
+                                     device=dev, dtype=torch.int32)
+            elif dtype == "float32":
+                vals = fweights(n)
+            else:
+                vals = (torch.rand(n, generator=gen, device=dev) < 0.3).to(torch.int32)
+            for op in ("sum", "min", "max"):
+                got = so.segment_reduce_cuda(vals, seg, s, op)
+                if dtype == "float32" and op == "sum":
+                    want = so.segment_reduce_ref(vals.cpu(), seg.cpu(), s, op)
+                else:
+                    want = so.segment_reduce_ref(vals, seg, s, op)
+                record("segment_reduce", got, want,
+                       f"N={n} S={s} single_run={single} {dtype} {op}")
+    for b in (1, 26, 676):
+        for e in sizes_e[:4]:
+            v, w = ids(e, b), fweights(e)
+            for into in (None, fweights(b)):
+                got = so.ordered_histogram_cuda(v, w, b, into)
+                want = so.ordered_histogram_ref(
+                    v.cpu(), w.cpu(), b, None if into is None else into.cpu())
+                record("ordered_histogram", got, want,
+                       f"B={b} E={e} into={into is not None}")
     torch.cuda.synchronize()
     return out
 
@@ -223,6 +308,86 @@ def time_kernels(torch, so, engine, frame_gpu) -> dict:
         "library_ms": time_ms(torch, lambda i: h2_out.index_add_(0, pair_key, pair), 1),
         **bound(8 * e + 4 * a * a, e)}
     torch.cuda.synchronize()
+    rows.update(time_stats_kernels(torch, so, engine, frame_gpu, spans))
+    return rows
+
+
+def time_stats_kernels(torch, so, engine, frame_gpu, spans) -> dict:
+    """The stats path's kernels at its chunk shapes over the L1 log:
+    ``segment_reduce`` into 10^6 segments (int32 sum = ``case_sizes``,
+    float32 min/max = ``case_durations``, bool max = the case filter), and
+    the row-order fold of the sojourn totals (26 bins; 676 bins is the
+    float ``pair_count`` shape)."""
+    s_n, a = NUM_CASES, NUM_ACTIVITIES
+    carry = engine.init_row_carry("cuda", seg=torch.tensor(-1, dtype=torch.int32,
+                                                             device="cuda"))
+    adj = engine.adjacent(frame_gpu, carry, need_ts=True)
+    seg = engine.global_segments(adj, carry).contiguous()
+    seg_long = seg.long()
+    ts = adj.ts.contiguous()
+    inputs = {"sum_int32": ("sum", adj.rv.to(torch.int32).contiguous()),
+              "min_float32": ("min", ts), "max_float32": ("max", ts),
+              "max_bool": ("max", (adj.act == 0).to(torch.int32).contiguous())}
+    lib_op = {"sum": "sum", "min": "amin", "max": "amax"}
+    k = len(spans)
+    e = spans[0][1] - spans[0][0]
+    rows = {}
+
+    def sl(t, i):
+        lo, hi = spans[i]
+        return t[lo:hi]
+
+    for label, (op, vals) in inputs.items():
+        lib_out = torch.full((s_n,), so.reduce_identity(op, vals.dtype).item(),
+                             dtype=vals.dtype, device="cuda")
+        rows[f"segment_reduce/{label}/chunk"] = {
+            "E": e, "S": s_n, "op": op,
+            "ms": time_ms(torch, lambda i: so.segment_reduce_cuda(
+                sl(vals, i), sl(seg, i), s_n, op), k),
+            "graph_ms": graph_ms(torch, lambda: [
+                so.segment_reduce_cuda(vals[lo:hi], seg[lo:hi], s_n, op)
+                for lo, hi in spans], k),
+            "plain_ms": time_ms(torch, lambda i: so.segment_reduce_ref(
+                sl(vals, i), sl(seg, i), s_n, op), k),
+            "library_ms": time_ms(torch, lambda i: lib_out.scatter_reduce_(
+                0, sl(seg_long, i), sl(vals, i), lib_op[op], include_self=True), k),
+            **bound(8 * e + 4 * s_n, e)}
+    # one run over a whole chunk: one thread folds all of it
+    one = torch.zeros(e, dtype=torch.int32, device="cuda")
+    rows["segment_reduce/single_run/chunk"] = {
+        "E": e, "S": s_n, "op": "min", "dtype": "float32",
+        "ms": time_ms(torch, lambda i: so.segment_reduce_cuda(
+            ts[:e], one, s_n, "min"), 1, iters=5),
+        **bound(8 * e + 4 * s_n, e)}
+
+    # the sojourn fold: bins = source activity, weights = dt, onto a state
+    dt = torch.where(adj.pair, adj.ts - adj.prev_ts, 0.0).contiguous()
+    prev_act = adj.prev_act.contiguous()
+    prev_long = prev_act.long()
+    key = (adj.prev_act * a + adj.act).contiguous()          # 676 bins
+    key_long = key.long()
+    for label, (vals, vlong, bins) in (("sojourn_26", (prev_act, prev_long, a)),
+                                        ("pair_676", (key, key_long, a * a))):
+        into = torch.zeros(bins, dtype=torch.float32, device="cuda")
+        lib_out = torch.zeros(bins, dtype=torch.float32, device="cuda")
+        host = [(sl(vals, i).cpu(), sl(dt, i).cpu()) for i in range(k)]
+        into_cpu = into.cpu()
+        rows[f"ordered_histogram/{label}/chunk"] = {
+            "E": e, "B": bins,
+            "ms": time_ms(torch, lambda i: so.ordered_histogram_cuda(
+                sl(vals, i), sl(dt, i), bins, into), k, iters=50),
+            "graph_ms": graph_ms(torch, lambda: [
+                so.ordered_histogram_cuda(vals[lo:hi], dt[lo:hi], bins, into)
+                for lo, hi in spans], k, replays=5),
+            # the plain row-order fold runs on the CPU (inputs already there)
+            "plain_ms": host_ms(lambda: [so.ordered_histogram_ref(
+                v, w, bins, into_cpu) for v, w in host]) / k,
+            "plain_device": "cpu",
+            # yardstick only: CUDA index_add_ adds in no fixed order
+            "library_ms": time_ms(torch, lambda i: lib_out.index_add_(
+                0, sl(vlong, i), sl(dt, i)), k),
+            **bound(8 * e + 8 * bins, e)}
+    torch.cuda.synchronize()
     return rows
 
 
@@ -238,6 +403,73 @@ def numpy_dfg(case: np.ndarray, act: np.ndarray, a: int):
             np.bincount(act[end], minlength=a).astype(np.int32))
 
 
+def numpy_stats(case: np.ndarray, act: np.ndarray, ts: np.ndarray, a: int,
+                num_cases: int) -> dict:
+    """Independent host oracles of the four statistics of an all-valid
+    sorted log: ``bincount``, ``minimum/maximum.reduceat``, and the sojourn
+    totals folded with ``np.add.at`` in float32 (row order)."""
+    n = case.shape[0]
+    same = np.concatenate([[False], case[1:] == case[:-1]])
+    starts = np.flatnonzero(~same)
+    sizes = np.zeros(num_cases, np.int32)
+    sizes[:starts.size] = np.diff(np.append(starts, n))
+    dur = np.zeros(num_cases, np.float32)
+    dur[:starts.size] = (np.maximum.reduceat(ts, starts)
+                         - np.minimum.reduceat(ts, starts))
+    prev = np.concatenate([[0], act[:-1]]).astype(np.int64)
+    prev_ts = np.concatenate([np.zeros(1, np.float32), ts[:-1]])
+    dt = np.where(same, ts - prev_ts, np.float32(0)).astype(np.float32)
+    tot = np.zeros(a, np.float32)
+    np.add.at(tot, prev, dt)
+    cnt = np.bincount(prev[same], minlength=a).astype(np.int32)
+    return {"activity_counts": np.bincount(act, minlength=a).astype(np.int32),
+            "case_sizes": sizes, "case_durations": dur,
+            "sojourn_times": tot / np.maximum(cnt, 1).astype(np.float32)}
+
+
+def staged_stream(torch, kernel, path: str, columns, edf):
+    """One more stream of ``kernel`` over the file, each stage synchronized:
+    returns the result and the seconds spent reading + decoding on the host,
+    copying to the card, and in the device update."""
+    t_read = t_h2d = t_dev = 0.0
+    state, carry = kernel.init("cuda")
+    it = edf.read_streaming(path, columns=columns, device="cpu")
+    while True:
+        t0 = time.perf_counter()
+        item = next(it, None)
+        t_read += time.perf_counter() - t0
+        if item is None:
+            break
+        t0 = time.perf_counter()
+        chunk = item[0].to("cuda")
+        torch.cuda.synchronize()
+        t_h2d += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, carry = kernel.update(state, carry, chunk)
+        torch.cuda.synchronize()
+        t_dev += time.perf_counter() - t0
+    return kernel.finalize(state, carry), {
+        "read_decode": t_read, "host_to_device": t_h2d, "device": t_dev}
+
+
+def idle_share(torch, fn, wall_s: float) -> dict:
+    """Device busy time of one more run of ``fn``, from a profiler trace;
+    the idle share is against the unprofiled run's wall time."""
+    prof = profile_device(torch, fn)
+    busy_us = sum(t for _, t in prof.values())
+    top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:12]
+    return {"stream_wall_s": wall_s, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
+            "top_device": [{"name": k[:80], "count": c, "us": t}
+                           for k, (c, t) in top]}
+
+
+def check_equal(label: str, got: np.ndarray, want: np.ndarray) -> None:
+    if got.dtype != want.dtype or got.shape != want.shape \
+            or not np.array_equal(got, want):
+        raise AssertionError(f"{label}: not bitwise equal")
+
+
 def main() -> int:
     import torch
 
@@ -246,8 +478,9 @@ def main() -> int:
               "is False); nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import (ACTIVITY, CASE, ChunkedEventFrame, EventFrame,
-                                  dfg, dfg_kernel, engine, run_streaming)
+    from repro_torch.core import (ACTIVITY, CASE, TIMESTAMP, ChunkedEventFrame,
+                                  EventFrame, dfg, dfg_kernel, engine, filtering,
+                                  run_streaming, stats_kernel)
     from repro_torch.data import synthetic
     from repro_torch.kernels import _build
     from repro_torch.kernels import segment_ops as so
@@ -276,20 +509,21 @@ def main() -> int:
     t0 = time.perf_counter()
     checks = check_kernels(torch, so)
     emit({"phase": "kernels_check", "seconds": time.perf_counter() - t0,
-          "tolerance": "bitwise (integer counts)", **checks})
+          "tolerance": "bitwise (integer counts, float32 min/max, row-order "
+                       "float32 sums)", **checks})
 
-    # -------------------------------------------------- main path: L1 log
+    # ------------------------------------------------------ data: L1 log
     cfg = synthetic.paper_table6_config(1)
     t0 = time.perf_counter()
     cols, tables = synthetic.generate_numpy(**cfg)
-    case_np, act_np = cols[CASE], cols[ACTIVITY]
+    case_np, act_np, ts_np = cols[CASE], cols[ACTIVITY], cols[TIMESTAMP]
     del cols
     events = int(case_np.shape[0])
     cases = int((case_np[1:] != case_np[:-1]).sum()) + 1
     t_gen = time.perf_counter() - t0
 
-    frame_cpu = EventFrame.from_numpy({CASE: case_np, ACTIVITY: act_np},
-                                      device="cpu")
+    frame_cpu = EventFrame.from_numpy(
+        {CASE: case_np, ACTIVITY: act_np, TIMESTAMP: ts_np}, device="cpu")
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     path = str(out_dir / "L1.edf")
@@ -300,47 +534,29 @@ def main() -> int:
     chunks = len(header["groups"])
     emit({"phase": "data", "level": "L1", "config": cfg, "events": events,
           "cases": cases, "row_group_rows": ROW_GROUP_ROWS, "groups": chunks,
+          "columns": [CASE, ACTIVITY, TIMESTAMP],
           "file_bytes": Path(path).stat().st_size,
           "generate_s": t_gen, "write_s": t_write})
+    launches = {}
 
     try:
+        # ----------------------------------------- main path: streamed DFG
         cols_proj = [CASE, ACTIVITY]
         source = ChunkedEventFrame.from_edf(path, columns=cols_proj, device="cuda")
         kernel = dfg_kernel(NUM_ACTIVITIES)
         run_streaming(kernel, source)          # warm-up: first-use costs
         torch.cuda.synchronize()
 
-        so.pair_count_cuda.launches = 0
-        so.histogram_cuda.launches = 0
+        reset_launches(so)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         d_gpu = run_streaming(kernel, source)
         torch.cuda.synchronize()
         t_stream = time.perf_counter() - t0
-        launches = {"pair_count": so.pair_count_cuda.launches,
-                    "histogram": so.histogram_cuda.launches}
+        launches["main_path"] = read_launches(so)
         peak = torch.cuda.max_memory_allocated()
 
-        # stage breakdown of the same stream, each stage synchronized
-        t_read = t_h2d = t_dev = 0.0
-        state, carry = kernel.init("cuda")
-        it = edf.read_streaming(path, columns=cols_proj, device="cpu")
-        while True:
-            t0 = time.perf_counter()
-            item = next(it, None)
-            t_read += time.perf_counter() - t0
-            if item is None:
-                break
-            t0 = time.perf_counter()
-            chunk = item[0].to("cuda")
-            torch.cuda.synchronize()
-            t_h2d += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            state, carry = kernel.update(state, carry, chunk)
-            torch.cuda.synchronize()
-            t_dev += time.perf_counter() - t0
-        d_staged = kernel.finalize(state, carry)
-
+        d_staged, stages = staged_stream(torch, kernel, path, cols_proj, edf)
         d_cpu = run_streaming(dfg_kernel(NUM_ACTIVITIES), ChunkedEventFrame.from_edf(
             path, columns=cols_proj, device="cpu"))
         frame_gpu = frame_cpu.to("cuda")
@@ -359,8 +575,7 @@ def main() -> int:
                              ("shift", host(d_shift)),
                              ("numpy_oracle", oracle)):
             for name, x, y in zip(("counts", "starts", "ends"), got, other):
-                if x.dtype != y.dtype or not np.array_equal(x, y):
-                    raise AssertionError(f"streamed DFG {name} != {label}")
+                check_equal(f"streamed DFG {name} vs {label}", x, y)
         invariants = {
             "counts_sum": int(got[0].sum()), "events_minus_cases": events - cases,
             "starts_sum": int(got[1].sum()), "ends_sum": int(got[2].sum()),
@@ -368,28 +583,112 @@ def main() -> int:
         if not (invariants["counts_sum"] == events - cases
                 and invariants["starts_sum"] == cases == invariants["ends_sum"]):
             raise AssertionError(f"count invariants fail: {invariants}")
-        if launches["pair_count"] < chunks or launches["histogram"] < 2 * chunks:
+        main_l = launches["main_path"]
+        if main_l["pair_count"] < chunks or main_l["histogram"] < 2 * chunks:
             raise AssertionError(f"main path did not go through the kernels: "
-                                 f"{launches} for {chunks} chunks")
+                                 f"{main_l} for {chunks} chunks")
         emit({"phase": "main_path", "events": events, "chunks": chunks,
               "seconds": t_stream, "events_per_s": events / t_stream,
-              "stages_s": {"read_decode": t_read, "host_to_device": t_h2d,
-                           "device": t_dev},
-              "max_memory_allocated": peak, "launches": launches,
+              "stages_s": stages, "max_memory_allocated": peak,
+              "launches": main_l,
               "bitwise_equal_to": ["cpu_plain_stream", "staged_stream",
                                    "whole_log", "shift", "numpy_oracle"],
               "invariants": invariants, "nvidia_smi": smi})
+        emit({"phase": "main_path_profile",
+              **idle_share(torch, lambda: run_streaming(kernel, source), t_stream)})
 
-        # device busy time of one more stream, from a profiler trace; the
-        # idle share is against the unprofiled stream's wall time
-        prof = profile_device(torch, lambda: run_streaming(kernel, source))
-        busy_us = sum(t for _, t in prof.values())
-        top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:8]
-        emit({"phase": "main_path_profile", "stream_wall_s": t_stream,
-              "device_busy_s": busy_us / 1e6,
-              "device_idle_share": 1.0 - busy_us / 1e6 / t_stream,
-              "top_device": [{"name": k[:80], "count": c, "us": t}
-                             for k, (c, t) in top]})
+        # --------------------------- stats path: four statistics, one pass
+        stats_cols = [CASE, ACTIVITY, TIMESTAMP]
+        s_source = ChunkedEventFrame.from_edf(path, columns=stats_cols, device="cuda")
+        s_kernel = stats_kernel(NUM_ACTIVITIES, NUM_CASES)
+        run_streaming(s_kernel, s_source)      # warm-up
+        torch.cuda.synchronize()
+
+        reset_launches(so)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st_gpu = run_streaming(s_kernel, s_source)
+        torch.cuda.synchronize()
+        t_stats = time.perf_counter() - t0
+        launches["stats_path"] = read_launches(so)
+        s_peak = torch.cuda.max_memory_allocated()
+
+        st_staged, s_stages = staged_stream(torch, s_kernel, path, stats_cols, edf)
+        st_cpu = run_streaming(s_kernel, ChunkedEventFrame.from_edf(
+            path, columns=stats_cols, device="cpu"))
+        st_whole = engine.run_single(s_kernel, frame_gpu)
+        st_oracle = numpy_stats(case_np, act_np, ts_np, NUM_ACTIVITIES, NUM_CASES)
+        st_got = {k: v.cpu().numpy() for k, v in st_gpu.items()}
+        for label, other in (("cpu_plain_stream", st_cpu),
+                             ("staged_stream", st_staged),
+                             ("whole_log", st_whole),
+                             ("numpy_oracle", st_oracle)):
+            for name, x in st_got.items():
+                y = other[name]
+                y = y if isinstance(y, np.ndarray) else y.cpu().numpy()
+                check_equal(f"streamed {name} vs {label}", x, y)
+        st_l = launches["stats_path"]
+        if (st_l["segment_reduce"] < 3 * chunks
+                or st_l["ordered_histogram"] < chunks
+                or st_l["histogram"] < 2 * chunks):
+            raise AssertionError(f"stats path did not go through the kernels: "
+                                 f"{st_l} for {chunks} chunks")
+        emit({"phase": "stats_path", "events": events, "chunks": chunks,
+              "num_cases": NUM_CASES, "seconds": t_stats,
+              "events_per_s": events / t_stats, "stages_s": s_stages,
+              "max_memory_allocated": s_peak, "launches": st_l,
+              "bitwise_equal_to": ["cpu_plain_stream", "staged_stream",
+                                   "whole_log", "numpy_oracle"],
+              "checks": {"activity_counts_sum": int(st_got["activity_counts"].sum()),
+                         "case_sizes_sum": int(st_got["case_sizes"].sum()),
+                         "events": events,
+                         "sojourn_finite": bool(np.isfinite(
+                             st_got["sojourn_times"]).all())},
+              "nvidia_smi": smi})
+        emit({"phase": "stats_path_profile",
+              **idle_share(torch, lambda: run_streaming(s_kernel, s_source), t_stats)})
+
+        # ----------- filter path: most common activity, case filter, DFG
+        def filter_path(src, device):
+            act = filtering.streaming_most_common_activity(src, NUM_ACTIVITIES)
+            keep = filtering.streaming_cases_containing(src, act, NUM_CASES)
+            d = run_streaming(dfg_kernel(NUM_ACTIVITIES),
+                              filtering.stream_apply_case_mask(src, keep),
+                              device=device)
+            return act, keep, d
+
+        filter_path(source, "cuda")            # warm-up
+        torch.cuda.synchronize()
+        reset_launches(so)
+        t0 = time.perf_counter()
+        f_act, f_keep, f_dfg = filter_path(source, "cuda")
+        torch.cuda.synchronize()
+        t_filter = time.perf_counter() - t0
+        launches["filter_path"] = read_launches(so)
+
+        counts_np = np.bincount(act_np, minlength=NUM_ACTIVITIES)
+        o_act = int(np.argmax(counts_np))
+        seg_np = np.cumsum(np.concatenate([[True], case_np[1:] != case_np[:-1]])) - 1
+        o_keep = np.zeros(NUM_CASES, bool)
+        o_keep[seg_np[act_np == o_act]] = True
+        rows_kept = o_keep[seg_np]
+        o_dfg = numpy_dfg(case_np[rows_kept], act_np[rows_kept], NUM_ACTIVITIES)
+        if f_act != o_act:
+            raise AssertionError(f"most common activity {f_act} != oracle {o_act}")
+        check_equal("case keep mask vs numpy oracle", f_keep.cpu().numpy(), o_keep)
+        for name, x, y in zip(("counts", "starts", "ends"), host(f_dfg), o_dfg):
+            check_equal(f"filtered DFG {name} vs numpy oracle", x, y)
+        f_l = launches["filter_path"]
+        if (f_l["histogram"] < 3 * chunks or f_l["segment_reduce"] < chunks
+                or f_l["pair_count"] < chunks):
+            raise AssertionError(f"filter path did not go through the kernels: "
+                                 f"{f_l} for {chunks} chunks")
+        emit({"phase": "filter_path", "events": events, "chunks": chunks,
+              "passes": 3, "seconds": t_filter,
+              "events_per_s": 3 * events / t_filter,
+              "most_common_activity": f_act, "cases_kept": int(o_keep.sum()),
+              "events_kept": int(rows_kept.sum()), "launches": f_l,
+              "bitwise_equal_to": ["numpy_oracle"], "nvidia_smi": smi})
 
         # ------------------------------------------- kernel times on card
         times = time_kernels(torch, so, engine, frame_gpu)
@@ -399,17 +698,24 @@ def main() -> int:
 
     def entry(name, source_file, replaces, row):
         return {"name": name, "route": "cuda", "source": source_file,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces,
+                "launches": sum(by[name] for by in launches.values()),
+                "launches_by_path": {p: by[name] for p, by in launches.items()},
                 "max_abs_err": checks[name]["max_abs_err"],
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"]}
 
+    csrc = "src/repro_torch/kernels/csrc/"
     emit({"kernels": [
-        entry("pair_count", "src/repro_torch/kernels/csrc/pair_count.cu",
-              PAIR_COUNT_TPU, times["pair_count/chunk"]),
-        entry("histogram", "src/repro_torch/kernels/csrc/histogram.cu",
-              HISTOGRAM_TPU, times["histogram/chunk"]),
+        entry("pair_count", csrc + "pair_count.cu", PAIR_COUNT_TPU,
+              times["pair_count/chunk"]),
+        entry("histogram", csrc + "histogram.cu", HISTOGRAM_TPU,
+              times["histogram/chunk"]),
+        entry("segment_reduce", csrc + "segment_reduce.cu", SEGMENT_REDUCE_TPU,
+              times["segment_reduce/sum_int32/chunk"]),
+        entry("ordered_histogram", csrc + "ordered_histogram.cu",
+              ORDERED_FOLD_TPU, times["ordered_histogram/sojourn_26/chunk"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

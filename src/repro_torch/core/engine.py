@@ -97,8 +97,8 @@ def register_kernel(spec: KernelSpec) -> KernelSpec:
 
 def _load_standard_specs() -> None:
     # algorithm modules register their specs at import time; the port has
-    # the DFG so far
-    from . import dfg  # noqa: F401
+    # the DFG and the statistics so far
+    from . import dfg, stats  # noqa: F401
 
 
 def kernel_spec(name: str) -> KernelSpec:
@@ -264,6 +264,54 @@ def run_single(kernel: ChunkKernel, frame: Chunk):
     return kernel.finalize(state, carry)
 
 
+def union_columns(column_sets: Iterable[tuple]) -> tuple:
+    """Union column requirements in first-seen order; any *unknown* set
+    (the empty tuple) makes the union unknown — read everything."""
+    out: list = []
+    for cols in column_sets:
+        if not cols:
+            return ()
+        for c in cols:
+            if c not in out:
+                out.append(c)
+    return tuple(out)
+
+
+def compose(kernels: Mapping[str, ChunkKernel]) -> ChunkKernel:
+    """Fuse kernels into one that shares a single pass over the stream.
+
+    States/carries are dicts keyed like ``kernels``; ``finalize`` returns a
+    dict of results.  One disk scan computes a whole dashboard panel.  The
+    fused kernel's ``columns`` is the union of the members' column
+    requirements (unknown if any member's is unknown) and ``mask_exact``
+    the conjunction.
+    """
+    names = tuple(kernels)
+
+    def init(device):
+        pairs = {k: kernels[k].init(device) for k in names}
+        return ({k: s for k, (s, _) in pairs.items()},
+                {k: c for k, (_, c) in pairs.items()})
+
+    def update(state, carry, chunk):
+        out_s, out_c = {}, {}
+        for k in names:
+            out_s[k], out_c[k] = kernels[k].update(state[k], carry[k], chunk)
+        return out_s, out_c
+
+    def merge(a, b):
+        return {k: kernels[k].merge(a[k], b[k]) for k in names}
+
+    def finalize(state, carry):
+        return {k: kernels[k].finalize(state[k], carry[k]) for k in names}
+
+    return ChunkKernel("compose(" + ",".join(names) + ")",
+                       init, update, merge, finalize,
+                       mask_exact=all(k.mask_exact for k in kernels.values()),
+                       columns=union_columns(
+                           k.columns for k in kernels.values()))
+
+
 def tree_sum(a, b):
     """The common merge: leafwise addition of two partial states
     (tensors, dicts of them, or dataclasses of them)."""
@@ -279,6 +327,28 @@ def tree_sum(a, b):
 
 
 # --------------------------------------------- convenience streaming API
+# Thin front doors; kernel factories live next to their whole-log twins
+# (lazy imports keep core.<algo> -> engine one-directional).
 def streaming_dfg(chunks, num_activities: int, method: str = "segment"):
     from .dfg import dfg_kernel
     return run_streaming(dfg_kernel(num_activities, method=method), chunks)
+
+
+def streaming_activity_counts(chunks, num_activities: int):
+    from .stats import activity_counts_kernel
+    return run_streaming(activity_counts_kernel(num_activities), chunks)
+
+
+def streaming_case_sizes(chunks, num_cases: int):
+    from .stats import case_sizes_kernel
+    return run_streaming(case_sizes_kernel(num_cases), chunks)
+
+
+def streaming_case_durations(chunks, num_cases: int):
+    from .stats import case_durations_kernel
+    return run_streaming(case_durations_kernel(num_cases), chunks)
+
+
+def streaming_sojourn_times(chunks, num_activities: int):
+    from .stats import sojourn_times_kernel
+    return run_streaming(sojourn_times_kernel(num_activities), chunks)

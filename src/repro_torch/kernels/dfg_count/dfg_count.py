@@ -2,28 +2,25 @@
 
 The counterpart of the JAX package's ``dfg_count_pallas``, kept as the
 stable, paper-named API: count (src, dst) activity pairs into a dense
-(A, A) int32 matrix.  It has no kernel of its own: it turns the same-case
-mask into int32 weights and calls the pair-count kernel's wrapper (which
-takes the plain version on a CPU tensor).
+(A, A) int32 matrix.  It has no kernel of its own.  As in the JAX package,
+float weights are summed in float32 and truncated to int32: they take
+``pair_count``'s row-order float fold (the ordered-fold kernel on a card),
+while bool and integer weights take the int32 pair-count kernel.  Nothing
+is read back to the host.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.segment_ops.pair_count import pair_count_cuda
+from repro_torch.kernels.segment_ops.ops import pair_count
 
 
 def dfg_count_cuda(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
                    num_activities: int) -> torch.Tensor:
-    """Count (src, dst) pairs under the 0/1 mask ``w`` into (A, A) int32.
+    """Count (src, dst) pairs weighted by ``w`` into (A, A) int32.
 
-    ``w`` is the same-case mask (any dtype); a mask holding any value other
-    than 0 or 1 raises ``ValueError`` (this check reads the mask back to the
-    host).  Padding events must carry ``w == 0``.
+    ``w`` is the same-case mask (any dtype); padding events must carry
+    ``w == 0``.  A float ``w`` is accumulated in float32, then truncated.
     """
-    if bool(((w != 0) & (w != 1)).any()):
-        raise ValueError("dfg_count: w must be a 0/1 mask")
-    return pair_count_cuda(src.to(torch.int32).contiguous(),
-                           dst.to(torch.int32).contiguous(),
-                           w.to(torch.int32).contiguous(),
-                           num_activities, num_activities)
+    return pair_count(src, dst, num_activities, num_activities,
+                      weights=w).to(torch.int32)

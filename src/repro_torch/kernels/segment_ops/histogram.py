@@ -4,8 +4,8 @@ wrapper.
 The counterpart of the JAX package's ``histogram_pallas``.  The kernel
 (``kernels/csrc/histogram.cu``) is a privatized shared-memory histogram with
 int32 weights (negative ones included) and int32 bins; integer atomics make
-it exact in any order.  Float weights have no kernel here: the dispatch
-layer (``ops.histogram``) refuses them on a card.
+it exact in any order.  Float weights take the row-order fold instead
+(``ordered_histogram``, chosen by ``ops.histogram``).
 
 On a CPU tensor the wrapper takes the plain version (``ref.histogram_ref``);
 on CUDA tensors it launches the kernel on the current stream or raises.

@@ -1,12 +1,13 @@
-"""Public entry points for the segmented primitives on the DFG path.
+"""Public entry points for the segmented primitives.
 
 The paper reduces process-mining algorithms to a handful of columnar
-dataframe operations (§5.3–5.4); two of them carry the directly-follows
-graph:
+dataframe operations (§5.3–5.4); three of them carry the DFG, the
+statistics and the case filters:
 
 =================  ====================================  ====================
 primitive          paper operation (§5.3/5.4, Table 3)   lowerings
 =================  ====================================  ====================
+``segment_reduce`` group(D, case) + aggregate            cuda / ref
 ``histogram``      counting ``c(e)`` after proj          cuda / ref
 ``pair_count``     shift + mergstrv + count (DFG)        cuda / ref / matmul
 =================  ====================================  ====================
@@ -16,9 +17,12 @@ CUDA tensor takes the hand-written kernel and a CPU tensor the plain
 version.  Weights follow the JAX package: ``None`` counts (int32), bool or
 integer weights become int32, float weights float32.
 
-Float weights on a card raise ``NotImplementedError``: the JAX package
-sends inexact weights to its row-order scatter so streaming stays bitwise
-equal to the whole-log pass, and CUDA ``index_add_`` has no such order.
+Float accumulation is order-sensitive, and the streaming engine promises
+*bitwise* streaming == whole-log results.  Float weights therefore take the
+row-order fold (``ordered_histogram_cuda`` on a card, ``index_add_`` on the
+CPU), which adds each weight onto ``into`` one row at a time, as the JAX
+package's XLA scatter does; integer counts are exact in any order and take
+the atomic kernels.
 """
 from __future__ import annotations
 
@@ -26,12 +30,9 @@ import torch
 
 from . import ref as _ref
 from .histogram import histogram_cuda
+from .ordered_histogram import ordered_histogram_cuda
 from .pair_count import pair_count_cuda
-
-FLOAT_ON_CUDA = ("float weights on a CUDA tensor need a row-order float "
-                 "accumulation, which arrives with the stats-and-filtering "
-                 "slice (ROADMAP.md, Queue 1 item 3); count with bool/int "
-                 "weights, or pass impl='ref' for the unordered plain version")
+from .segment_reduce import segment_reduce_cuda
 
 
 def _resolve(device, impl):
@@ -50,6 +51,29 @@ def _weights(weights, like: torch.Tensor) -> torch.Tensor:
     return weights.to(torch.float32)
 
 
+def segment_reduce(values: torch.Tensor, segment_ids: torch.Tensor,
+                   num_segments: int, op: str = "sum", *,
+                   impl: str | None = None) -> torch.Tensor:
+    """(num_segments,) ``op``-reduction of ``values`` grouped by sorted ids.
+
+    ``segment_ids`` must be the sorted, consecutive ids produced by
+    ``ops.segment_ids_sorted`` / ``engine.global_segments``; out-of-range
+    ids (including -1) are dropped.  Empty segments hold the op identity.
+    Bool values reduce as int32, and bool min/max come back as bool.
+    """
+    was_bool = values.dtype == torch.bool
+    vals = values.to(torch.int32) if was_bool else values
+    if _resolve(values.device, impl) == "cuda":
+        out = segment_reduce_cuda(vals.contiguous(),
+                                  segment_ids.to(torch.int32).contiguous(),
+                                  num_segments, op)
+    else:
+        out = _ref.segment_reduce_ref(vals, segment_ids, num_segments, op)
+    if was_bool and op in ("min", "max"):
+        return out > 0
+    return out
+
+
 def histogram(values: torch.Tensor, num_bins: int,
               weights: torch.Tensor | None = None, *,
               into: torch.Tensor | None = None,
@@ -57,16 +81,18 @@ def histogram(values: torch.Tensor, num_bins: int,
     """Weighted bincount of dictionary-encoded ``values`` (OOB dropped).
 
     ``weights=None`` counts occurrences (int32); bool/int weights produce
-    int32 counts; float weights a float32 accumulation (plain version
-    only).  ``into`` adds onto an existing (num_bins,) state.
+    int32 counts; float weights a float32 accumulation, folded onto
+    ``into`` in row order.  ``into`` adds onto an existing (num_bins,)
+    state (it is not modified).
     """
     w = _weights(weights, values)
-    chosen = _resolve(values.device, impl)
-    if chosen == "cuda":
+    if _resolve(values.device, impl) == "cuda":
+        v = values.to(torch.int32).contiguous()
         if w.is_floating_point():
-            raise NotImplementedError(FLOAT_ON_CUDA)
-        out = histogram_cuda(values.to(torch.int32).contiguous(),
-                             w.contiguous(), num_bins)
+            return ordered_histogram_cuda(
+                v, w.contiguous(), num_bins,
+                None if into is None else into.to(torch.float32).contiguous())
+        out = histogram_cuda(v, w.contiguous(), num_bins)
         return out if into is None else into + out
     return _ref.histogram_ref(values, num_bins, w, into)
 
@@ -87,10 +113,18 @@ def pair_count(src: torch.Tensor, dst: torch.Tensor, num_src: int,
     if impl == "matmul":
         out = _ref.pair_count_matmul(src, dst, w, num_src, num_dst)
         return out if into is None else into + out
-    chosen = _resolve(src.device, impl)
-    if chosen == "cuda":
+    if _resolve(src.device, impl) == "cuda":
         if w.is_floating_point():
-            raise NotImplementedError(FLOAT_ON_CUDA)
+            # the row-order fold over the flat key; a pair with either side
+            # out of range is dropped first (key -1)
+            ok = (src >= 0) & (src < num_src) & (dst >= 0) & (dst < num_dst)
+            key = torch.where(ok, src.to(torch.int32) * num_dst
+                              + dst.to(torch.int32), -1)
+            flat = ordered_histogram_cuda(
+                key.contiguous(), w.contiguous(), num_src * num_dst,
+                None if into is None
+                else into.reshape(-1).to(torch.float32).contiguous())
+            return flat.reshape(num_src, num_dst)
         out = pair_count_cuda(src.to(torch.int32).contiguous(),
                               dst.to(torch.int32).contiguous(),
                               w.contiguous(), num_src, num_dst)

@@ -1,7 +1,8 @@
 """PyTorch port, segmented primitives: the plain versions that every CPU
-tensor takes are held bitwise (tolerance 0: integer counts) against the JAX
-package's Pallas kernels (interpret mode) and its XLA references, on the
-same numpy inputs; plus the port's device-driven dispatch rules."""
+tensor takes are held bitwise (tolerance 0: integer counts, float32
+min/max, row-order float32 sums) against the JAX package's Pallas kernels
+(interpret mode) and its XLA references, on the same numpy inputs; plus
+the port's device-driven dispatch rules."""
 import numpy as np
 import pytest
 
@@ -128,9 +129,33 @@ def test_dfg_count_matches_pallas_and_ref(a, e):
 
 
 def test_dfg_count_rejects_non_mask_weights():
-    src = T(np.array([0, 1, 2], np.int32))
-    with pytest.raises(ValueError, match="0/1"):
-        dfg_count_cuda(src, src, T(np.array([1.0, 2.0, 0.0], np.float32)), 4)
+    # float weights other than 0/1 are accepted, as by dfg_count_pallas:
+    # summed in float32 and truncated to int32 (no host read of the mask)
+    src = np.array([0, 1, 2, 1, 1], np.int32)
+    w = np.array([1.0, 2.0, 0.0, 2.5, 0.75], np.float32)
+    want = _np(dfg_count_pallas(jnp.asarray(src), jnp.asarray(src),
+                                jnp.asarray(w), 4, interpret=True))
+    got = dfg_count_cuda(T(src), T(src), T(w), 4)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got[1, 1]) == 5
+
+
+@pytest.mark.parametrize("kind", ["bool", "int", "float01", "float_int"])
+def test_dfg_count_weight_kinds_match_pallas(kind):
+    a, e = 26, 3000
+    src = rng.integers(-1, a + 1, e).astype(np.int32)
+    dst = rng.integers(-1, a + 1, e).astype(np.int32)
+    w = {"bool": rng.random(e) < 0.6,
+         "int": rng.integers(0, 4, e).astype(np.int32),
+         "float01": (rng.random(e) < 0.6).astype(np.float32),
+         "float_int": rng.integers(0, 4, e).astype(np.float32)}[kind]
+    want = _np(dfg_count_pallas(jnp.asarray(src), jnp.asarray(dst),
+                                jnp.asarray(w.astype(np.float32)), a,
+                                interpret=True))
+    got = dfg_count_cuda(T(src), T(dst), T(w), a)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # ------------------------------------------------------------ dispatch
@@ -145,12 +170,23 @@ def test_resolution_by_device():
 
 
 def test_float_weights_refused_on_the_kernel_path():
-    v = T(np.array([0, 1, 1], np.int32))
-    w = T(np.array([0.5, 1.0, 2.0], np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tso.histogram(v, 3, w, impl="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tso.pair_count(v, v, 3, weights=w, impl="cuda")
+    # float weights on the kernel path are no longer refused: they take the
+    # row-order fold (its wrapper runs the plain version on a CPU tensor),
+    # bitwise the JAX package's row-order scatter, into= included
+    v = np.array([0, 1, 1, -1, 2, 1, 3], np.int32)
+    w = np.array([0.5, 1e8, 1.0, 7.0, 2.0, -1e8, 0.25], np.float32)
+    into = np.array([0.1, 3.0, -0.0], np.float32)
+    want = _np(jso.histogram_ref(jnp.asarray(v), 3, jnp.asarray(w),
+                                 jnp.asarray(into)))
+    before = tso.ordered_histogram_cuda.launches
+    got = tso.histogram(T(v), 3, T(w), into=T(into), impl="cuda")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    got = tso.pair_count(T(v), T(v), 3, weights=T(w), impl="cuda")
+    np.testing.assert_array_equal(
+        got.numpy(), _np(jso.pair_count_ref(jnp.asarray(v), jnp.asarray(v),
+                                            jnp.asarray(w), 3, 3)))
+    assert tso.ordered_histogram_cuda.launches == before   # no card, no launch
 
 
 def test_kernel_wrappers_check_inputs():
@@ -166,10 +202,164 @@ def test_kernel_wrappers_check_inputs():
                            T(np.ones(3, np.int32)), 3)
 
 
+# ------------------------------------------------------ segment_reduce
+def _sorted_ids(gen, s, n, long_run=0):
+    """Sorted ids as the engine makes them: a few -1s first, consecutive
+    segments with some ids skipped (empty segments), ids >= s at the end,
+    and optionally one run of ``long_run`` rows."""
+    if n == 0:
+        return np.zeros(0, np.int32)
+    lens = gen.integers(0, 6, s + 4)
+    lens[0] = 3                      # three -1 rows
+    if long_run:
+        lens[s // 2] = long_run
+    ids = np.repeat(np.arange(-1, s + 3, dtype=np.int32), lens)
+    return ids[:n] if ids.size >= n else np.concatenate(
+        [ids, np.full(n - ids.size, s + 3, np.int32)])
+
+
+def _values(gen, n, dtype, integral=False):
+    if dtype == "bool":
+        return gen.random(n) < 0.4
+    if dtype == "int32":
+        return gen.integers(-50, 50, n).astype(np.int32)
+    if integral:
+        return gen.integers(-50, 50, n).astype(np.float32)
+    return (gen.standard_normal(n) * 1e3).astype(np.float32)
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype", ["int32", "float32", "bool"])
+@pytest.mark.parametrize("s,n,long_run", [(40, 150, 0), (7, 1, 0), (7, 0, 0),
+                                          (30, 2000, 1500), (300, 1300, 0)])
+def test_segment_reduce_matches_xla_and_pallas(op, dtype, s, n, long_run):
+    gen = np.random.default_rng(s * 1009 + n + len(op))
+    seg = _sorted_ids(gen, s, n, long_run)
+    n = seg.size
+    vals = _values(gen, n, dtype)
+    xla = _np(jso.segment_reduce(jnp.asarray(vals), jnp.asarray(seg), s, op,
+                                 impl="xla"))
+    got = tso.segment_reduce(T(vals), T(seg), s, op)
+    want_dtype = torch.bool if dtype == "bool" and op != "sum" else (
+        torch.float32 if dtype == "float32" else torch.int32)
+    assert got.dtype == want_dtype and got.shape == (s,)
+    np.testing.assert_array_equal(got.numpy(), xla)
+    # the kernel's dispatch and wrapper take the plain version on a CPU tensor
+    np.testing.assert_array_equal(
+        tso.segment_reduce(T(vals), T(seg), s, op, impl="cuda").numpy(), xla)
+    # the Pallas kernel (interpret mode) through the JAX dispatch; its float
+    # sum adds a tile through a one-hot window, not in row order, so it is
+    # held bitwise on integer-valued floats (exact in any order)
+    pv = _values(gen, n, dtype, integral=True) if dtype == "float32" else vals
+    pallas = _np(jso.segment_reduce(jnp.asarray(pv), jnp.asarray(seg), s, op,
+                                    impl="pallas"))
+    np.testing.assert_array_equal(
+        tso.segment_reduce(T(pv), T(seg), s, op).numpy(), pallas)
+    iv = pv.astype(np.int32) if dtype == "bool" else pv
+    direct = _np(jso.segment_reduce_pallas(jnp.asarray(iv), jnp.asarray(seg), s,
+                                           op, interpret=True))
+    np.testing.assert_array_equal(
+        tso.segment_reduce_cuda(T(iv), T(seg), s, op).numpy(), direct)
+
+
+def test_segment_reduce_identity_matches_jax():
+    for op in ("sum", "min", "max"):
+        for tdt, jdt in ((torch.int32, jnp.int32), (torch.float32, jnp.float32)):
+            got = tso.reduce_identity(op, tdt)
+            want = _np(jso.ops.reduce_identity(op, jdt))
+            assert got.dtype == tdt and got.item() == want.item()
+    with pytest.raises(ValueError):
+        tso.reduce_identity("mean", torch.int32)
+
+
+def test_segment_reduce_single_run_over_everything():
+    n = 5000
+    vals = (np.random.default_rng(1).standard_normal(n) * 7).astype(np.float32)
+    seg = np.zeros(n, np.int32)
+    for op in ("sum", "min", "max"):
+        want = _np(jso.segment_reduce(jnp.asarray(vals), jnp.asarray(seg), 3, op,
+                                      impl="xla"))
+        np.testing.assert_array_equal(
+            tso.segment_reduce_cuda(T(vals), T(seg), 3, op).numpy(), want)
+
+
+def test_segment_reduce_wrapper_checks_inputs():
+    i32 = T(np.array([0, 1, 2], np.int32))
+    with pytest.raises(TypeError):
+        tso.segment_reduce_cuda(i32.long(), i32, 3)
+    with pytest.raises(TypeError):
+        tso.segment_reduce_cuda(i32, i32.long(), 3)
+    with pytest.raises(ValueError):
+        tso.segment_reduce_cuda(i32, i32[:2], 3)
+    with pytest.raises(ValueError):
+        tso.segment_reduce_cuda(i32, i32, 3, "mean")
+    with pytest.raises(ValueError):
+        tso.segment_reduce_cuda(T(np.arange(6, dtype=np.int32))[::2], i32, 3)
+
+
+# ------------------------------------------------ the row-order float fold
+@pytest.mark.parametrize("nbins,n", [(26, 3000), (1, 500), (676, 4000), (5, 1),
+                                     (9, 0)])
+@pytest.mark.parametrize("with_into", [False, True])
+def test_float_histogram_into_matches_jax_bitwise(nbins, n, with_into):
+    gen = np.random.default_rng(nbins * 31 + n)
+    v = gen.integers(-2, nbins + 2, n).astype(np.int32)
+    # magnitudes far apart, so any regrouping of the additions shows
+    w = (gen.standard_normal(n) * 10.0 ** gen.integers(-3, 7, n)).astype(np.float32)
+    into = ((gen.standard_normal(nbins) * 1e4).astype(np.float32)
+            if with_into else None)
+    jinto = None if into is None else jnp.asarray(into)
+    want = _np(jso.histogram_ref(jnp.asarray(v), nbins, jnp.asarray(w), jinto))
+    tinto = None if into is None else T(into.copy())
+    for got in (tso.histogram(T(v), nbins, T(w), into=tinto),
+                tso.ordered_histogram_cuda(T(v), T(w), nbins, tinto),
+                tso.ordered_histogram_ref(T(v), T(w), nbins, tinto)):
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+    if into is not None:
+        np.testing.assert_array_equal(tinto.numpy(), into)    # not modified
+        # summing the chunk first and then adding is not the same fold
+        chunk_first = into + _np(jso.histogram_ref(jnp.asarray(v), nbins,
+                                                   jnp.asarray(w)))
+        if n > 1000:
+            assert not np.array_equal(chunk_first, want)
+
+
+@pytest.mark.parametrize("ns,nd", [(26, 26), (3, 11), (1, 1)])
+def test_float_pair_count_into_matches_jax_bitwise(ns, nd):
+    gen = np.random.default_rng(ns + nd)
+    n = 2500
+    s = gen.integers(-1, ns + 1, n).astype(np.int32)
+    d = gen.integers(-1, nd + 1, n).astype(np.int32)
+    w = (gen.standard_normal(n) * 1e5).astype(np.float32)
+    into = (gen.standard_normal((ns, nd)) * 1e3).astype(np.float32)
+    want = _np(jso.pair_count_ref(jnp.asarray(s), jnp.asarray(d), jnp.asarray(w),
+                                  ns, nd, jnp.asarray(into)))
+    got = tso.pair_count(T(s), T(d), ns, nd, T(w), into=T(into))
+    assert got.dtype == torch.float32 and got.shape == (ns, nd)
+    np.testing.assert_array_equal(got.numpy(), want)
+    got = tso.pair_count(T(s), T(d), ns, nd, T(w), into=T(into), impl="cuda")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_ordered_fold_wrapper_checks_inputs():
+    v = T(np.array([0, 1, 2], np.int32))
+    w = T(np.ones(3, np.float32))
+    with pytest.raises(TypeError):
+        tso.ordered_histogram_cuda(v, w.double(), 3)
+    with pytest.raises(TypeError):
+        tso.ordered_histogram_cuda(v.long(), w, 3)
+    with pytest.raises(ValueError):
+        tso.ordered_histogram_cuda(v, w, 3, into=T(np.zeros(4, np.float32)))
+    with pytest.raises(ValueError):
+        tso.ordered_histogram_cuda(v, w[:2], 3)
+
+
 def test_build_paths_hash_the_sources():
     for name in _build.SOURCES:
         p = _build.library_path(name)
         assert p.parent == _build.BUILD_DIR and p.suffix == ".so"
         assert p.name.startswith(name + "-")
         assert (_build.CSRC / f"{name}.cu").exists()
+    assert {"segment_reduce", "ordered_histogram"} <= set(_build.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
