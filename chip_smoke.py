@@ -7,7 +7,7 @@ Run from the repository root, with no arguments::
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc`` (one process per source, all at once), holds each kernel bitwise
-against its plain PyTorch version, times it, and then drives three paths
+against its plain PyTorch version, times it, and then drives five paths
 over the paper's Table-6 level-L1 log (10^6 cases, ~7x10^6 events, 26
 activities, timestamps) written as an EDF file with 524,288-row groups and
 streamed from disk onto the card:
@@ -23,6 +23,18 @@ streamed from disk onto the card:
 * ``filter_path`` — the most common activity, the two-pass case filter
   "cases containing it", and the DFG of the kept rows, bitwise equal to a
   numpy oracle.
+* ``variants_path`` — per-case variant fingerprints (two polyhash scans a
+  chunk).  Bitwise equal to the CPU plain stream, the whole-log
+  fingerprints on the card, a *ghost stream* (every other row group
+  replaced by one row per case segment carrying the segments' composed
+  affine sketch maps, which the kernel folds with the affine scan) and the
+  numpy sketches of the whole log; the variant counts equal ``np.unique``
+  of those.
+* ``performance_path`` — the timed DFG and the eventually-follows graph in
+  one pass.  Bitwise equal to the CPU plain stream, the whole-log results
+  on the card and numpy oracles (``bincount``, ``np.add.at`` in float32,
+  EFG pairs counted by position offset over equal-length cases), plus the
+  remaining-time targets against ``np.maximum.reduceat``.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after, and must show its kernels.
@@ -54,9 +66,13 @@ NUM_CASES = 1_000_000
 PAIR_COUNT_TPU = "src/repro/kernels/segment_ops/pair_count.py:74"
 HISTOGRAM_TPU = "src/repro/kernels/segment_ops/histogram.py:56"
 SEGMENT_REDUCE_TPU = "src/repro/kernels/segment_ops/segment_reduce.py:92"
+SCAN_TPU = "src/repro/kernels/segment_ops/segmented_scan.py:"
+POLYHASH_TPU, AFFINE_TPU, SUM_SCAN_TPU = (SCAN_TPU + "135", SCAN_TPU + "172",
+                                          SCAN_TPU + "213")
 # no Pallas kernel: the JAX package's row-order XLA scatter
 ORDERED_FOLD_TPU = "none: XLA scatter, src/repro/kernels/segment_ops/ref.py:58"
-KERNELS = ("pair_count", "histogram", "segment_reduce", "ordered_histogram")
+KERNELS = ("pair_count", "histogram", "segment_reduce", "ordered_histogram",
+           "segmented_polyhash", "segmented_affine", "segmented_sum_scan")
 
 
 def emit(obj) -> None:
@@ -155,11 +171,12 @@ def check_kernels(torch, so) -> dict:
     Counting kernels: ids include -1 and >= the bound, weights 0/1 and
     signed; sizes 242 and 300 (and 242^2 bins) take the global-atomic
     branch.  ``segment_reduce``: sorted ids with leading -1s, skipped ids
-    and ids >= S, int32 / float32 / bool values, sum / min / max, up to a
-    524,288-row chunk into 10^6 segments and one run over a whole chunk.
-    The row-order float fold (and a float32 segment sum) is held against
-    the plain version on CPU copies of the inputs: CUDA ``index_add_`` adds
-    in no fixed order, so the card has no plain row-order fold."""
+    and ids >= S, int32 / float32 / bool / uint32 values, sum / min / max,
+    up to a 524,288-row chunk into 10^6 segments and one run over a whole
+    chunk.  The row-order float fold (and a float32 segment sum) is held
+    against the plain version on CPU copies of the inputs: CUDA
+    ``index_add_`` adds in no fixed order, so the card has no plain
+    row-order fold.  The segmented scans: see ``check_scans``."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dev = "cuda"
 
@@ -216,8 +233,12 @@ def check_kernels(torch, so) -> dict:
                          (524_288, 75_000, False), (524_288, NUM_CASES, False),
                          (524_288, NUM_CASES, True)):
         seg = sorted_ids(n, s, single)
-        for dtype in ("int32", "float32", "bool"):
-            if dtype == "int32":
+        for dtype in ("int32", "float32", "bool", "uint32"):
+            if dtype == "uint32":
+                vals = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                                     device=dev, dtype=torch.int32
+                                     ).view(torch.uint32)
+            elif dtype == "int32":
                 vals = torch.randint(-1000, 1000, (n,), generator=gen,
                                      device=dev, dtype=torch.int32)
             elif dtype == "float32":
@@ -230,6 +251,8 @@ def check_kernels(torch, so) -> dict:
                     want = so.segment_reduce_ref(vals.cpu(), seg.cpu(), s, op)
                 else:
                     want = so.segment_reduce_ref(vals, seg, s, op)
+                if dtype == "uint32":      # compared as bit patterns
+                    got, want = got.view(torch.int32), want.view(torch.int32)
                 record("segment_reduce", got, want,
                        f"N={n} S={s} single_run={single} {dtype} {op}")
     for b in (1, 26, 676):
@@ -241,11 +264,112 @@ def check_kernels(torch, so) -> dict:
                     v.cpu(), w.cpu(), b, None if into is None else into.cpu())
                 record("ordered_histogram", got, want,
                        f"B={b} E={e} into={into is not None}")
+    check_scans(torch, so, gen, record)
     torch.cuda.synchronize()
     return out
 
 
-def time_kernels(torch, so, engine, frame_gpu) -> dict:
+def scan_starts(torch, gen, n: int, runs: str, flag0: bool):
+    """Start flags for runs of one row, ~7 rows (L1's mean case), 64 rows
+    (L1's longest case), or one run over everything; row 0 flagged or not
+    (an unflagged row 0 continues the carry)."""
+    dev = "cuda"
+    if runs == "one":
+        starts = torch.ones(n, dtype=torch.bool, device=dev)
+    elif runs == "short":
+        starts = torch.rand(n, generator=gen, device=dev) < 1 / 7
+    elif runs == "64":
+        starts = torch.arange(n, device=dev) % 64 == 0
+    else:
+        starts = torch.zeros(n, dtype=torch.bool, device=dev)
+    if n:
+        starts[0] = flag0
+    return starts
+
+
+def fold_affine(mul, add, starts, carry):
+    """The sequential affine fold in Python integers: the oracle for one
+    run over a whole chunk, where the plain version would step once per
+    row."""
+    m = mul.cpu().numpy().view(np.uint32).tolist()
+    b = add.cpu().numpy().view(np.uint32).tolist()
+    f = starts.cpu().numpy().tolist()
+    h = int(carry.cpu().numpy().view(np.uint32))
+    out = []
+    for mi, bi, fi in zip(m, b, f):
+        h = ((0 if fi else h) * mi + bi) & 0xFFFFFFFF
+        out.append(h)
+    return np.array(out, np.uint32).view(np.int32)
+
+
+def fold_sum(x, starts, carry):
+    """Row-order float32 prefix sums run by run (``np.add.accumulate`` is
+    sequential): the oracle for one run over a whole chunk."""
+    xs = x.cpu().numpy().reshape(x.shape[0], -1)
+    f, c = starts.cpu().numpy(), carry.cpu().numpy().reshape(-1)
+    out = np.empty_like(xs)
+    heads = np.flatnonzero(f | (np.arange(len(f)) == 0))
+    for lo, hi in zip(heads, list(heads[1:]) + [len(f)]):
+        seed = np.zeros_like(c) if f[lo] else c
+        out[lo:hi] = np.add.accumulate(np.concatenate([seed[None], xs[lo:hi]]),
+                                       axis=0)[1:]
+    return out.reshape(x.shape)
+
+
+def check_scans(torch, so, gen, record) -> None:
+    """The three segmented scans against their plain versions, bitwise:
+    n = 0, 1, 511, 524,288; runs of 1, ~7 and 64 rows and one run over
+    everything; row 0 flagged and not; carries 0 and non-zero.  polyhash
+    and affine (random uint32 maps) are compared with the plain version on
+    the card; the float32 sums (non-integer rows across eight decades,
+    (N, 26) and (N,)) with the plain version on CPU copies.  One run over a
+    whole chunk is held against the sequential folds above."""
+    from repro_torch.core.polyhash import BASE1, BASE2
+
+    dev = "cuda"
+    for n in (0, 1, 511, 524_288):
+        for runs in ("one", "short", "64", "whole"):
+            for flag0 in (True, False):
+                starts = scan_starts(torch, gen, n, runs, flag0)
+                serial = runs == "whole" and n > 511
+                what = f"N={n} runs={runs} row0_flagged={flag0}"
+                for c, base in ((0, BASE1), (0x9E3779B9 - 2**32, BASE2)):
+                    carry = torch.tensor(c, dtype=torch.int32, device=dev)
+                    vals = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                                         device=dev, dtype=torch.int32)
+                    mul = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                                        device=dev, dtype=torch.int32)
+                    ys, out = so.segmented_polyhash_cuda(vals, starts, carry, base)
+                    ya, oa = so.segmented_affine_cuda(mul, vals, starts, carry)
+                    if serial:
+                        want = torch.from_numpy(fold_affine(
+                            torch.full_like(vals, base), vals, starts, carry))
+                        want_a = torch.from_numpy(fold_affine(mul, vals, starts, carry))
+                    else:
+                        want, _ = so.segmented_scan_ref(vals, starts, carry,
+                                                        "polyhash", base)
+                        want_a, _ = so.segmented_affine_ref(mul, vals, starts, carry)
+                    record("segmented_polyhash", ys, want, f"{what} carry={c}")
+                    record("segmented_affine", ya, want_a, f"{what} carry={c}")
+                    if n:
+                        record("segmented_polyhash", out, ys[-1], f"{what} carry_out")
+                        record("segmented_affine", oa, ya[-1], f"{what} carry_out")
+                for shape in ((n, 26), (n,)):
+                    mag = 10.0 ** torch.randint(-3, 5, shape, generator=gen, device=dev)
+                    x = (torch.randn(shape, generator=gen, device=dev) * mag).float()
+                    carry = torch.randn(shape[1:], generator=gen, device=dev)
+                    ys, out = so.segmented_sum_scan_cuda(x, starts, carry)
+                    if serial:
+                        want = torch.from_numpy(fold_sum(x, starts, carry))
+                    else:
+                        want, _ = so.segmented_scan_ref(x.cpu(), starts.cpu(),
+                                                        carry.cpu(), "sum")
+                    record("segmented_sum_scan", ys, want, f"{what} shape={shape}")
+                    if n:
+                        record("segmented_sum_scan", out, ys[-1], f"{what} carry_out")
+
+
+def time_kernels(torch, so, engine, frame_gpu, ghosts) -> dict:
     """Kernel, plain-version and library times at the main path's shapes:
     the DFG update's inputs over the L1 log, per 524,288-row chunk (the
     chunks cycle, so inputs come from HBM, not L2) and over the whole log."""
@@ -309,13 +433,15 @@ def time_kernels(torch, so, engine, frame_gpu) -> dict:
         **bound(8 * e + 4 * a * a, e)}
     torch.cuda.synchronize()
     rows.update(time_stats_kernels(torch, so, engine, frame_gpu, spans))
+    rows.update(time_scan_kernels(torch, so, engine, frame_gpu, spans, ghosts))
     return rows
 
 
 def time_stats_kernels(torch, so, engine, frame_gpu, spans) -> dict:
     """The stats path's kernels at its chunk shapes over the L1 log:
     ``segment_reduce`` into 10^6 segments (int32 sum = ``case_sizes``,
-    float32 min/max = ``case_durations``, bool max = the case filter), and
+    float32 min/max = ``case_durations``, bool max = the case filter,
+    uint32 max = the variants' fingerprints), and
     the row-order fold of the sojourn totals (26 bins; 676 bins is the
     float ``pair_count`` shape)."""
     s_n, a = NUM_CASES, NUM_ACTIVITIES
@@ -325,9 +451,15 @@ def time_stats_kernels(torch, so, engine, frame_gpu, spans) -> dict:
     seg = engine.global_segments(adj, carry).contiguous()
     seg_long = seg.long()
     ts = adj.ts.contiguous()
+    # the variants' unsigned max: each case's polyhash at its last row
+    hs, _ = so.segmented_polyhash_cuda(
+        (adj.act.to(torch.int32) + 1).contiguous(), adj.new_seg.contiguous(),
+        torch.zeros((), dtype=torch.int32, device="cuda"), 1_000_003)
+    ends = torch.cat([adj.new_seg[1:], torch.ones(1, dtype=torch.bool, device="cuda")])
     inputs = {"sum_int32": ("sum", adj.rv.to(torch.int32).contiguous()),
               "min_float32": ("min", ts), "max_float32": ("max", ts),
-              "max_bool": ("max", (adj.act == 0).to(torch.int32).contiguous())}
+              "max_bool": ("max", (adj.act == 0).to(torch.int32).contiguous()),
+              "max_uint32": ("max", torch.where(ends, hs, 0).view(torch.uint32))}
     lib_op = {"sum": "sum", "min": "amin", "max": "amax"}
     k = len(spans)
     e = spans[0][1] - spans[0][0]
@@ -338,8 +470,12 @@ def time_stats_kernels(torch, so, engine, frame_gpu, spans) -> dict:
         return t[lo:hi]
 
     for label, (op, vals) in inputs.items():
-        lib_out = torch.full((s_n,), so.reduce_identity(op, vals.dtype).item(),
-                             dtype=vals.dtype, device="cuda")
+        # the library call reduces int64 copies of uint32 values (torch has
+        # no uint32 scatter max)
+        unsigned = vals.dtype == torch.uint32
+        lib_vals = so.ref.u32_values(vals) if unsigned else vals
+        ident = 0 if unsigned else so.reduce_identity(op, vals.dtype).item()
+        lib_out = torch.full((s_n,), ident, dtype=lib_vals.dtype, device="cuda")
         rows[f"segment_reduce/{label}/chunk"] = {
             "E": e, "S": s_n, "op": op,
             "ms": time_ms(torch, lambda i: so.segment_reduce_cuda(
@@ -350,7 +486,7 @@ def time_stats_kernels(torch, so, engine, frame_gpu, spans) -> dict:
             "plain_ms": time_ms(torch, lambda i: so.segment_reduce_ref(
                 sl(vals, i), sl(seg, i), s_n, op), k),
             "library_ms": time_ms(torch, lambda i: lib_out.scatter_reduce_(
-                0, sl(seg_long, i), sl(vals, i), lib_op[op], include_self=True), k),
+                0, sl(seg_long, i), sl(lib_vals, i), lib_op[op], include_self=True), k),
             **bound(8 * e + 4 * s_n, e)}
     # one run over a whole chunk: one thread folds all of it
     one = torch.zeros(e, dtype=torch.int32, device="cuda")
@@ -391,6 +527,85 @@ def time_stats_kernels(torch, so, engine, frame_gpu, spans) -> dict:
     return rows
 
 
+def time_scan_kernels(torch, so, engine, frame_gpu, spans, ghosts) -> dict:
+    """The segmented scans at the variants and performance paths' chunk
+    shapes over the L1 log: the polyhash of ``act + 1`` (524,288 rows), the
+    affine scan at the same shape (maps ``(BASE1, act + 1)``) and at the
+    ghost chunks' shape, and the (524,288 x 26) float32 one-hot prefix sum
+    of ``eventually_follows``.  No single PyTorch call computes a segmented
+    scan (``library_ms`` is None); an unsegmented ``torch.cumsum`` of the
+    same rows is recorded as a yardstick only.  ``single_run_ms``: one run
+    over a whole chunk, walked by one thread per column."""
+    from repro_torch.core.polyhash import BASE1, SK_ADD1, SK_MUL1
+
+    a_n = NUM_ACTIVITIES
+    adj = engine.adjacent(frame_gpu, engine.init_row_carry("cuda"))
+    starts = adj.new_seg.contiguous()
+    vals = (adj.act.to(torch.int32) + 1).contiguous()
+    mul = torch.full_like(vals, BASE1)
+    onehot = ((adj.act.long()[:, None] == torch.arange(a_n, device="cuda")[None, :])
+              & adj.rv[:, None]).to(torch.float32).contiguous()
+    c0 = torch.zeros((), dtype=torch.int32, device="cuda")
+    p0 = torch.zeros(a_n, dtype=torch.float32, device="cuda")
+    k = len(spans)
+    e = spans[0][1] - spans[0][0]
+    one = torch.zeros(e, dtype=torch.bool, device="cuda")
+    one[0] = True
+
+    def sl(t, i):
+        lo, hi = spans[i]
+        return t[lo:hi]
+
+    calls = {
+        "segmented_polyhash": (
+            lambda i: so.segmented_polyhash_cuda(sl(vals, i), sl(starts, i), c0, BASE1),
+            lambda i: so.segmented_scan_ref(sl(vals, i), sl(starts, i), c0,
+                                            "polyhash", BASE1),
+            lambda: so.segmented_polyhash_cuda(vals[:e], one, c0, BASE1),
+            None, 9 * e, 2 * e),
+        "segmented_affine": (
+            lambda i: so.segmented_affine_cuda(sl(mul, i), sl(vals, i), sl(starts, i), c0),
+            lambda i: so.segmented_affine_ref(sl(mul, i), sl(vals, i), sl(starts, i), c0),
+            lambda: so.segmented_affine_cuda(mul[:e], vals[:e], one, c0),
+            None, 13 * e, 2 * e),
+        "segmented_sum_scan": (
+            lambda i: so.segmented_sum_scan_cuda(sl(onehot, i), sl(starts, i), p0),
+            lambda i: so.segmented_scan_ref(sl(onehot, i), sl(starts, i), p0, "sum"),
+            lambda: so.segmented_sum_scan_cuda(onehot[:e], one, p0),
+            lambda i: torch.cumsum(sl(onehot, i), 0),
+            (8 * a_n + 1) * e, a_n * e),
+    }
+    rows = {}
+    for name, (kern, plain, single, yard, nbytes, ops) in calls.items():
+        row = {"E": e, "ms": time_ms(torch, kern, k),
+               "graph_ms": graph_ms(torch, lambda kern=kern: [kern(i) for i in range(k)], k),
+               "plain_ms": time_ms(torch, plain, k, iters=10),
+               "single_run_ms": time_ms(torch, lambda i: single(), 1, iters=3),
+               "library_ms": None, **bound(nbytes, ops)}
+        if yard is not None:
+            row["yardstick_unsegmented_cumsum_ms"] = time_ms(torch, yard, k)
+        rows[f"{name}/chunk"] = row
+    # the affine scan at the ghost chunks' shape: one row per case segment
+    # of a 524,288-row group, padded to a power of two with the tail case,
+    # so the padding is one run of up to half the rows, walked by one
+    # thread (and stepped once per row by the plain version, which is
+    # therefore not timed here)
+    g = ghosts[0]
+    gm, ga = g[SK_MUL1].view(torch.int32), g[SK_ADD1].view(torch.int32)
+    gadj = engine.adjacent(g, engine.init_row_carry("cuda"))
+    gs = gadj.new_seg.contiguous()
+    m = gm.shape[0]
+    rows["segmented_affine/ghost_chunk"] = {
+        "E": m,
+        "ms": time_ms(torch, lambda i: so.segmented_affine_cuda(gm, ga, gs, c0), 1),
+        "graph_ms": graph_ms(torch, lambda: [so.segmented_affine_cuda(gm, ga, gs, c0)], 1),
+        "longest_run": int(torch.diff(torch.nonzero(torch.cat([
+            gs, torch.ones(1, dtype=torch.bool, device="cuda")]))[:, 0]).max()),
+        "library_ms": None, **bound(13 * m, 2 * m)}
+    torch.cuda.synchronize()
+    return rows
+
+
 def numpy_dfg(case: np.ndarray, act: np.ndarray, a: int):
     """Independent host oracle of the DFG of an all-valid sorted log."""
     same = case[1:] == case[:-1]
@@ -425,6 +640,58 @@ def numpy_stats(case: np.ndarray, act: np.ndarray, ts: np.ndarray, a: int,
     return {"activity_counts": np.bincount(act, minlength=a).astype(np.int32),
             "case_sizes": sizes, "case_durations": dur,
             "sojourn_times": tot / np.maximum(cnt, 1).astype(np.float32)}
+
+
+def ghost_chunk(torch, case: np.ndarray, act: np.ndarray, lo: int, hi: int):
+    """The ghost chunk of rows [lo, hi) on the card, as the JAX package's
+    query executor builds one for a row group a pruned scan skips: one
+    all-masked row per case segment (its case id; activity 0 except on the
+    tail row, which keeps the halo), padded to a power of two with the tail
+    case, and each segment's composed affine polyhash maps in the sketch
+    columns (identity maps on padding)."""
+    from repro_torch.core import ACTIVITY, CASE, EventFrame, polyhash
+
+    c, a = case[lo:hi], act[lo:hi]
+    seg_cases = c[np.flatnonzero(np.concatenate([[True], c[1:] != c[:-1]]))]
+    d = seg_cases.size
+    m = 1 << (d - 1).bit_length()
+    cc = np.full(m, c[-1], case.dtype)
+    cc[:d - 1] = seg_cases[:d - 1]
+    aa = np.zeros(m, act.dtype)
+    aa[d - 1:] = a[-1]
+    cols = {CASE: cc, ACTIVITY: aa,
+            **polyhash.sketch_columns(polyhash.segment_sketch(a, c), d, m)}
+    f = EventFrame.from_numpy(cols, device="cuda")
+    return EventFrame(f.columns, f.valid,
+                      torch.zeros(m, dtype=torch.bool, device="cuda"))
+
+
+def numpy_performance(case: np.ndarray, act: np.ndarray, ts: np.ndarray,
+                      a: int) -> dict:
+    """Independent host oracles of the performance overlays of an all-valid
+    sorted log: edge counts by ``bincount``; float32 wait totals folded with
+    ``np.add.at`` in row order on the pair key; EFG pairs counted block by
+    block over cases of one length, one position offset at a time; and the
+    remaining time from ``np.maximum.reduceat``."""
+    n = case.shape[0]
+    same = case[1:] == case[:-1]
+    key = act[:-1].astype(np.int64) * a + act[1:]
+    counts = np.bincount(key[same], minlength=a * a).astype(np.int32)
+    dt = ts[1:] - ts[:-1]
+    total = np.zeros(a * a, np.float32)
+    np.add.at(total, key[same], dt[same])
+    mean = total / np.maximum(counts, 1).astype(np.float32)
+    starts = np.flatnonzero(np.concatenate([[True], ~same]))
+    lens = np.diff(np.append(starts, n))
+    efg = np.zeros(a * a, np.int64)
+    for length in np.unique(lens[lens > 1]):
+        block = act[starts[lens == length][:, None] + np.arange(length)]
+        for d in range(1, length):
+            pair = block[:, :-d].astype(np.int64) * a + block[:, d:]
+            efg += np.bincount(pair.ravel(), minlength=a * a)
+    remaining = np.repeat(np.maximum.reduceat(ts, starts), lens) - ts
+    return {"counts": counts.reshape(a, a), "mean_wait": mean.reshape(a, a),
+            "efg": efg.reshape(a, a).astype(np.int32), "remaining": remaining}
 
 
 def staged_stream(torch, kernel, path: str, columns, edf):
@@ -480,7 +747,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import (ACTIVITY, CASE, TIMESTAMP, ChunkedEventFrame,
                                   EventFrame, dfg, dfg_kernel, engine, filtering,
-                                  run_streaming, stats_kernel)
+                                  performance, polyhash, run_streaming,
+                                  stats_kernel, variants)
     from repro_torch.data import synthetic
     from repro_torch.kernels import _build
     from repro_torch.kernels import segment_ops as so
@@ -690,8 +958,145 @@ def main() -> int:
               "events_kept": int(rows_kept.sum()), "launches": f_l,
               "bitwise_equal_to": ["numpy_oracle"], "nvidia_smi": smi})
 
+        # ------------- variants path: fingerprints, and a ghost stream
+        v_kernel = variants.variants_kernel(NUM_CASES)
+        run_streaming(v_kernel, source)        # warm-up
+        torch.cuda.synchronize()
+        reset_launches(so)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        v_gpu = run_streaming(v_kernel, source)
+        torch.cuda.synchronize()
+        t_var = time.perf_counter() - t0
+        launches["variants_path"] = read_launches(so)
+        v_peak = torch.cuda.max_memory_allocated()
+
+        v_staged, v_stages = staged_stream(torch, v_kernel, path, cols_proj, edf)
+        v_cpu = run_streaming(v_kernel, ChunkedEventFrame.from_edf(
+            path, columns=cols_proj, device="cpu"))
+        v_whole = variants.variant_fingerprints(frame_gpu)
+        # every other row group replaced by its ghost chunk
+        cuts = list(range(0, events, ROW_GROUP_ROWS))
+        g_chunks = list(ChunkedEventFrame.from_cuts(frame_cpu, cuts, device="cuda"))
+        ghosts = []
+        for gi, lo in enumerate(cuts):
+            if gi % 2:
+                g_chunks[gi] = ghost_chunk(torch, case_np, act_np, lo,
+                                           min(lo + ROW_GROUP_ROWS, events))
+                ghosts.append(g_chunks[gi])
+        reset_launches(so)
+        v_ghost = run_streaming(v_kernel, g_chunks, device="cuda")
+        torch.cuda.synchronize()
+        launches["ghost_stream"] = read_launches(so)
+        sk = polyhash.segment_sketch(act_np, case_np)
+        v_oracle = []
+        for key in ("add1", "add2"):
+            fp = np.zeros(NUM_CASES, np.int64)
+            fp[:cases] = sk[key]
+            v_oracle.append(fp)
+        v_oracle.append(np.asarray(cases, np.int32))
+
+        def fps(res):
+            return tuple(x.cpu().numpy() for x in res)
+
+        v_got = fps(v_gpu)
+        whole_fp = fps(v_whole)
+        for label, other in (("cpu_plain_stream", fps(v_cpu)),
+                             ("staged_stream", fps(v_staged)),
+                             ("whole_log", (whole_fp[0][:NUM_CASES],
+                                            whole_fp[1][:NUM_CASES], v_got[2])),
+                             ("ghost_stream", fps(v_ghost)),
+                             ("numpy_sketch_oracle", tuple(v_oracle))):
+            for name, x, y in zip(("fp1", "fp2", "ncases"), v_got, other):
+                check_equal(f"streamed variants {name} vs {label}", x, y)
+        pairs = np.stack([sk["add1"], sk["add2"]], axis=1).astype(np.int64)
+        uniq, n_per = np.unique(pairs, axis=0, return_counts=True)
+        o_counts = {(int(u[0]), int(u[1])): int(c) for u, c in zip(uniq, n_per)}
+        if variants.variant_counts(frame_gpu) != o_counts:
+            raise AssertionError("variant_counts on the card != np.unique oracle")
+        if variants.streaming_variant_counts(source, NUM_CASES) != o_counts:
+            raise AssertionError("streamed variant counts != np.unique oracle")
+        var_l, gh_l = launches["variants_path"], launches["ghost_stream"]
+        if (var_l["segmented_polyhash"] < 2 * chunks
+                or var_l["segment_reduce"] < 2 * chunks
+                or gh_l["segmented_affine"] < 2 * len(ghosts)):
+            raise AssertionError(f"variants path did not go through the kernels: "
+                                 f"{var_l}, ghost stream {gh_l}, for {chunks} "
+                                 f"chunks and {len(ghosts)} ghost chunks")
+        emit({"phase": "variants_path", "events": events, "chunks": chunks,
+              "num_cases": NUM_CASES, "seconds": t_var,
+              "events_per_s": events / t_var, "stages_s": v_stages,
+              "max_memory_allocated": v_peak, "launches": var_l,
+              "ghost_stream": {"ghost_chunks": len(ghosts),
+                               "ghost_rows": [g.nrows for g in ghosts],
+                               "launches": gh_l},
+              "bitwise_equal_to": ["cpu_plain_stream", "staged_stream",
+                                   "whole_log", "ghost_stream",
+                                   "numpy_sketch_oracle"],
+              "variants": len(o_counts), "nvidia_smi": smi})
+        emit({"phase": "variants_path_profile",
+              **idle_share(torch, lambda: run_streaming(v_kernel, source), t_var)})
+
+        # ------ performance path: timed DFG + eventually-follows, one pass
+        p_kernel = engine.compose({
+            "performance_dfg": performance.performance_dfg_kernel(NUM_ACTIVITIES),
+            "eventually_follows": performance.eventually_follows_kernel(NUM_ACTIVITIES)})
+        run_streaming(p_kernel, s_source)      # warm-up
+        torch.cuda.synchronize()
+        reset_launches(so)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p_gpu = run_streaming(p_kernel, s_source)
+        torch.cuda.synchronize()
+        t_perf = time.perf_counter() - t0
+        launches["performance_path"] = read_launches(so)
+        p_peak = torch.cuda.max_memory_allocated()
+
+        p_staged, p_stages = staged_stream(torch, p_kernel, path, stats_cols, edf)
+        p_cpu = run_streaming(p_kernel, ChunkedEventFrame.from_edf(
+            path, columns=stats_cols, device="cpu"))
+        p_whole = engine.run_single(p_kernel, frame_gpu)
+        p_oracle = numpy_performance(case_np, act_np, ts_np, NUM_ACTIVITIES)
+
+        def perf(res):
+            counts, mean = res["performance_dfg"]
+            return {"counts": counts.cpu().numpy(), "mean_wait": mean.cpu().numpy(),
+                    "efg": res["eventually_follows"].cpu().numpy()}
+
+        p_got = perf(p_gpu)
+        for label, other in (("cpu_plain_stream", perf(p_cpu)),
+                             ("staged_stream", perf(p_staged)),
+                             ("whole_log", perf(p_whole)),
+                             ("numpy_oracle", p_oracle)):
+            for name, x in p_got.items():
+                check_equal(f"streamed {name} vs {label}", x, other[name])
+        rt = performance.remaining_time_targets(frame_gpu).cpu().numpy()
+        check_equal("remaining_time_targets vs numpy oracle", rt, p_oracle["remaining"])
+        check_equal("remaining_time_targets vs CPU plain", rt,
+                    performance.remaining_time_targets(frame_cpu).numpy())
+        p_l = launches["performance_path"]
+        if (p_l["pair_count"] < chunks or p_l["ordered_histogram"] < chunks
+                or p_l["segmented_sum_scan"] < chunks):
+            raise AssertionError(f"performance path did not go through the "
+                                 f"kernels: {p_l} for {chunks} chunks")
+        emit({"phase": "performance_path", "events": events, "chunks": chunks,
+              "seconds": t_perf, "events_per_s": events / t_perf,
+              "stages_s": p_stages, "max_memory_allocated": p_peak,
+              "launches": p_l,
+              "bitwise_equal_to": ["cpu_plain_stream", "staged_stream",
+                                   "whole_log", "numpy_oracle"],
+              "checks": {"dfg_edges": int(p_got["counts"].sum()),
+                         "events_minus_cases": events - cases,
+                         "efg_pairs": int(p_got["efg"].sum()),
+                         "mean_wait_finite": bool(np.isfinite(
+                             p_got["mean_wait"]).all()),
+                         "remaining_time_targets": "bitwise numpy oracle"},
+              "nvidia_smi": smi})
+        emit({"phase": "performance_path_profile",
+              **idle_share(torch, lambda: run_streaming(p_kernel, s_source), t_perf)})
+
         # ------------------------------------------- kernel times on card
-        times = time_kernels(torch, so, engine, frame_gpu)
+        times = time_kernels(torch, so, engine, frame_gpu, ghosts)
         emit({"phase": "kernel_times", "nvidia_smi": smi, "rows": times})
     finally:
         Path(path).unlink(missing_ok=True)
@@ -716,6 +1121,12 @@ def main() -> int:
               times["segment_reduce/sum_int32/chunk"]),
         entry("ordered_histogram", csrc + "ordered_histogram.cu",
               ORDERED_FOLD_TPU, times["ordered_histogram/sojourn_26/chunk"]),
+        entry("segmented_polyhash", csrc + "segmented_scan.cu", POLYHASH_TPU,
+              times["segmented_polyhash/chunk"]),
+        entry("segmented_affine", csrc + "segmented_scan.cu", AFFINE_TPU,
+              times["segmented_affine/chunk"]),
+        entry("segmented_sum_scan", csrc + "segmented_scan.cu", SUM_SCAN_TPU,
+              times["segmented_sum_scan/chunk"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,17 +1,23 @@
 """Core library: the paper's event-dataframe abstraction, the DFG path, the
-case/event statistics and the event- and case-level filters."""
+case/event statistics, the event- and case-level filters, the variants and
+the performance overlays (timed DFG, eventually-follows)."""
 from .eventframe import ACTIVITY, CASE, TIMESTAMP, EventFrame, concat_frames
 from .dfg import (DFG, dfg, dfg_kernel, dfg_matmul, dfg_segment,
                   dfg_shift_count, stitch_dfg_state)
 from .engine import ChunkKernel, compose, run_single, run_streaming
 from .chunked import ChunkedEventFrame
 from .stats import stats_kernel
-from . import backend, engine, filtering, ops, polyhash, stats
+from .variants import variants_kernel
+from .performance import eventually_follows_kernel, performance_dfg_kernel
+from . import (backend, engine, filtering, ops, performance, polyhash, stats,
+               variants)
 
 __all__ = [
     "ACTIVITY", "CASE", "TIMESTAMP", "EventFrame", "concat_frames",
     "DFG", "dfg", "dfg_kernel", "dfg_matmul", "dfg_segment",
     "dfg_shift_count", "stitch_dfg_state", "ChunkKernel", "compose",
     "run_single", "run_streaming", "ChunkedEventFrame", "stats_kernel",
-    "backend", "engine", "filtering", "ops", "polyhash", "stats",
+    "variants_kernel", "eventually_follows_kernel", "performance_dfg_kernel",
+    "backend", "engine", "filtering", "ops", "performance", "polyhash",
+    "stats", "variants",
 ]

@@ -97,8 +97,8 @@ def register_kernel(spec: KernelSpec) -> KernelSpec:
 
 def _load_standard_specs() -> None:
     # algorithm modules register their specs at import time; the port has
-    # the DFG and the statistics so far
-    from . import dfg, stats  # noqa: F401
+    # the DFG, the statistics, the variants and the performance overlays
+    from . import dfg, performance, stats, variants  # noqa: F401
 
 
 def kernel_spec(name: str) -> KernelSpec:
@@ -159,10 +159,14 @@ def carry_to_numpy(carry: Carry) -> dict[str, np.ndarray]:
 
 def carry_from_numpy(d: Mapping[str, np.ndarray], device) -> Carry:
     """A carry from numpy values — e.g. the JAX package's carry after it
-    folded a prefix of the stream, so the port can fold the rest."""
+    folded a prefix of the stream, so the port can fold the rest.  uint32
+    entries (the variants' hash state ``h1``/``h2``) become int32 tensors
+    holding the same bit patterns, the form the port's kernels take."""
     out = {}
     for k, v in d.items():
         arr = np.asarray(v)
+        if arr.dtype == np.uint32:
+            arr = arr.view(np.int32)
         dtype = CARRY_DTYPES.get(k)
         t = torch.from_numpy(arr.copy()) if dtype is None else \
             torch.tensor(arr.item(), dtype=dtype)
@@ -352,3 +356,23 @@ def streaming_case_durations(chunks, num_cases: int):
 def streaming_sojourn_times(chunks, num_activities: int):
     from .stats import sojourn_times_kernel
     return run_streaming(sojourn_times_kernel(num_activities), chunks)
+
+
+def streaming_variant_fingerprints(chunks, num_cases: int):
+    from .variants import variants_kernel
+    return run_streaming(variants_kernel(num_cases), chunks)
+
+
+def streaming_variant_counts(chunks, num_cases: int):
+    from .variants import streaming_variant_counts as _svc
+    return _svc(chunks, num_cases)
+
+
+def streaming_performance_dfg(chunks, num_activities: int):
+    from .performance import performance_dfg_kernel
+    return run_streaming(performance_dfg_kernel(num_activities), chunks)
+
+
+def streaming_eventually_follows(chunks, num_activities: int):
+    from .performance import eventually_follows_kernel
+    return run_streaming(eventually_follows_kernel(num_activities), chunks)

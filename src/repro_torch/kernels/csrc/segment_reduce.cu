@@ -1,8 +1,10 @@
-// Sum / min / max of int32 or float32 values over sorted segment ids, for
-// Hopper (sm_90a): out[s] = op(out[s], v_i ...) over the rows with id s,
-// ids outside [0, S) (including -1) dropped. The caller fills out with the
-// op's identity first (0, +-inf, or the int32 bounds), so empty segments
-// keep it.
+// Sum / min / max of int32, uint32 or float32 values over sorted segment
+// ids, for Hopper (sm_90a): out[s] = op(out[s], v_i ...) over the rows with
+// id s, ids outside [0, S) (including -1) dropped. The caller fills out
+// with the op's identity first (0, +-inf, the int32 bounds, or 0 /
+// 0xFFFFFFFF for uint32 max / min), so empty segments keep it. uint32
+// values (the variant hashes) compare unsigned: about half of them are
+// >= 2^31, where a signed max would lose to the identity.
 //
 // Replaces: src/repro/kernels/segment_ops/segment_reduce.py,
 // segment_reduce_pallas (a VMEM-resident output carried across a
@@ -48,6 +50,13 @@ __device__ __forceinline__ T combine(T acc, T v) {
 
 template <int OP>
 __device__ __forceinline__ void store(int32_t* out, int32_t v) {
+  if (OP == kSum) atomicAdd(out, v);
+  else if (OP == kMin) atomicMin(out, v);
+  else atomicMax(out, v);
+}
+
+template <int OP>
+__device__ __forceinline__ void store(uint32_t* out, uint32_t v) {
   if (OP == kSum) atomicAdd(out, v);
   else if (OP == kMin) atomicMin(out, v);
   else atomicMax(out, v);
@@ -130,22 +139,28 @@ extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// seg: (n,) int32 sorted segment ids; val: (n,) int32 (is_float == 0) or
-// float32 (is_float == 1); out: (num_segments,) of val's type, filled with
-// the identity of op (0 sum, 1 min, 2 max) by the caller. num_segments must
-// fit int32. Returns the launch's cudaError_t (0 on success); never
-// synchronizes.
+// seg: (n,) int32 sorted segment ids; val: (n,) int32 (kind == 0), float32
+// (kind == 1) or uint32 (kind == 2); out: (num_segments,) of val's type,
+// filled with the identity of op (0 sum, 1 min, 2 max) by the caller.
+// num_segments must fit int32. Returns the launch's cudaError_t (0 on
+// success); never synchronizes.
 extern "C" int repro_segment_reduce(const void* seg, const void* val,
                                     int64_t n, int64_t num_segments, int op,
-                                    int is_float, void* out, void* stream) {
+                                    int kind, void* out, void* stream) {
   if (n <= 0 || num_segments <= 0) return 0;
   if (num_segments > INT32_MAX) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (is_float) {
+  if (kind == 1) {
     const float inf = std::numeric_limits<float>::infinity();
     const float ident = op == kSum ? 0.0f : (op == kMin ? inf : -inf);
     return (int)dispatch<float>(op, seg, val, n, num_segments, ident, out, st);
   }
+  if (kind == 2) {
+    const uint32_t ident = op == kMin ? UINT32_MAX : 0u;
+    return (int)dispatch<uint32_t>(op, seg, val, n, num_segments, ident, out,
+                                   st);
+  }
+  if (kind != 0) return (int)cudaErrorInvalidValue;
   const int32_t ident = op == kSum ? 0 : (op == kMin ? INT32_MAX : INT32_MIN);
   return (int)dispatch<int32_t>(op, seg, val, n, num_segments, ident, out, st);
 }

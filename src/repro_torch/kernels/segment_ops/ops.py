@@ -1,16 +1,18 @@
 """Public entry points for the segmented primitives.
 
 The paper reduces process-mining algorithms to a handful of columnar
-dataframe operations (§5.3–5.4); three of them carry the DFG, the
-statistics and the case filters:
+dataframe operations (§5.3–5.4); these five carry the DFG, the statistics,
+the case filters, the variants and the performance overlays:
 
-=================  ====================================  ====================
-primitive          paper operation (§5.3/5.4, Table 3)   lowerings
-=================  ====================================  ====================
-``segment_reduce`` group(D, case) + aggregate            cuda / ref
-``histogram``      counting ``c(e)`` after proj          cuda / ref
-``pair_count``     shift + mergstrv + count (DFG)        cuda / ref / matmul
-=================  ====================================  ====================
+=====================  ====================================  ===================
+primitive              paper operation (§5.3/5.4, Table 3)   lowerings
+=====================  ====================================  ===================
+``segment_reduce``     group(D, case) + aggregate            cuda / ref
+``histogram``          counting ``c(e)`` after proj          cuda / ref
+``pair_count``         shift + mergstrv + count (DFG)        cuda / ref / matmul
+``segmented_scan``     case-local fold (variants, EFG)       cuda / ref
+``segmented_affine``   the fold of composed sketch maps      cuda / ref
+=====================  ====================================  ===================
 
 Dispatch (``core.backend.resolve``): an explicit ``impl=`` wins; otherwise a
 CUDA tensor takes the hand-written kernel and a CPU tensor the plain
@@ -22,7 +24,11 @@ Float accumulation is order-sensitive, and the streaming engine promises
 row-order fold (``ordered_histogram_cuda`` on a card, ``index_add_`` on the
 CPU), which adds each weight onto ``into`` one row at a time, as the JAX
 package's XLA scatter does; integer counts are exact in any order and take
-the atomic kernels.
+the atomic kernels.  The segmented scans add in row order on both
+lowerings, so they need no such rule.
+
+uint32 operands (the polyhash scans) are int32 bit patterns or
+``torch.uint32`` tensors; the scans return the dtype they were given.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ from .histogram import histogram_cuda
 from .ordered_histogram import ordered_histogram_cuda
 from .pair_count import pair_count_cuda
 from .segment_reduce import segment_reduce_cuda
+from .segmented_scan import (segmented_affine_cuda, segmented_polyhash_cuda,
+                             segmented_sum_scan_cuda)
 
 
 def _resolve(device, impl):
@@ -144,3 +152,87 @@ def pair_count_matmul(src, dst, num_src, num_dst=None, weights=None, *,
     if w.dtype != torch.float32:
         return out.to(torch.int32)
     return out
+
+
+def _u32_operand(x: torch.Tensor) -> torch.Tensor:
+    """A uint32 operand as the kernels take it: int32 bit patterns."""
+    if x.dtype == torch.uint32:
+        return x.view(torch.int32).contiguous()
+    if x.dtype == torch.int32:
+        return x.contiguous()
+    raise TypeError(f"uint32 scan operands must be int32 bit patterns or "
+                    f"torch.uint32, got {x.dtype}")
+
+
+def _u32_carry(carry, device) -> torch.Tensor:
+    """The carry as a 0-d int32 bit pattern on ``device``: a Python int is
+    taken mod 2^32; a tensor is reinterpreted (uint32) or wrapped (int64)."""
+    if not isinstance(carry, torch.Tensor):
+        carry = torch.tensor(int(carry) & _ref.M32, dtype=torch.int64)
+    if carry.dtype == torch.uint32:
+        carry = carry.view(torch.int32)
+    elif carry.dtype != torch.int32:
+        carry = _ref.u32_bits(carry.to(torch.int64))
+    return carry.reshape(()).to(device)
+
+
+def _like(ys: torch.Tensor, carry: torch.Tensor, dtype: torch.dtype):
+    if dtype == torch.uint32:
+        return ys.view(torch.uint32), carry.view(torch.uint32)
+    return ys, carry
+
+
+def segmented_scan(values: torch.Tensor, seg_starts: torch.Tensor, carry,
+                   op: str = "sum", *, base: int | None = None,
+                   impl: str | None = None, assume_exact: bool = False):
+    """Case-local inclusive scan; returns ``(ys, carry_out)``.
+
+    ``op="sum"``: segmented prefix sum over (N,) or (N, K) float32 / int32
+    rows, seeded by ``carry`` (the open segment's running total, 0-d or
+    (K,)).  ``op="polyhash"``: the rolling hash ``h <- h*base + v`` (mod
+    2**32) over uint32 values.  ``carry_out`` is the inclusive value at the
+    final row (feeds the next chunk's carry) and stays on the device.
+    Both lowerings add float32 rows in row order, so ``assume_exact`` (kept
+    for the JAX signature) changes nothing.
+    """
+    del assume_exact
+    starts = seg_starts.to(torch.bool).contiguous()
+    if op == "polyhash":
+        if base is None:
+            raise ValueError("segmented_scan(op='polyhash') requires base=")
+        v = _u32_operand(values)
+        c = _u32_carry(carry, v.device)
+        if _resolve(values.device, impl) == "cuda":
+            ys, out = segmented_polyhash_cuda(v, starts, c, int(base))
+        else:
+            ys, out = _ref.segmented_scan_ref(v, starts, c, "polyhash", base)
+        return _like(ys, out, values.dtype)
+    if op == "sum":
+        if not isinstance(carry, torch.Tensor):
+            carry = torch.tensor(carry, dtype=values.dtype)
+        c = carry.to(values.device, values.dtype).contiguous()
+        if _resolve(values.device, impl) == "cuda":
+            return segmented_sum_scan_cuda(values.contiguous(), starts, c)
+        return _ref.segmented_scan_ref(values, starts, c, "sum")
+    raise ValueError(f"unknown segmented_scan op {op!r}")
+
+
+def segmented_affine(mul: torch.Tensor, add: torch.Tensor,
+                     seg_starts: torch.Tensor, carry, *,
+                     impl: str | None = None):
+    """Case-local scan of explicit affine maps ``h <- h*mul + add`` (mod
+    2**32); returns ``(ys, carry_out)``.
+
+    The generalization of ``segmented_scan(op="polyhash")`` where each row
+    carries its own coefficients — what lets the variants kernel fold a
+    pre-composed sketch entry (the collapsed map of a whole skipped case
+    run) in a single row.
+    """
+    m, b = _u32_operand(mul), _u32_operand(add)
+    starts = seg_starts.to(torch.bool).contiguous()
+    c = _u32_carry(carry, b.device)
+    if _resolve(add.device, impl) == "cuda":
+        ys, out = segmented_affine_cuda(m, b, starts, c)
+    else:
+        ys, out = _ref.segmented_affine_ref(m, b, starts, c)
+    return _like(ys, out, add.dtype)

@@ -8,12 +8,33 @@ the parity oracles of the CUDA kernels and the lowering every CPU tensor
 takes.  On the CPU ``index_add_`` adds in row order, so with float weights
 it is the row-order fold (``ordered_histogram_ref``); on a card it uses
 atomics, which is exact only for integer weights.
+
+uint32 values (the polyhash scans, variant fingerprints) are held in
+32-bit storage: int32 tensors with the bit patterns, or ``torch.uint32``
+views of them.  Most torch operations refuse ``torch.uint32``, so the plain
+versions compute on int64 values in ``[0, 2^32)`` and mask every product
+back to 32 bits (``u32_values`` / ``u32_bits``).
 """
 from __future__ import annotations
 
 import torch
 
 _SCATTER_OP = {"min": "amin", "max": "amax"}
+M32 = 0xFFFFFFFF
+
+
+def u32_values(x: torch.Tensor) -> torch.Tensor:
+    """uint32 values as int64 in ``[0, 2^32)``: int32 bit patterns and
+    ``torch.uint32`` tensors are read as unsigned, int64 taken mod 2^32."""
+    if x.dtype == torch.uint32:
+        x = x.view(torch.int32)
+    return x.to(torch.int64) & M32
+
+
+def u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values, taken mod 2^32, as int32 bit patterns."""
+    x = x & M32
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
 def reduce_identity(op: str, dtype: torch.dtype) -> torch.Tensor:
@@ -36,18 +57,25 @@ def segment_reduce_ref(values: torch.Tensor, segment_ids: torch.Tensor,
 
     Out-of-range ids (including -1) go to slot ``num_segments``, which is
     sliced off; empty segments hold ``reduce_identity(op)``.  Sums add in
-    row order on the CPU (``index_add_``).
+    row order on the CPU (``index_add_``).  ``torch.uint32`` values reduce
+    unsigned, on int64 copies (identity 0 for sum and max, 2^32 - 1 for
+    min), and come back as ``torch.uint32``.
     """
     s = num_segments
     ok = (segment_ids >= 0) & (segment_ids < s)
     idx = torch.where(ok, segment_ids.long(), s)
-    out = torch.full((s + 1,), reduce_identity(op, values.dtype).item(),
-                     dtype=values.dtype, device=values.device)
-    if op == "sum":
-        out.index_add_(0, idx, values)
+    unsigned = values.dtype == torch.uint32
+    if unsigned:
+        reduce_identity(op, torch.int64)          # validates op
+        vals, ident = u32_values(values), M32 if op == "min" else 0
     else:
-        out.scatter_reduce_(0, idx, values, _SCATTER_OP[op], include_self=True)
-    return out[:-1]
+        vals, ident = values, reduce_identity(op, values.dtype).item()
+    out = torch.full((s + 1,), ident, dtype=vals.dtype, device=values.device)
+    if op == "sum":
+        out.index_add_(0, idx, vals)
+    else:
+        out.scatter_reduce_(0, idx, vals, _SCATTER_OP[op], include_self=True)
+    return u32_bits(out[:-1]).view(torch.uint32) if unsigned else out[:-1]
 
 
 def histogram_ref(values: torch.Tensor, num_bins: int, weights: torch.Tensor,
@@ -124,3 +152,94 @@ def pair_count_matmul(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
         y = _one_hot(dst[lo:hi], num_dst)
         c += x.T @ y
     return c.to(w.dtype)
+
+
+# ------------------------------------------------------- segmented scans
+def _levels(seg_starts: torch.Tensor) -> list[torch.Tensor]:
+    """The rows grouped by their rank within their run: ``levels[k]`` holds
+    every row that is the k-th of its run, in row order.  Row 0 always opens
+    a run.  A fold then takes one vectorised step per rank (as many steps as
+    the longest run has rows), each row reading its predecessor's result."""
+    n = seg_starts.shape[0]
+    pos = torch.arange(n, device=seg_starts.device)
+    head = torch.cummax(torch.where(seg_starts, pos, 0), 0).values
+    rank = pos - head
+    order = torch.argsort(rank, stable=True)
+    ends = torch.cumsum(torch.bincount(rank), 0).tolist()
+    return [order[lo:hi] for lo, hi in zip([0] + ends[:-1], ends)]
+
+
+def _mul32(h: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``h * m mod 2^32`` for int64 values in ``[0, 2^32)``, with every
+    product below 2^49 (a 64-bit product would overflow int64)."""
+    lo = h * (m & 0xFFFF)
+    hi = (h * (m >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & M32
+
+
+def segmented_affine_ref(mul: torch.Tensor, add: torch.Tensor,
+                         seg_starts: torch.Tensor, carry
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fold of explicit affine maps ``h <- h*mul + add`` (mod 2^32),
+    ``h`` reset to 0 at each flagged row; an unflagged row 0 continues
+    ``carry``.  Returns ``(ys, carry_out)`` as int32 bit patterns, bitwise
+    the sequential fold.  ``mul``, ``add`` and ``carry`` are uint32 values in
+    int32 or uint32 storage (or int64, taken mod 2^32)."""
+    n = add.shape[0]
+    if n == 0:
+        return add, carry
+    starts = seg_starts.to(torch.bool)
+    m, b = u32_values(mul), u32_values(add)
+    c = u32_values(torch.as_tensor(carry, device=add.device)).reshape(1)
+    ys = torch.empty(n, dtype=torch.int64, device=add.device)
+    levels = _levels(starts)
+    heads = levels[0]
+    h = torch.zeros(heads.shape[0], dtype=torch.int64, device=add.device)
+    h[:1] = torch.where(starts[:1], 0, c)   # an unflagged row 0 continues the carry
+    ys[heads] = (_mul32(h, m[heads]) + b[heads]) & M32
+    for rows in levels[1:]:
+        ys[rows] = (_mul32(ys[rows - 1], m[rows]) + b[rows]) & M32
+    ys = u32_bits(ys)
+    return ys, ys[-1].clone()
+
+
+def segmented_scan_ref(values: torch.Tensor, seg_starts: torch.Tensor, carry,
+                       op: str = "sum", base: int | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive case-local scan, returning ``(ys, carry_out)`` with
+    ``carry_out`` the last row's value.
+
+    ``op="sum"``: prefix sums of (N,) or (N, K) rows seeded by ``carry``
+    (0-d or (K,)), each added in row order (``0 + v`` at a flagged row,
+    ``y[i-1] + v`` after it), so float32 results are bitwise the sequential
+    fold.  ``op="polyhash"``: ``h <- h*base + v`` mod 2^32 over uint32
+    values (see ``segmented_affine_ref``).  Vectorised over runs: one step
+    per rank within a run, not per row.
+    """
+    if op == "polyhash":
+        if base is None:
+            raise ValueError("segmented_scan_ref(op='polyhash') requires base=")
+        mul = torch.full(values.shape, int(base) & M32, dtype=torch.int64,
+                         device=values.device)
+        return segmented_affine_ref(mul, values, seg_starts, carry)
+    if op != "sum":
+        raise ValueError(f"unknown segmented_scan op {op!r}")
+    n = values.shape[0]
+    if n == 0:
+        return values, carry
+    x = values.reshape(n, -1)
+    starts = seg_starts.to(torch.bool)
+    c = torch.as_tensor(carry, dtype=values.dtype,
+                        device=values.device).reshape(1, x.shape[1])
+    ys = torch.empty_like(x)
+    levels = _levels(starts)
+    heads = levels[0]
+    h = torch.zeros((heads.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
+    h[:1] = torch.where(starts[:1, None], h[:1], c)
+    ys[heads] = h + x[heads]
+    for rows in levels[1:]:
+        ys[rows] = ys[rows - 1] + x[rows]
+    last = ys[-1].clone()
+    if values.dim() == 1:
+        return ys.reshape(n), last.reshape(())
+    return ys, last.reshape(torch.as_tensor(carry).shape)

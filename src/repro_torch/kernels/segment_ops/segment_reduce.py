@@ -5,9 +5,11 @@ paper's ``group(D, case)`` + aggregate).  The kernel
 (``kernels/csrc/segment_reduce.cu``) gives each run of equal ids to the
 thread at its head, which folds the run left to right and combines the
 result into the output once; the wrapper fills the output with the op's
-identity first (``torch.full``) and allocates nothing else.  int32 and
-float32 values; a float32 sum stays in row order while the ids are sorted
-(each segment is one run), bitwise equal to the plain row-order scatter.
+identity first (``torch.full``) and allocates nothing else.  int32,
+float32 and uint32 values; a float32 sum stays in row order while the ids
+are sorted (each segment is one run), bitwise equal to the plain row-order
+scatter.  uint32 (``torch.uint32`` tensors, read as 32-bit storage)
+reduces unsigned: identity 0 for max, 2^32 - 1 for min.
 
 On a CPU tensor the wrapper takes the plain version
 (``ref.segment_reduce_ref``); on CUDA tensors it launches the kernel on the
@@ -24,6 +26,8 @@ from .. import _build
 from .ref import reduce_identity, segment_reduce_ref
 
 OPS = {"sum": 0, "min": 1, "max": 2}
+# value dtype -> the C entry point's ``kind``
+KINDS = {torch.int32: 0, torch.float32: 1, torch.uint32: 2}
 _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
              + [ctypes.c_void_p] * 2)
 
@@ -48,9 +52,9 @@ def _check(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
         raise ValueError(f"segment_reduce: values and segment_ids must be 1-D "
                          f"of one length, got {tuple(values.shape)} and "
                          f"{tuple(segment_ids.shape)}")
-    if values.dtype not in (torch.int32, torch.float32):
-        raise TypeError(f"segment_reduce: values must be int32 or float32, "
-                        f"got {values.dtype}")
+    if values.dtype not in KINDS:
+        raise TypeError(f"segment_reduce: values must be int32, float32 or "
+                        f"uint32, got {values.dtype}")
     if segment_ids.dtype != torch.int32:
         raise TypeError(f"segment_reduce: segment_ids must be int32, got "
                         f"{segment_ids.dtype}")
@@ -66,7 +70,7 @@ def segment_reduce_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
                         num_segments: int, op: str = "sum") -> torch.Tensor:
     """(num_segments,) ``op``-reduction of ``values`` by sorted int32 ids.
 
-    ``values`` is 1-D contiguous int32 or float32; ids outside
+    ``values`` is 1-D contiguous int32, float32 or uint32; ids outside
     ``[0, num_segments)`` (including -1) are dropped and empty segments hold
     the op's identity.
     """
@@ -75,15 +79,21 @@ def segment_reduce_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
         return segment_reduce_ref(values, segment_ids, num_segments, op)
     if device.type != "cuda":
         raise ValueError(f"segment_reduce: unsupported device {device}")
-    out = torch.full((num_segments,), reduce_identity(op, values.dtype).item(),
-                     dtype=values.dtype, device=device)
+    if values.dtype == torch.uint32:
+        # the identity's bit pattern in int32 storage (-1 is 0xFFFFFFFF)
+        out = torch.full((num_segments,), -1 if op == "min" else 0,
+                         dtype=torch.int32, device=device).view(torch.uint32)
+    else:
+        out = torch.full((num_segments,),
+                         reduce_identity(op, values.dtype).item(),
+                         dtype=values.dtype, device=device)
     n = values.shape[0]
     if n == 0 or num_segments == 0:
         return out
     lib, fn = _launcher()
     with torch.cuda.device(device):
         err = fn(segment_ids.data_ptr(), values.data_ptr(), n, num_segments,
-                 OPS[op], int(values.dtype == torch.float32), out.data_ptr(),
+                 OPS[op], KINDS[values.dtype], out.data_ptr(),
                  _build.stream_of(out))
     _build.check(lib, err, "segment_reduce")
     segment_reduce_cuda.launches += 1

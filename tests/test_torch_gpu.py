@@ -1,9 +1,12 @@
 """PyTorch port on a CUDA card: each hand-written kernel against its plain
 PyTorch version, bitwise (integer counts, float32 min/max, row-order
-float32 sums), and the DFG and statistics paths through the kernels.  The
-row-order float fold has no plain version on a card (CUDA ``index_add_``
-adds in no fixed order), so it is held against the plain fold run on CPU
-copies of its inputs.
+float32 sums, uint32 hashes), and the DFG, statistics, filter, variants
+and performance paths through the kernels.  The row-order float fold has
+no plain version on a card (CUDA ``index_add_`` adds in no fixed order), so
+it is held against the plain fold run on CPU copies of its inputs; so are
+the float32 segmented sums.  A scan over one run of a whole chunk is held
+against a sequential oracle (the plain scans step once per row of the
+longest run).
 
 The machine with the card has no JAX, and ``tests/conftest.py`` imports
 JAX, so this file imports only torch, numpy, pytest and ``repro_torch`` and
@@ -266,3 +269,171 @@ def test_streamed_dfg_on_card_equals_cpu(cuda, chunk_rows):
         assert torch.equal(getattr(got, nm).cpu(), getattr(want, nm))
     cases = np.unique(frame.to_numpy()["case:concept:name"]).size
     assert int(got.starts.sum()) == int(got.ends.sum()) == cases
+
+
+@pytest.mark.parametrize("n,s,single", [(0, 10, False), (1, 10, False),
+                                        (511, 300, False), (524_288, 1_000_000, False),
+                                        (524_288, 1_000_000, True)])
+def test_segment_reduce_uint32_equals_plain(cuda, n, s, single):
+    from repro_torch.kernels import segment_ops as so
+
+    gen = torch.Generator(device=cuda).manual_seed(n + s + 32)
+    seg = _sorted_segments(gen, n, s, cuda, single)
+    bits = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    vals = bits.view(torch.uint32)
+    for op in ("sum", "min", "max"):
+        before = so.segment_reduce_cuda.launches
+        got = so.segment_reduce(vals, seg, s, op)
+        torch.cuda.synchronize()
+        assert so.segment_reduce_cuda.launches == before + (1 if n else 0)
+        assert got.dtype == torch.uint32
+        want = so.segment_reduce_ref(vals, seg, s, op)
+        assert torch.equal(got.view(torch.int32).cpu(), want.view(torch.int32).cpu()), op
+
+
+def _scan_inputs(gen, n, runs, flag0, device):
+    """Start flags for runs of one row, ~7 rows, 64 rows, or one run over
+    everything; row 0 flagged or not (then it continues the carry)."""
+    if runs == "one":
+        starts = torch.ones(n, dtype=torch.bool, device=device)
+    elif runs == "short":
+        starts = torch.rand(n, generator=gen, device=device) < 1 / 7
+    elif runs == "64":
+        starts = torch.arange(n, device=device) % 64 == 0
+    else:
+        starts = torch.zeros(n, dtype=torch.bool, device=device)
+    if n:
+        starts[0] = flag0
+    return starts
+
+
+def _u32(gen, shape, device):
+    return torch.randint(-2**31, 2**31 - 1, shape, generator=gen, device=device,
+                         dtype=torch.int32)
+
+
+def _oracle_affine(mul, add, starts, carry):
+    """The sequential fold in Python integers (for one run over everything,
+    where the plain version would take one step per row)."""
+    m = mul.cpu().numpy().view(np.uint32).tolist()
+    b = add.cpu().numpy().view(np.uint32).tolist()
+    f = starts.cpu().numpy().tolist()
+    h = int(carry.cpu().numpy().view(np.uint32))
+    out = []
+    for mi, bi, fi in zip(m, b, f):
+        h = ((0 if fi else h) * mi + bi) & 0xFFFFFFFF
+        out.append(h)
+    return torch.from_numpy(np.array(out, np.uint32).view(np.int32))
+
+
+def _oracle_sum(x, starts, carry):
+    """Row-order float32 prefix sums run by run (``np.add.accumulate`` is
+    sequential)."""
+    xs, f, c = x.cpu().numpy(), starts.cpu().numpy(), carry.cpu().numpy()
+    out = np.empty_like(xs)
+    heads = np.flatnonzero(f | (np.arange(len(f)) == 0))
+    for lo, hi in zip(heads, list(heads[1:]) + [len(f)]):
+        seed = np.zeros_like(c) if f[lo] else c
+        out[lo:hi] = np.add.accumulate(np.concatenate([seed[None], xs[lo:hi]]),
+                                       axis=0)[1:]
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("n", [0, 1, 511, 524_288])
+@pytest.mark.parametrize("runs", ["one", "short", "64", "whole"])
+@pytest.mark.parametrize("flag0", [True, False])
+def test_segmented_scans_equal_plain(cuda, n, runs, flag0):
+    from repro_torch.kernels import segment_ops as so
+
+    gen = torch.Generator(device=cuda).manual_seed(n * 8 + len(runs) * 2 + flag0)
+    starts = _scan_inputs(gen, n, runs, flag0, cuda)
+    serial = runs == "whole" and n > 511
+    for c in (0, 0x9E3779B9 - 2**32):
+        carry = torch.tensor(c, dtype=torch.int32, device=cuda)
+        vals, mul = _u32(gen, (n,), cuda), _u32(gen, (n,), cuda)
+        before = (so.segmented_polyhash_cuda.launches,
+                  so.segmented_affine_cuda.launches)
+        ys, out = so.segmented_polyhash_cuda(vals, starts, carry, 1_000_003)
+        ya, oa = so.segmented_affine_cuda(mul, vals, starts, carry)
+        torch.cuda.synchronize()
+        assert so.segmented_polyhash_cuda.launches == before[0] + (1 if n else 0)
+        assert so.segmented_affine_cuda.launches == before[1] + (1 if n else 0)
+        assert out.device == ys.device and out.device.type == "cuda" and out.shape == ()
+        if serial:
+            want = _oracle_affine(torch.full_like(vals, 1_000_003), vals, starts, carry)
+            want_a = _oracle_affine(mul, vals, starts, carry)
+        else:
+            want, _ = so.segmented_scan_ref(vals, starts, carry, "polyhash", 1_000_003)
+            want_a, _ = so.segmented_affine_ref(mul, vals, starts, carry)
+        assert torch.equal(ys.cpu(), want.cpu())
+        assert torch.equal(ya.cpu(), want_a.cpu())
+        if n:
+            assert int(out) == int(ys[-1]) and int(oa) == int(ya[-1])
+    # non-integer float32 rows, (N, 26) and (N,), against the CPU fold
+    for k in (26, 1):
+        shape = (n, k) if k > 1 else (n,)
+        mag = 10.0 ** torch.randint(-3, 5, shape, generator=gen, device=cuda)
+        x = (torch.randn(shape, generator=gen, device=cuda) * mag).float()
+        carry = torch.randn(shape[1:], generator=gen, device=cuda)
+        before = so.segmented_sum_scan_cuda.launches
+        ys, out = so.segmented_sum_scan_cuda(x, starts, carry)
+        torch.cuda.synchronize()
+        assert so.segmented_sum_scan_cuda.launches == before + (1 if n else 0)
+        assert out.shape == carry.shape
+        if serial:
+            want = _oracle_sum(x.reshape(n, -1), starts, carry.reshape(-1)).reshape(shape)
+        else:
+            want, _ = so.segmented_scan_ref(x.cpu(), starts.cpu(), carry.cpu(), "sum")
+        assert torch.equal(ys.cpu(), want)
+
+
+@pytest.mark.parametrize("chunk_rows", [1, 1000, 100_000])
+def test_streamed_variants_on_card_equal_cpu(cuda, chunk_rows):
+    from repro_torch.core import ChunkedEventFrame, run_streaming, variants
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import segment_ops as so
+
+    n_cases = 200 if chunk_rows == 1 else 20_000
+    frame, _ = synthetic.generate(num_cases=n_cases, num_activities=26, seed=6,
+                                  device="cpu")
+    before = (so.segmented_polyhash_cuda.launches, so.segment_reduce_cuda.launches)
+    got = run_streaming(variants.variants_kernel(n_cases),
+                        ChunkedEventFrame.from_frame(frame, chunk_rows, device=cuda))
+    chunks = -(-frame.nrows // chunk_rows)
+    assert so.segmented_polyhash_cuda.launches - before[0] == 2 * chunks
+    assert so.segment_reduce_cuda.launches - before[1] == 2 * chunks
+    want = run_streaming(variants.variants_kernel(n_cases),
+                         ChunkedEventFrame.from_frame(frame, chunk_rows))
+    whole = variants.variant_fingerprints(frame.to(cuda))
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w)
+    for g, h in zip(got[:2], whole[:2]):
+        assert torch.equal(g.cpu(), h.cpu()[:n_cases])
+
+
+@pytest.mark.parametrize("chunk_rows", [1, 1000, 100_000])
+def test_streamed_performance_on_card_equal_cpu(cuda, chunk_rows):
+    from repro_torch.core import ChunkedEventFrame, engine, performance, run_streaming
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import segment_ops as so
+
+    n_cases = 200 if chunk_rows == 1 else 20_000
+    frame, _ = synthetic.generate(num_cases=n_cases, num_activities=26, seed=7,
+                                  device="cpu")
+    kernel = engine.compose({
+        "performance_dfg": performance.performance_dfg_kernel(26),
+        "eventually_follows": performance.eventually_follows_kernel(26)})
+    before = (so.segmented_sum_scan_cuda.launches, so.ordered_histogram_cuda.launches)
+    got = run_streaming(kernel, ChunkedEventFrame.from_frame(frame, chunk_rows,
+                                                             device=cuda))
+    chunks = -(-frame.nrows // chunk_rows)
+    assert so.segmented_sum_scan_cuda.launches - before[0] == chunks
+    assert so.ordered_histogram_cuda.launches - before[1] == chunks
+    want = run_streaming(kernel, ChunkedEventFrame.from_frame(frame, chunk_rows))
+    for g, w in zip(got["performance_dfg"], want["performance_dfg"]):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(got["eventually_follows"].cpu(), want["eventually_follows"])
+    rt = performance.remaining_time_targets(frame.to(cuda))
+    assert torch.equal(rt.cpu(), performance.remaining_time_targets(frame))
