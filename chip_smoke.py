@@ -6,11 +6,12 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc`` (one process per source, all at once), holds each kernel bitwise
-against its plain PyTorch version, times it, and then drives five paths
-over the paper's Table-6 level-L1 log (10^6 cases, ~7x10^6 events, 26
-activities, timestamps) written as an EDF file with 524,288-row groups and
-streamed from disk onto the card:
+``nvcc`` (one process per source, all at once), holds each kernel against
+its plain PyTorch version (bitwise, except random-float ``plus_times``
+products, held within their rounding bound), times it, and then drives
+seven paths over the paper's Table-6 level-L1 log (10^6 cases, ~7x10^6
+events, 26 activities, timestamps) written as an EDF file with
+524,288-row groups and streamed from disk onto the card:
 
 * ``main_path`` — the out-of-core DFG.  It must equal, bitwise, the same
   stream through the plain versions on the CPU, the whole-log DFG on the
@@ -35,6 +36,20 @@ streamed from disk onto the card:
   on the card and numpy oracles (``bincount``, ``np.add.at`` in float32,
   EFG pairs counted by position offset over equal-length cases), plus the
   remaining-time targets against ``np.maximum.reduceat``.
+* ``graph_path`` — the timed process graph (``graph_kernel(26,
+  timed=True)``, 28 nodes) and its queries on the semiring kernel:
+  reachability (full and k = 3), bottleneck paths over frequency and
+  performance weights, node centrality; and the registered graph verbs
+  streamed through ``kernel_spec(...).make``.  Reachability and the
+  frequency-weighted paths equal numpy BFS / Floyd–Warshall oracles
+  bitwise; the performance-weighted paths equal the CPU plain stream
+  bitwise and centrality ``flow`` is within 1e-6 of it.
+* ``discovery_path`` — the heuristics miner (``heuristics_kernel(26)``:
+  the DFG plus ``a, b, a`` triple counts, two ``pair_count`` launches a
+  chunk) and the alpha miner's footprint finalize.  Bitwise equal to the
+  CPU plain stream and a numpy triple-count oracle; the log scores 1.0
+  alpha fitness against its own model and its heuristics fitness equals a
+  numpy oracle.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after, and must show its kernels.
@@ -69,10 +84,18 @@ SEGMENT_REDUCE_TPU = "src/repro/kernels/segment_ops/segment_reduce.py:92"
 SCAN_TPU = "src/repro/kernels/segment_ops/segmented_scan.py:"
 POLYHASH_TPU, AFFINE_TPU, SUM_SCAN_TPU = (SCAN_TPU + "135", SCAN_TPU + "172",
                                           SCAN_TPU + "213")
+SEMIRING_TPU = "src/repro/kernels/graph_ops/semiring.py:103"
 # no Pallas kernel: the JAX package's row-order XLA scatter
 ORDERED_FOLD_TPU = "none: XLA scatter, src/repro/kernels/segment_ops/ref.py:58"
 KERNELS = ("pair_count", "histogram", "segment_reduce", "ordered_histogram",
-           "segmented_polyhash", "segmented_affine", "segmented_sum_scan")
+           "segmented_polyhash", "segmented_affine", "segmented_sum_scan",
+           "semiring_matmul")
+SEMIRINGS = ("plus_times", "min_plus", "max_min")
+# (M, K, N) of the semiring sweep: centrality's matvec and a squaring of
+# the 28-node L1 graph, ragged tiles, and the 384-node graph of the JAX
+# package's graph benchmark
+SEMIRING_SHAPES = ((1, 28, 28), (28, 28, 28), (17, 9, 23), (130, 7, 131),
+                   (384, 384, 384))
 
 
 def emit(obj) -> None:
@@ -113,13 +136,29 @@ def host_ms(fn, iters: int = 5) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def reset_launches(so) -> None:
-    for name in KERNELS:
-        getattr(so, name + "_cuda").launches = 0
+def wrappers() -> dict:
+    """Each kernel's wrapper, the function that counts its launches."""
+    from repro_torch.kernels import graph_ops, segment_ops
+
+    return {name: getattr(graph_ops if name == "semiring_matmul" else segment_ops,
+                          name + "_cuda") for name in KERNELS}
 
 
-def read_launches(so) -> dict:
-    return {name: getattr(so, name + "_cuda").launches for name in KERNELS}
+def reset_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def host_s(torch, fn) -> float:
+    """Host wall seconds of one synchronized call of ``fn``."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
 
 def profile_device(torch, fn) -> dict:
@@ -205,9 +244,13 @@ def check_kernels(torch, so) -> dict:
     out = {name: {"cases": 0, "max_abs_err": 0.0} for name in KERNELS}
 
     def record(name, got, want, what):
+        # held raw with torch.equal (equal infinities are equal, a NaN is
+        # not); the printed error is taken where both sides are finite
         got, want = got.cpu(), want.cpu()
-        err = (float((got.double() - want.double()).abs().max())
-               if got.numel() else 0.0)
+        diff = (got.double() - want.double()).abs()
+        if got.is_floating_point() and want.is_floating_point():
+            diff = diff[torch.isfinite(got) & torch.isfinite(want)]
+        err = float(diff.max()) if diff.numel() else 0.0
         out[name]["cases"] += 1
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
         if got.dtype != want.dtype or not torch.equal(got, want):
@@ -265,8 +308,50 @@ def check_kernels(torch, so) -> dict:
                 record("ordered_histogram", got, want,
                        f"B={b} E={e} into={into is not None}")
     check_scans(torch, so, gen, record)
+    check_semiring(torch, gen, record, out)
     torch.cuda.synchronize()
     return out
+
+
+def check_semiring(torch, gen, record, out) -> None:
+    """The semiring kernel against its plain version on the card, for the
+    three semirings at ``SEMIRING_SHAPES``.  Integer-valued operands with
+    the graph queries' holes (+inf for min_plus, -inf for max_min) must
+    match bitwise: tropical candidates are single operations reduced by
+    min / max, and integer sums below 2^24 are exact in any order.  Random
+    float ``plus_times`` operands are held within the rounding bound of two
+    float32 dot products, 2 * K * 2^-24 * (|A| @ |B|)."""
+    from repro_torch.kernels import graph_ops as go
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmul is on: the plain plus_times would round")
+    dev = "cuda"
+    for m, k, n in SEMIRING_SHAPES:
+        for semiring in SEMIRINGS:
+            a = torch.randint(0, 50, (m, k), generator=gen, device=dev).float()
+            b = torch.randint(0, 50, (k, n), generator=gen, device=dev).float()
+            hole = {"min_plus": float("inf"), "max_min": float("-inf")}.get(semiring)
+            if hole is not None:
+                a[torch.rand((m, k), generator=gen, device=dev) < 0.4] = hole
+                b[torch.rand((k, n), generator=gen, device=dev) < 0.4] = hole
+            got = go.semiring_matmul_cuda(a, b, semiring)
+            record("semiring_matmul", got, go.semiring_matmul_ref(a, b, semiring),
+                   f"M={m} K={k} N={n} {semiring} integer operands")
+        a = torch.randn((m, k), generator=gen, device=dev)
+        b = torch.randn((k, n), generator=gen, device=dev)
+        got = go.semiring_matmul_cuda(a, b, "plus_times").double()
+        want = go.semiring_matmul_ref(a, b, "plus_times").double()
+        diff = (got - want).abs()
+        limit = 2 * k * 2.0 ** -24 * (a.double().abs() @ b.double().abs())
+        entry = out["semiring_matmul"]
+        entry["cases"] += 1
+        entry["max_abs_err"] = max(entry["max_abs_err"], float(diff.max()))
+        entry["float_plus_times_max_err_over_bound"] = max(
+            entry.get("float_plus_times_max_err_over_bound", 0.0),
+            float((diff / limit.clamp(min=1e-30)).max()))
+        if not bool((diff <= limit).all()):
+            raise AssertionError(f"semiring_matmul plus_times at M={m} K={k} "
+                                 f"N={n}: beyond the rounding bound")
 
 
 def scan_starts(torch, gen, n: int, runs: str, flag0: bool):
@@ -731,6 +816,144 @@ def idle_share(torch, fn, wall_s: float) -> dict:
                            for k, (c, t) in top]}
 
 
+def numpy_graph(dfg_oracle, a: int) -> np.ndarray:
+    """The (a + 2, a + 2) int32 frequency matrix of the process graph: the
+    DFG plus the artificial source row (starts) and sink column (ends)."""
+    counts, starts, ends = dfg_oracle
+    freq = np.zeros((a + 2, a + 2), np.int32)
+    freq[:a, :a] = counts
+    freq[a, :a] = starts
+    freq[:a, a + 1] = ends
+    return freq
+
+
+def numpy_graph_queries(freq: np.ndarray, k: int) -> dict:
+    """Independent host oracles of the graph queries over the frequency
+    weights: reachability horizons by repeated boolean products (BFS
+    layers), and Floyd–Warshall min-plus over hop costs and max-min over
+    frequency capacities in float32 (as ``benchmarks/bench_graph.py``)."""
+    n = freq.shape[0]
+    adj = freq > 0
+    eye = np.eye(n, dtype=bool)
+    reach = [eye]
+    for _ in range(n):
+        reach.append(reach[-1] | (reach[-1].astype(np.int64)
+                                  @ adj.astype(np.int64) > 0))
+    d = np.where(eye, np.float32(0), np.where(adj, np.float32(1),
+                                              np.float32(np.inf))).astype(np.float32)
+    w = np.where(eye, np.float32(np.inf),
+                 np.where(adj, freq.astype(np.float32),
+                          np.float32(-np.inf))).astype(np.float32)
+    for m in range(n):
+        d = np.minimum(d, d[:, m, None] + d[None, m, :])
+        w = np.maximum(w, np.minimum(w[:, m, None], w[None, m, :]))
+    return {"reach": reach[n - 1], "reach_k": reach[min(k, n - 1)],
+            "shortest": d, "widest": w,
+            "in_degree": freq.sum(0).astype(np.int32),
+            "out_degree": freq.sum(1).astype(np.int32)}
+
+
+def numpy_l2_counts(case: np.ndarray, act: np.ndarray, a: int) -> np.ndarray:
+    """Independent host oracle of the ``a, b, a`` triple counts of an
+    all-valid sorted log: three consecutive rows of one case whose first
+    and last activities agree."""
+    same = case[1:] == case[:-1]
+    tri = same[1:] & same[:-1] & (act[2:] == act[:-2])
+    key = act[:-2].astype(np.int64) * a + act[1:-1]
+    return np.bincount(key[tri], minlength=a * a).reshape(a, a).astype(np.int32)
+
+
+def same_result(torch, label: str, got, want, flow_atol: float = 0.0) -> None:
+    """Structural equality of two query / miner results: bitwise, except
+    centrality ``flow`` within ``flow_atol`` (its normalized ``plus_times``
+    matvecs add floats in each lowering's own order)."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(want):
+        for f in dataclasses.fields(want):
+            same_result(torch, f"{label}.{f.name}", getattr(got, f.name),
+                        getattr(want, f.name), flow_atol)
+    elif isinstance(want, torch.Tensor):
+        g, w = got.cpu().numpy(), want.cpu().numpy()
+        if label.endswith(".flow") and flow_atol:
+            if g.shape != w.shape or not np.allclose(g, w, rtol=0, atol=flow_atol):
+                raise AssertionError(f"{label}: beyond atol {flow_atol}")
+        else:
+            check_equal(label, g, w)
+    elif got != want:
+        raise AssertionError(f"{label}: {got!r} != {want!r}")
+
+
+def graph_queries(tgraph, g) -> dict:
+    """The graph path's queries over one compiled graph."""
+    return {"reachability": lambda: tgraph.reachability(g),
+            "reachability_k3": lambda: tgraph.reachability(g, 3),
+            "bottleneck_paths": lambda: tgraph.bottleneck_paths(g),
+            "bottleneck_paths_performance":
+                lambda: tgraph.bottleneck_paths(g, "performance"),
+            "node_centrality": lambda: tgraph.node_centrality(g)}
+
+
+def time_semiring_kernels(torch, g) -> dict:
+    """The semiring kernel at the graph path's shapes, on the L1 graph's own
+    operands: a squaring of the 28-node closures' seeds (the reflexive 0/1
+    adjacency for plus_times, hop costs for min_plus, frequency capacities
+    for max_min) and the (1, 28) row by (28, 28) product (centrality's
+    matvec for plus_times, the source row for the tropical ones); and
+    random integer-valued operands with holes at the JAX package's graph
+    benchmark's 384 nodes (density 0.5).  ``library_ms`` (and
+    ``library_graph_ms``, replayed from a CUDA graph) is one
+    ``torch.matmul`` (cuBLAS, full float32) for plus_times; no PyTorch call
+    computes a tropical product."""
+    from repro_torch.kernels import graph_ops as go
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmul is on")
+    n = g.num_nodes
+    eye = torch.eye(n, dtype=torch.bool, device="cuda")
+    adj = g.adjacency
+    f = g.freq.to(torch.float32)
+    rowsum = f.sum(1, keepdim=True)
+    p = torch.where(rowsum > 0, f / rowsum.clamp(min=1.0), 0.0)
+    seeds = {"plus_times": (eye | adj).to(torch.float32),
+             "min_plus": torch.where(eye, 0.0, torch.where(adj, 1.0, float("inf"))),
+             "max_min": torch.where(eye, float("inf"),
+                                    torch.where(adj, f, float("-inf")))}
+    rows = {"plus_times": (torch.full((1, n), 1.0 / n, device="cuda"), p)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    big = 384
+    keep = torch.rand((big, big), generator=gen, device="cuda") < 0.5
+    vals = torch.randint(1, 1000, (big, big), generator=gen, device="cuda").float()
+    dense = {"plus_times": torch.where(keep, vals, 0.0),
+             "min_plus": torch.where(keep, vals, float("inf")),
+             "max_min": torch.where(keep, vals, float("-inf"))}
+    out = {}
+    for semiring in SEMIRINGS:
+        sq = seeds[semiring]
+        cases = {f"{n}x{n}x{n}": (sq, sq),
+                 f"1x{n}x{n}": rows.get(semiring, (sq[g.source:g.source + 1], sq)),
+                 f"{big}x{big}x{big}": (dense[semiring], dense[semiring])}
+        for shape, (a, b) in cases.items():
+            m, k = a.shape
+            nn = b.shape[1]
+            kern = (lambda a=a, b=b, s=semiring: go.semiring_matmul_cuda(a, b, s))
+            row = {"M": m, "K": k, "N": nn,
+                   "ms": time_ms(torch, lambda i: kern(), 1),
+                   "graph_ms": graph_ms(torch, lambda: [kern() for _ in range(20)], 20),
+                   "plain_ms": time_ms(torch, lambda i, a=a, b=b, s=semiring:
+                                       go.semiring_matmul_ref(a, b, s), 1, iters=50),
+                   "library_ms": None,
+                   **bound(4 * (m * k + k * nn + m * nn), 2 * m * nn * k)}
+            if semiring == "plus_times":
+                lib = (lambda a=a, b=b: torch.matmul(a, b))
+                row["library_ms"] = time_ms(torch, lambda i: lib(), 1)
+                row["library_graph_ms"] = graph_ms(
+                    torch, lambda: [lib() for _ in range(20)], 20)
+            out[f"semiring_matmul/{semiring}/{shape}"] = row
+    torch.cuda.synchronize()
+    return out
+
+
 def check_equal(label: str, got: np.ndarray, want: np.ndarray) -> None:
     if got.dtype != want.dtype or got.shape != want.shape \
             or not np.array_equal(got, want):
@@ -745,10 +968,12 @@ def main() -> int:
               "is False); nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import graph as tgraph
     from repro_torch.core import (ACTIVITY, CASE, TIMESTAMP, ChunkedEventFrame,
-                                  EventFrame, dfg, dfg_kernel, engine, filtering,
-                                  performance, polyhash, run_streaming,
-                                  stats_kernel, variants)
+                                  EventFrame, conformance, dfg, dfg_kernel,
+                                  discovery, engine, filtering, performance,
+                                  polyhash, run_streaming, stats_kernel,
+                                  variants)
     from repro_torch.data import synthetic
     from repro_torch.kernels import _build
     from repro_torch.kernels import segment_ops as so
@@ -815,13 +1040,13 @@ def main() -> int:
         run_streaming(kernel, source)          # warm-up: first-use costs
         torch.cuda.synchronize()
 
-        reset_launches(so)
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         d_gpu = run_streaming(kernel, source)
         torch.cuda.synchronize()
         t_stream = time.perf_counter() - t0
-        launches["main_path"] = read_launches(so)
+        launches["main_path"] = read_launches()
         peak = torch.cuda.max_memory_allocated()
 
         d_staged, stages = staged_stream(torch, kernel, path, cols_proj, edf)
@@ -872,13 +1097,13 @@ def main() -> int:
         run_streaming(s_kernel, s_source)      # warm-up
         torch.cuda.synchronize()
 
-        reset_launches(so)
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         st_gpu = run_streaming(s_kernel, s_source)
         torch.cuda.synchronize()
         t_stats = time.perf_counter() - t0
-        launches["stats_path"] = read_launches(so)
+        launches["stats_path"] = read_launches()
         s_peak = torch.cuda.max_memory_allocated()
 
         st_staged, s_stages = staged_stream(torch, s_kernel, path, stats_cols, edf)
@@ -927,12 +1152,12 @@ def main() -> int:
 
         filter_path(source, "cuda")            # warm-up
         torch.cuda.synchronize()
-        reset_launches(so)
+        reset_launches()
         t0 = time.perf_counter()
         f_act, f_keep, f_dfg = filter_path(source, "cuda")
         torch.cuda.synchronize()
         t_filter = time.perf_counter() - t0
-        launches["filter_path"] = read_launches(so)
+        launches["filter_path"] = read_launches()
 
         counts_np = np.bincount(act_np, minlength=NUM_ACTIVITIES)
         o_act = int(np.argmax(counts_np))
@@ -962,13 +1187,13 @@ def main() -> int:
         v_kernel = variants.variants_kernel(NUM_CASES)
         run_streaming(v_kernel, source)        # warm-up
         torch.cuda.synchronize()
-        reset_launches(so)
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         v_gpu = run_streaming(v_kernel, source)
         torch.cuda.synchronize()
         t_var = time.perf_counter() - t0
-        launches["variants_path"] = read_launches(so)
+        launches["variants_path"] = read_launches()
         v_peak = torch.cuda.max_memory_allocated()
 
         v_staged, v_stages = staged_stream(torch, v_kernel, path, cols_proj, edf)
@@ -984,10 +1209,10 @@ def main() -> int:
                 g_chunks[gi] = ghost_chunk(torch, case_np, act_np, lo,
                                            min(lo + ROW_GROUP_ROWS, events))
                 ghosts.append(g_chunks[gi])
-        reset_launches(so)
+        reset_launches()
         v_ghost = run_streaming(v_kernel, g_chunks, device="cuda")
         torch.cuda.synchronize()
-        launches["ghost_stream"] = read_launches(so)
+        launches["ghost_stream"] = read_launches()
         sk = polyhash.segment_sketch(act_np, case_np)
         v_oracle = []
         for key in ("add1", "add2"):
@@ -1043,13 +1268,13 @@ def main() -> int:
             "eventually_follows": performance.eventually_follows_kernel(NUM_ACTIVITIES)})
         run_streaming(p_kernel, s_source)      # warm-up
         torch.cuda.synchronize()
-        reset_launches(so)
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         p_gpu = run_streaming(p_kernel, s_source)
         torch.cuda.synchronize()
         t_perf = time.perf_counter() - t0
-        launches["performance_path"] = read_launches(so)
+        launches["performance_path"] = read_launches()
         p_peak = torch.cuda.max_memory_allocated()
 
         p_staged, p_stages = staged_stream(torch, p_kernel, path, stats_cols, edf)
@@ -1095,8 +1320,182 @@ def main() -> int:
         emit({"phase": "performance_path_profile",
               **idle_share(torch, lambda: run_streaming(p_kernel, s_source), t_perf)})
 
+        # -------- graph path: the timed process graph and its queries
+        g_kernel = tgraph.graph_kernel(NUM_ACTIVITIES, timed=True)
+        g_warm = run_streaming(g_kernel, s_source)          # warm-up
+        for q in graph_queries(tgraph, g_warm).values():
+            q()
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g_gpu = run_streaming(g_kernel, s_source)
+        torch.cuda.synchronize()
+        t_graph = time.perf_counter() - t0
+        stream_l = read_launches()
+        q_gpu, q_l = {}, {}
+        queries = graph_queries(tgraph, g_gpu)
+        for name, q in queries.items():
+            before = read_launches()["semiring_matmul"]
+            q_gpu[name] = q()
+            torch.cuda.synchronize()
+            q_l[name] = read_launches()["semiring_matmul"] - before
+        launches["graph_path"] = read_launches()
+        g_peak = torch.cuda.max_memory_allocated()
+        # finalize time of each query on the host clock, synchronized: the
+        # median of 9 calls (these launches are not the path's)
+        q_ms = {name: 1e3 * float(np.median([host_s(torch, q) for _ in range(9)]))
+                for name, q in queries.items()}
+
+        _, g_stages = staged_stream(torch, g_kernel, path, stats_cols, edf)
+        g_cpu = run_streaming(g_kernel, ChunkedEventFrame.from_edf(
+            path, columns=stats_cols, device="cpu"))
+        q_cpu = {name: q() for name, q in graph_queries(tgraph, g_cpu).items()}
+        same_result(torch, "graph vs cpu_plain_stream", g_gpu, g_cpu)
+        for name in q_gpu:
+            same_result(torch, f"{name} vs cpu_plain_stream", q_gpu[name],
+                        q_cpu[name], flow_atol=1e-6)
+        freq_np = numpy_graph(oracle, NUM_ACTIVITIES)
+        check_equal("graph freq vs numpy oracle", g_gpu.freq.cpu().numpy(), freq_np)
+        go_np = numpy_graph_queries(freq_np, 3)
+        for label, got_np, want_np in (
+                ("reachability", q_gpu["reachability"].mask, go_np["reach"]),
+                ("reachability k=3", q_gpu["reachability_k3"].mask, go_np["reach_k"]),
+                ("shortest (hops)", q_gpu["bottleneck_paths"].shortest,
+                 go_np["shortest"]),
+                ("widest", q_gpu["bottleneck_paths"].widest, go_np["widest"]),
+                ("widest (perf graph)", q_gpu["bottleneck_paths_performance"].widest,
+                 go_np["widest"]),
+                ("in_degree", q_gpu["node_centrality"].in_degree, go_np["in_degree"]),
+                ("out_degree", q_gpu["node_centrality"].out_degree,
+                 go_np["out_degree"])):
+            check_equal(f"{label} vs numpy oracle", got_np.cpu().numpy(), want_np)
+        bp = q_gpu["bottleneck_paths"]
+        src, snk = g_gpu.source, g_gpu.sink
+        caps = [int(freq_np[x, y]) for x, y in zip(bp.path[:-1], bp.path[1:])]
+        if not (bp.path and bp.path[0] == src and bp.path[-1] == snk
+                and min(caps) == bp.bottleneck == float(go_np["widest"][src, snk])):
+            raise AssertionError(f"bottleneck path {bp.path} / {bp.bottleneck} "
+                                 f"disagrees with the numpy widest path")
+        flow = q_gpu["node_centrality"].flow.cpu().numpy()
+        if not (np.isfinite(flow).all() and abs(float(flow.sum()) - 1.0) < 1e-5):
+            raise AssertionError(f"centrality flow does not sum to 1: {flow.sum()}")
+        sp = q_gpu["bottleneck_paths_performance"].shortest.cpu().numpy()
+        if not (np.isfinite(sp[src, snk]) and sp[src, snk] >= 0):
+            raise AssertionError(f"performance distance source->sink {sp[src, snk]}")
+        g_l = launches["graph_path"]
+        need = {"reachability": 5, "reachability_k3": 3, "bottleneck_paths": 10,
+                "bottleneck_paths_performance": 10, "node_centrality": 16}
+        if (any(q_l[k] < v for k, v in need.items())
+                or stream_l["pair_count"] < chunks or stream_l["histogram"] < 2 * chunks
+                or stream_l["ordered_histogram"] < chunks):
+            raise AssertionError(f"graph path did not go through the kernels: "
+                                 f"stream {stream_l}, queries {q_l}, for {chunks} chunks")
+        emit({"phase": "graph_path", "events": events, "chunks": chunks,
+              "nodes": g_gpu.num_nodes, "seconds": t_graph,
+              "events_per_s": events / t_graph, "stages_s": g_stages,
+              "query_ms": q_ms, "query_ms_total": sum(q_ms.values()),
+              "query_semiring_launches": q_l, "max_memory_allocated": g_peak,
+              "launches": g_l, "stream_launches": stream_l,
+              "bottleneck": {"path": list(bp.path), "capacity": bp.bottleneck},
+              "bitwise_equal_to": ["cpu_plain_stream (flow within 1e-6)",
+                                   "numpy_bfs_and_floyd_warshall"],
+              "nvidia_smi": smi})
+        emit({"phase": "graph_path_profile",
+              **idle_share(torch, lambda: run_streaming(g_kernel, s_source), t_graph)})
+
+        # the registered graph verbs, streamed through kernel_spec(...).make
+        dims = engine.Dims(NUM_ACTIVITIES, NUM_CASES)
+        verbs = {"reachability": ("reachability", {}, source),
+                 "reachability_k3": ("reachability", {"k": 3}, source),
+                 "bottleneck_paths": ("bottleneck_paths", {}, source),
+                 "bottleneck_paths_performance": (
+                     "bottleneck_paths", {"weights": "performance"}, s_source),
+                 "node_centrality": ("node_centrality", {}, source)}
+        reset_launches()
+        v_s = {}
+        for name, (verb, kw, src_) in verbs.items():
+            t0 = time.perf_counter()
+            res = run_streaming(engine.kernel_spec(verb).make(dims, **kw), src_)
+            torch.cuda.synchronize()
+            v_s[name] = time.perf_counter() - t0
+            same_result(torch, f"verb {name} vs graph path", res, q_gpu[name])
+        launches["graph_verbs"] = read_launches()
+        gv_l = launches["graph_verbs"]
+        if (gv_l["semiring_matmul"] < sum(need.values())
+                or gv_l["pair_count"] < len(verbs) * chunks):
+            raise AssertionError(f"graph verbs did not go through the kernels: {gv_l}")
+        emit({"phase": "graph_verbs", "seconds": v_s,
+              "events_per_s": {k: events / v for k, v in v_s.items()},
+              "launches": gv_l, "bitwise_equal_to": ["graph_path"],
+              "nvidia_smi": smi})
+
+        # ------ discovery path: heuristics + alpha miners over the stream
+        h_kernel = discovery.heuristics_kernel(NUM_ACTIVITIES)
+        run_streaming(h_kernel, source)        # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        net_gpu = run_streaming(h_kernel, source)
+        torch.cuda.synchronize()
+        t_disc = time.perf_counter() - t0
+        launches["discovery_path"] = read_launches()
+        d_peak = torch.cuda.max_memory_allocated()
+
+        dk = discovery.discovery_kernel(NUM_ACTIVITIES)
+        st_gpu, d_stages = staged_stream(torch, dk, path, cols_proj, edf)
+        net2 = discovery.discover_heuristics(st_gpu)
+        alpha_gpu = discovery.discover_alpha(st_gpu.dfg)
+        heur_ms = 1e3 * float(np.median([host_s(
+            torch, lambda: discovery.discover_heuristics(st_gpu)) for _ in range(9)]))
+        alpha_ms = 1e3 * float(np.median([host_s(torch, lambda: discovery.discover_alpha(
+            st_gpu.dfg)) for _ in range(3)]))
+        st_cpu = run_streaming(dk, ChunkedEventFrame.from_edf(
+            path, columns=cols_proj, device="cpu"))
+        same_result(torch, "discovery state vs cpu_plain_stream", st_gpu, st_cpu)
+        same_result(torch, "heuristics vs cpu_plain_stream", net_gpu,
+                    discovery.discover_heuristics(st_cpu))
+        same_result(torch, "heuristics stream vs state finalize", net_gpu, net2)
+        alpha_cpu = discovery.discover_alpha(st_cpu.dfg)
+        same_result(torch, "alpha vs cpu_plain_stream", alpha_gpu, alpha_cpu)
+        check_equal("l2_counts vs numpy triple oracle",
+                    st_gpu.l2_counts.cpu().numpy(),
+                    numpy_l2_counts(case_np, act_np, NUM_ACTIVITIES))
+        for name, x, y in zip(("counts", "starts", "ends"), host(st_gpu.dfg), oracle):
+            check_equal(f"discovery DFG {name} vs numpy oracle", x, y)
+        fit_alpha = conformance.alpha_fitness(st_gpu.dfg, alpha_gpu)
+        fit_fp = conformance.footprint_conformance(st_gpu.dfg, alpha_gpu)
+        fit_heur = conformance.heuristics_fitness(st_gpu.dfg, net_gpu)
+        c32 = oracle[0].astype(np.float32)
+        heur_np = np.float32(c32[net_gpu.graph.cpu().numpy()].sum()) / np.float32(c32.sum())
+        if float(fit_alpha) != 1.0 or float(fit_fp) != 1.0:
+            raise AssertionError(f"the log does not fit its own alpha model: "
+                                 f"{float(fit_alpha)}, {float(fit_fp)}")
+        check_equal("heuristics fitness vs numpy oracle",
+                    fit_heur.cpu().numpy(), np.asarray(heur_np, np.float32))
+        d_l = launches["discovery_path"]
+        if d_l["pair_count"] < 2 * chunks or d_l["histogram"] < 2 * chunks:
+            raise AssertionError(f"discovery path did not go through the kernels: "
+                                 f"{d_l} for {chunks} chunks")
+        emit({"phase": "discovery_path", "events": events, "chunks": chunks,
+              "seconds": t_disc, "events_per_s": events / t_disc,
+              "stages_s": d_stages, "max_memory_allocated": d_peak,
+              "finalize_ms": {"heuristics": heur_ms, "alpha": alpha_ms},
+              "launches": d_l, "alpha_places": len(alpha_gpu.places),
+              "heuristics_edges": len(net_gpu.edges()),
+              "l2_triples": int(st_gpu.l2_counts.sum()),
+              "fitness": {"alpha": float(fit_alpha), "footprint": float(fit_fp),
+                          "heuristics": float(fit_heur)},
+              "bitwise_equal_to": ["cpu_plain_stream", "numpy_triple_oracle",
+                                   "numpy_dfg_oracle", "numpy_fitness_oracle"],
+              "nvidia_smi": smi})
+        emit({"phase": "discovery_path_profile",
+              **idle_share(torch, lambda: run_streaming(h_kernel, source), t_disc)})
+
         # ------------------------------------------- kernel times on card
         times = time_kernels(torch, so, engine, frame_gpu, ghosts)
+        times.update(time_semiring_kernels(torch, g_gpu))
         emit({"phase": "kernel_times", "nvidia_smi": smi, "rows": times})
     finally:
         Path(path).unlink(missing_ok=True)
@@ -1127,6 +1526,8 @@ def main() -> int:
               times["segmented_affine/chunk"]),
         entry("segmented_sum_scan", csrc + "segmented_scan.cu", SUM_SCAN_TPU,
               times["segmented_sum_scan/chunk"]),
+        entry("semiring_matmul", csrc + "semiring.cu", SEMIRING_TPU,
+              times["semiring_matmul/plus_times/28x28x28"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

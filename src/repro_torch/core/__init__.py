@@ -1,6 +1,7 @@
 """Core library: the paper's event-dataframe abstraction, the DFG path, the
-case/event statistics, the event- and case-level filters, the variants and
-the performance overlays (timed DFG, eventually-follows)."""
+case/event statistics, the event- and case-level filters, the variants,
+the performance overlays (timed DFG, eventually-follows), discovery (alpha,
+heuristics) and conformance."""
 from .eventframe import ACTIVITY, CASE, TIMESTAMP, EventFrame, concat_frames
 from .dfg import (DFG, dfg, dfg_kernel, dfg_matmul, dfg_segment,
                   dfg_shift_count, stitch_dfg_state)
@@ -9,8 +10,11 @@ from .chunked import ChunkedEventFrame
 from .stats import stats_kernel
 from .variants import variants_kernel
 from .performance import eventually_follows_kernel, performance_dfg_kernel
-from . import (backend, engine, filtering, ops, performance, polyhash, stats,
-               variants)
+from .classic_log import ClassicEventLog, make_classic_log
+from .discovery import (AlphaModel, DiscoveryState, Footprint, HeuristicsNet,
+                        alpha_kernel, discovery_kernel, heuristics_kernel)
+from . import (backend, classic_log, conformance, discovery, engine,
+               filtering, ops, performance, polyhash, stats, variants)
 
 __all__ = [
     "ACTIVITY", "CASE", "TIMESTAMP", "EventFrame", "concat_frames",
@@ -18,6 +22,9 @@ __all__ = [
     "dfg_shift_count", "stitch_dfg_state", "ChunkKernel", "compose",
     "run_single", "run_streaming", "ChunkedEventFrame", "stats_kernel",
     "variants_kernel", "eventually_follows_kernel", "performance_dfg_kernel",
-    "backend", "engine", "filtering", "ops", "performance", "polyhash",
-    "stats", "variants",
+    "ClassicEventLog", "make_classic_log", "AlphaModel", "DiscoveryState",
+    "Footprint", "HeuristicsNet", "alpha_kernel", "discovery_kernel",
+    "heuristics_kernel",
+    "backend", "classic_log", "conformance", "discovery", "engine",
+    "filtering", "ops", "performance", "polyhash", "stats", "variants",
 ]

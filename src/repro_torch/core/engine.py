@@ -97,8 +97,11 @@ def register_kernel(spec: KernelSpec) -> KernelSpec:
 
 def _load_standard_specs() -> None:
     # algorithm modules register their specs at import time; the port has
-    # the DFG, the statistics, the variants and the performance overlays
-    from . import dfg, performance, stats, variants  # noqa: F401
+    # the DFG, the statistics, the variants, the performance overlays,
+    # discovery and the graph verbs (imported here, never at module top:
+    # repro_torch.graph.verbs imports this module)
+    from . import discovery, dfg, performance, stats, variants  # noqa: F401
+    import repro_torch.graph.verbs  # noqa: F401
 
 
 def kernel_spec(name: str) -> KernelSpec:
@@ -124,9 +127,12 @@ def kernel_specs() -> dict[str, KernelSpec]:
 
 
 # --------------------------------------------------------------- carries
-# dtype of each standard carry entry (case ids stay int64, as in the frame)
+# dtype of each standard carry entry (case ids stay int64, as in the frame;
+# the ``*2`` entries are discovery's two-back row)
 CARRY_DTYPES = {"case": torch.int64, "act": torch.int32, "ts": torch.float32,
-                "rv": torch.bool, "exists": torch.bool}
+                "rv": torch.bool, "exists": torch.bool,
+                "case2": torch.int64, "act2": torch.int32, "rv2": torch.bool,
+                "exists2": torch.bool}
 
 
 def init_row_carry(device, **extra) -> Carry:

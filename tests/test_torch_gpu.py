@@ -1,12 +1,14 @@
 """PyTorch port on a CUDA card: each hand-written kernel against its plain
 PyTorch version, bitwise (integer counts, float32 min/max, row-order
-float32 sums, uint32 hashes), and the DFG, statistics, filter, variants
-and performance paths through the kernels.  The row-order float fold has
-no plain version on a card (CUDA ``index_add_`` adds in no fixed order), so
-it is held against the plain fold run on CPU copies of its inputs; so are
-the float32 segmented sums.  A scan over one run of a whole chunk is held
-against a sequential oracle (the plain scans step once per row of the
-longest run).
+float32 sums, uint32 hashes, tropical and integer-valued semiring
+products; random-float ``plus_times`` within its rounding bound), and the
+DFG, statistics, filter, variants, performance, graph and discovery paths
+through the kernels (graph centrality ``flow`` within 1e-6 of the CPU).
+The row-order float fold has no plain version on a card (CUDA
+``index_add_`` adds in no fixed order), so it is held against the plain
+fold run on CPU copies of its inputs; so are the float32 segmented sums.
+A scan over one run of a whole chunk is held against a sequential oracle
+(the plain scans step once per row of the longest run).
 
 The machine with the card has no JAX, and ``tests/conftest.py`` imports
 JAX, so this file imports only torch, numpy, pytest and ``repro_torch`` and
@@ -437,3 +439,171 @@ def test_streamed_performance_on_card_equal_cpu(cuda, chunk_rows):
     assert torch.equal(got["eventually_follows"].cpu(), want["eventually_follows"])
     rt = performance.remaining_time_targets(frame.to(cuda))
     assert torch.equal(rt.cpu(), performance.remaining_time_targets(frame))
+
+
+SEMIRING_SHAPES = [(1, 28, 28), (28, 28, 28), (17, 9, 23), (130, 7, 131),
+                   (384, 384, 384), (1, 384, 384), (33, 0, 5), (0, 4, 4)]
+
+
+def _semiring_operands(gen, shape, semiring, device):
+    """Integer-valued operands (exact in any summation order) with the
+    graph queries' holes: +inf for min_plus, -inf for max_min."""
+    m, k, n = shape
+    a = torch.randint(0, 50, (m, k), generator=gen, device=device).float()
+    b = torch.randint(0, 50, (k, n), generator=gen, device=device).float()
+    hole = {"min_plus": float("inf"), "max_min": float("-inf")}.get(semiring)
+    if hole is not None:
+        a[torch.rand((m, k), generator=gen, device=device) < 0.4] = hole
+        b[torch.rand((k, n), generator=gen, device=device) < 0.4] = hole
+    return a, b
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus", "max_min"])
+@pytest.mark.parametrize("shape", SEMIRING_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_semiring_kernel_equals_plain(cuda, semiring, shape):
+    """Bitwise: tropical candidates are single ops reduced by min/max, and
+    integer-valued plus_times sums are exact below 2^24 in any order."""
+    from repro_torch.kernels import graph_ops as go
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) * 7 + len(semiring))
+    a, b = _semiring_operands(gen, shape, semiring, cuda)
+    before = go.semiring_matmul_cuda.launches
+    got = go.semiring_matmul_cuda(a, b, semiring)
+    torch.cuda.synchronize()
+    m, _, n = shape
+    assert go.semiring_matmul_cuda.launches == before + (1 if m and n else 0)
+    want = go.semiring_matmul_ref(a, b, semiring)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), go.semiring_matmul_ref(a.cpu(), b.cpu(), semiring))
+
+
+@pytest.mark.parametrize("shape", [(28, 28, 28), (384, 384, 384), (1, 384, 384)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_semiring_float_plus_times_within_rounding(cuda, shape):
+    """Random floats: the kernel's k-order fmaf chain and the plain
+    product round differently; each is within K * 2^-24 * (|A| @ |B|) of
+    the exact sum, so they differ by at most twice that."""
+    from repro_torch.kernels import graph_ops as go
+
+    m, k, n = shape
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    a = torch.randn((m, k), generator=gen, device=cuda)
+    b = torch.randn((k, n), generator=gen, device=cuda)
+    got = go.semiring_matmul_cuda(a, b, "plus_times").double()
+    want = go.semiring_matmul_ref(a, b, "plus_times").double()
+    bound = 2 * k * 2.0 ** -24 * (a.double().abs() @ b.double().abs())
+    assert bool(((got - want).abs() <= bound).all())
+
+
+def test_semiring_nan_propagates_as_plain(cuda):
+    from repro_torch.kernels import graph_ops as go
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for semiring in ("min_plus", "max_min"):
+        a, b = _semiring_operands(gen, (40, 33, 35), semiring, cuda)
+        a[3, 5] = float("nan")
+        b[7, 2] = float("nan")
+        got = go.semiring_matmul_cuda(a, b, semiring)
+        want = go.semiring_matmul_ref(a, b, semiring)
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_semiring_dispatch_and_closures_on_card(cuda):
+    from repro_torch.kernels import graph_ops as go
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    w = torch.randint(1, 9, (28, 28), generator=gen, device=cuda).float()
+    w[torch.rand((28, 28), generator=gen, device=cuda) < 0.8] = float("inf")
+    adj = torch.isfinite(w)
+    cap = torch.where(adj, w, float("-inf"))
+    before = go.semiring_matmul_cuda.launches
+    go.semiring_matmul(w, w, "min_plus", impl="ref")
+    assert go.semiring_matmul_cuda.launches == before
+    got = (go.minplus_closure(w), go.maxmin_closure(cap), go.bool_closure(adj),
+           go.bool_closure(adj, 3))
+    assert go.semiring_matmul_cuda.launches == before + 5 + 5 + 5 + 3
+    want = (go.minplus_closure(w.cpu()), go.maxmin_closure(cap.cpu()),
+            go.bool_closure(adj.cpu()), go.bool_closure(adj.cpu(), 3))
+    for g, h in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), h)
+
+
+def _same_result(got, want, flow_atol=1e-6):
+    """Card result == CPU result: bitwise, except centrality flow (its
+    normalized plus_times matvecs add floats in each lowering's order)."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(want):
+        for f in dataclasses.fields(want):
+            g, w = getattr(got, f.name), getattr(want, f.name)
+            if f.name == "flow":
+                assert torch.allclose(g.cpu(), w, rtol=0, atol=flow_atol)
+            else:
+                _same_result(g, w)
+    elif isinstance(want, torch.Tensor):
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    else:
+        assert got == want
+
+
+@pytest.mark.parametrize("chunk_rows", [1, 1000, 100_000])
+def test_streamed_graph_verbs_on_card_equal_cpu(cuda, chunk_rows):
+    from repro_torch import graph
+    from repro_torch.core import ChunkedEventFrame, run_streaming
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import graph_ops as go
+    from repro_torch.kernels import segment_ops as so
+
+    n_cases = 150 if chunk_rows == 1 else 20_000
+    frame, _ = synthetic.generate(num_cases=n_cases, num_activities=26, seed=8,
+                                  device="cpu")
+    kernels = {"graph": (graph.graph_kernel(26, timed=True), 0),
+               # k = 27 by binary exponentiation: 4 products + 4 squarings
+               "reach": (graph.reachability_kernel(26), 8),
+               "reach3": (graph.reachability_kernel(26, 3), 3),
+               "paths": (graph.bottleneck_paths_kernel(26), 10),
+               "paths_perf": (graph.bottleneck_paths_kernel(26, "performance"), 10),
+               "centrality": (graph.node_centrality_kernel(26), 16)}
+    chunks = -(-frame.nrows // chunk_rows)
+    for name, (kernel, products) in kernels.items():
+        before = (go.semiring_matmul_cuda.launches, so.pair_count_cuda.launches)
+        got = run_streaming(kernel, ChunkedEventFrame.from_frame(
+            frame, chunk_rows, device=cuda))
+        assert go.semiring_matmul_cuda.launches - before[0] == products, name
+        assert so.pair_count_cuda.launches - before[1] >= chunks, name
+        want = run_streaming(kernel, ChunkedEventFrame.from_frame(frame, chunk_rows))
+        _same_result(got, want)
+
+
+@pytest.mark.parametrize("chunk_rows", [1, 1000, 100_000])
+def test_streamed_discovery_on_card_equal_cpu(cuda, chunk_rows):
+    from repro_torch.core import (ChunkedEventFrame, conformance, discovery,
+                                  run_streaming)
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import segment_ops as so
+
+    n_cases = 150 if chunk_rows == 1 else 20_000
+    frame, _ = synthetic.generate(num_cases=n_cases, num_activities=26, seed=9,
+                                  device="cpu")
+    chunks = -(-frame.nrows // chunk_rows)
+    before = so.pair_count_cuda.launches
+    st = run_streaming(discovery.discovery_kernel(26), ChunkedEventFrame.from_frame(
+        frame, chunk_rows, device=cuda))
+    assert so.pair_count_cuda.launches - before == 2 * chunks
+    st_cpu = run_streaming(discovery.discovery_kernel(26),
+                           ChunkedEventFrame.from_frame(frame, chunk_rows))
+    _same_result(st, st_cpu)
+    net, net_cpu = discovery.discover_heuristics(st), discovery.discover_heuristics(st_cpu)
+    _same_result(net, net_cpu)
+    model = discovery.discover_alpha(st.dfg)
+    assert model.places == discovery.discover_alpha(st_cpu.dfg).places
+    # the log against its own models: the alpha footprint fits exactly;
+    # the heuristics net drops edges below its thresholds
+    for score in (conformance.alpha_fitness(st.dfg, model),
+                  conformance.footprint_conformance(st.dfg, model)):
+        assert score.device.type == "cuda" and float(score) == 1.0
+    fit = conformance.heuristics_fitness(st.dfg, net)
+    assert torch.equal(fit.cpu(), conformance.heuristics_fitness(st_cpu.dfg, net_cpu))
+    assert 0.0 < float(fit) <= 1.0
