@@ -8,10 +8,11 @@ Run from the repository root, with no arguments::
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc`` (one process per source, all at once), holds each kernel against
 its plain PyTorch version (bitwise, except random-float ``plus_times``
-products, held within their rounding bound), times it, and then drives
-seven paths over the paper's Table-6 level-L1 log (10^6 cases, ~7x10^6
-events, 26 activities, timestamps) written as an EDF file with
-524,288-row groups and streamed from disk onto the card:
+products, held within their rounding bound, and flash attention, within
+2e-5 in float32 and 2e-2 in bf16), times it, and then drives seven paths
+over the paper's Table-6 level-L1 log (10^6 cases, ~7x10^6 events, 26
+activities, timestamps) written as an EDF file with 524,288-row groups and
+streamed from disk onto the card, and the EventLM serving path:
 
 * ``main_path`` — the out-of-core DFG.  It must equal, bitwise, the same
   stream through the plain versions on the CPU, the whole-log DFG on the
@@ -50,6 +51,16 @@ events, 26 activities, timestamps) written as an EDF file with
   CPU plain stream and a numpy triple-count oracle; the log scores 1.0
   alpha fitness against its own model and its heuristics fitness equals a
   numpy oracle.
+* ``serve_path`` — ``eventlm-100m`` at full width (12 layers, d_model 768,
+  random weights from seed 0) served by ``serve.engine.Engine`` on prompts
+  from the tokenized synthetic log, as ``launch/serve.py`` builds them: (a)
+  8 requests x 12 tokens x 8 steps and (b) 8 x 1,000 x 16, in float32 and
+  in bf16 compute.  Each prefill layer runs the flash-attention kernel
+  (12 launches a prefill, none in decode).  Held against the same engine
+  and weights with the plain attention (``attn_impl="ref"``): prefill
+  logits within 1e-3 (float32) / 5e-2 (bf16); greedy tokens identical in
+  float32, and in bf16 wherever the plain run's top-2 logit margin exceeds
+  0.1 (a request is compared up to its first such divergence).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after, and must show its kernels.
@@ -77,6 +88,8 @@ SEED = 1
 # 32-bit rate (the counting kernels do one integer add per event)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# the same data sheet: dense bf16 tensor-core rate (attention's products)
+BF16_TENSOR_OPS_PER_S = 989e12
 NUM_CASES = 1_000_000
 PAIR_COUNT_TPU = "src/repro/kernels/segment_ops/pair_count.py:74"
 HISTOGRAM_TPU = "src/repro/kernels/segment_ops/histogram.py:56"
@@ -85,26 +98,44 @@ SCAN_TPU = "src/repro/kernels/segment_ops/segmented_scan.py:"
 POLYHASH_TPU, AFFINE_TPU, SUM_SCAN_TPU = (SCAN_TPU + "135", SCAN_TPU + "172",
                                           SCAN_TPU + "213")
 SEMIRING_TPU = "src/repro/kernels/graph_ops/semiring.py:103"
+FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:121"
 # no Pallas kernel: the JAX package's row-order XLA scatter
 ORDERED_FOLD_TPU = "none: XLA scatter, src/repro/kernels/segment_ops/ref.py:58"
 KERNELS = ("pair_count", "histogram", "segment_reduce", "ordered_histogram",
            "segmented_polyhash", "segmented_affine", "segmented_sum_scan",
-           "semiring_matmul")
+           "semiring_matmul", "flash_attention")
 SEMIRINGS = ("plus_times", "min_plus", "max_min")
 # (M, K, N) of the semiring sweep: centrality's matvec and a squaring of
 # the 28-node L1 graph, ragged tiles, and the 384-node graph of the JAX
 # package's graph benchmark
 SEMIRING_SHAPES = ((1, 28, 28), (28, 28, 28), (17, 9, 23), (130, 7, 131),
                    (384, 384, 384))
+# (B, H, KVH, Sq, Sk, D, causal, window) of the flash-attention check: the
+# JAX kernel tests' shapes (tests/test_kernels.py:44-50, kv_len = Sk - 17
+# past 64 keys) and the serving path's two prefills
+FLASH_SHAPES = ((1, 4, 2, 128, 128, 64, True, None), (2, 8, 2, 256, 256, 64, True, 512),
+                (1, 4, 4, 200, 200, 32, True, None), (1, 4, 1, 1, 384, 64, False, None),
+                (1, 2, 2, 96, 96, 128, True, 32), (2, 4, 2, 64, 64, 16, False, None),
+                (8, 12, 12, 12, 12, 64, True, None),
+                (8, 12, 12, 1_000, 1_000, 64, True, None))
+FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX kernel tests' bounds
+FLASH_TIMED = (8, 12, 1_024, 64)                     # (B, H, S, D), bf16, causal
+SERVE_ARCH = "eventlm-100m"
+# (label, requests, prompt length, stride between prompts in the token
+# stream, steps, max_len): (a) the defaults of launch/serve.py, (b) long
+# prompts, ragged against the kernel's 64-row tiles
+SERVE_BATCHES = (("a", 8, 12, 37, 8, 64), ("b", 8, 1_000, 1_000, 16, 1_024))
+SERVE_LOGIT_ATOL = {"float32": 1e-3, "bfloat16": 5e-2}
+SERVE_MARGIN = 0.1
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: int, ops: int) -> dict:
+def bound(nbytes: int, ops: int, ops_per_s: float = SCALAR_OPS_PER_S) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops}
@@ -138,10 +169,11 @@ def host_ms(fn, iters: int = 5) -> float:
 
 def wrappers() -> dict:
     """Each kernel's wrapper, the function that counts its launches."""
-    from repro_torch.kernels import graph_ops, segment_ops
+    from repro_torch.kernels import flash_attention, graph_ops, segment_ops
 
-    return {name: getattr(graph_ops if name == "semiring_matmul" else segment_ops,
-                          name + "_cuda") for name in KERNELS}
+    home = {"semiring_matmul": graph_ops, "flash_attention": flash_attention}
+    return {name: getattr(home.get(name, segment_ops), name + "_cuda")
+            for name in KERNELS}
 
 
 def reset_launches() -> None:
@@ -309,8 +341,50 @@ def check_kernels(torch, so) -> dict:
                        f"B={b} E={e} into={into is not None}")
     check_scans(torch, so, gen, record)
     check_semiring(torch, gen, record, out)
+    check_flash(torch, out)
     torch.cuda.synchronize()
     return out
+
+
+def check_flash(torch, out) -> None:
+    """The flash-attention kernel against its plain version on the card, at
+    ``FLASH_SHAPES`` in float32 and bf16, within ``FLASH_ATOL``: ``kv_len``
+    as an int and again as a 0-d int32 tensor on the card, and ``kv_len =
+    0`` (every row without a valid column, which must be 0)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmul is on: the plain attention would round")
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    entry = out["flash_attention"]
+    for b, h, kvh, sq, sk, d, causal, win in FLASH_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dt)
+            k = torch.randn((b, kvh, sk, d), generator=gen, device=dev).to(dt)
+            v = torch.randn((b, kvh, sk, d), generator=gen, device=dev).to(dt)
+            lens = [None]
+            if sk > 64 and b < 8:
+                lens = [sk - 17, torch.tensor(sk - 17, dtype=torch.int32, device=dev)]
+            if (b, h, sq) == (1, 4, 128):
+                lens.append(torch.tensor(0, dtype=torch.int32, device=dev))
+            for kv_len in lens:
+                got = fa.flash_attention_cuda(q, k, v, kv_len, causal=causal, window=win)
+                want = fa.flash_attention_ref(q, k, v, kv_len, causal=causal, window=win)
+                err = float((got.float() - want.float()).abs().max())
+                key = f"max_abs_err_{dtype}"
+                entry["cases"] += 1
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                entry[key] = max(entry.get(key, 0.0), err)
+                what = (f"B={b} H={h} KVH={kvh} Sq={sq} Sk={sk} D={d} causal={causal} "
+                        f"window={win} kv_len={kv_len!r} {dtype}")
+                if got.dtype != dt or got.shape != want.shape or not err <= FLASH_ATOL[dtype]:
+                    raise AssertionError(f"flash_attention kernel != plain version at "
+                                         f"{what}: max abs err {err}")
+                if isinstance(kv_len, torch.Tensor) and int(kv_len) == 0 and bool(got.any()):
+                    raise AssertionError(f"flash_attention at {what}: a row with no "
+                                         f"valid column is not 0")
 
 
 def check_semiring(torch, gen, record, out) -> None:
@@ -954,6 +1028,174 @@ def time_semiring_kernels(torch, g) -> dict:
     return out
 
 
+def time_flash_attention(torch) -> dict:
+    """The flash-attention kernel at the serving path's long prefill shape,
+    rounded up to whole tiles: q, k, v ``FLASH_TIMED`` bf16, causal.
+    ``library_ms`` is ``scaled_dot_product_attention`` on the same inputs,
+    a yardstick the port never calls.  The bound counts q, k, v read and o
+    written once, and the two products over the causal pairs only, at the
+    bf16 tensor-core rate."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, s, d = FLASH_TIMED
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+
+    def kern():
+        return fa.flash_attention_cuda(q, k, v, causal=True)
+
+    pairs = s * (s + 1) // 2
+    row = {"B": b, "H": h, "S": s, "D": d, "dtype": "bfloat16", "causal": True,
+           "ms": time_ms(torch, lambda i: kern(), 1, iters=50),
+           "graph_ms": graph_ms(torch, lambda: [kern() for _ in range(5)], 5, replays=10),
+           "plain_ms": time_ms(torch, lambda i: fa.flash_attention_ref(
+               q, k, v, causal=True), 1, iters=10),
+           "library_ms": time_ms(torch, lambda i: torch.nn.functional.
+                                 scaled_dot_product_attention(q, k, v, is_causal=True),
+                                 1, iters=50),
+           **bound(4 * b * h * s * d * 2, 4 * d * pairs * b * h, BF16_TENSOR_OPS_PER_S)}
+    torch.cuda.synchronize()
+    return {f"flash_attention/prefill_{s}": row}
+
+
+def greedy_trace(torch, engine, prompts, steps: int):
+    """``engine.generate``'s greedy tokens, and for each the top-2 margin of
+    the logits that chose it."""
+    logits, cache = engine.prefill(prompts)
+    toks, margins = [], []
+    for _ in range(steps):
+        top = logits.float().topk(2, dim=-1).values
+        margins.append(top[:, 0] - top[:, 1])
+        tok = logits.argmax(-1)[:, None]
+        toks.append(tok[:, 0])
+        logits, cache = engine.decode(cache, tok)
+    return (torch.stack(toks, 1).to(torch.int32).cpu().numpy(),
+            torch.stack(margins, 1).cpu().numpy())
+
+
+def serve_path(torch, smi: str) -> tuple[dict, dict]:
+    """EventLM serving at full width (see the module docstring).  Returns
+    the phase line and the launch counts of the driven ``generate`` runs
+    (counts set to 0 just before each and read just after)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.eventframe import ACTIVITY
+    from repro_torch.data import pipeline, synthetic, tokenizer
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.module import Initializer
+    from repro_torch.serve.engine import Engine
+
+    cfg = get_config(SERVE_ARCH)
+    layers, vocab = cfg.num_layers, cfg.vocab_size
+    t0 = time.perf_counter()
+    model = Mdl.init_params(cfg, Initializer(
+        torch.Generator(device="cuda").manual_seed(0), cfg.param_dtype))
+    frame, tables = synthetic.generate(num_cases=2_000,
+                                       num_activities=min(vocab - 8, 32), seed=0,
+                                       device="cuda")
+    tok = tokenizer.ActivityTokenizer(tables[ACTIVITY])
+    stream = pipeline.frame_to_token_stream(frame, tok)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    runs, total = [], {}
+    for label, requests, plen, stride, steps, max_len in SERVE_BATCHES:
+        prompts = np.stack([stream[i * stride:i * stride + plen] for i in range(requests)])
+        if prompts.shape != (requests, plen):
+            raise AssertionError(f"stream of {len(stream)} tokens too short for {label}")
+        for compute in ("float32", "bfloat16"):
+            c = cfg.with_overrides(compute_dtype=compute)
+            engine = Engine(c, model, max_len=max_len, device="cuda")
+            plain = Engine(c.with_overrides(attn_impl="ref"), model, max_len=max_len,
+                           device="cuda")
+            what = f"serve_path ({label}) {compute}"
+            engine.generate(prompts, steps)                 # warm-up
+            torch.cuda.synchronize()
+
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = engine.generate(prompts, steps)
+            torch.cuda.synchronize()
+            t_gen = time.perf_counter() - t0
+            run_l = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            for name, n in run_l.items():
+                total[name] = total.get(name, 0) + n
+            # a prefill launches the kernel once a layer, a decode step never
+            reset_launches()
+            logits, cache = engine.prefill(prompts)
+            torch.cuda.synchronize()
+            pre_l = read_launches()["flash_attention"]
+            engine.decode(cache, logits.argmax(-1)[:, None])
+            torch.cuda.synchronize()
+            dec_l = read_launches()["flash_attention"] - pre_l
+            if run_l["flash_attention"] != layers or pre_l != layers or dec_l != 0:
+                raise AssertionError(f"{what} did not go through the kernel once a "
+                                     f"layer: generate {run_l}, prefill {pre_l}, "
+                                     f"decode {dec_l}")
+
+            def decode_loop(logits=logits, cache=cache):
+                nxt = logits.argmax(-1)[:, None]
+                for _ in range(steps):
+                    step_logits, cache = engine.decode(cache, nxt)
+                    nxt = step_logits.argmax(-1)[:, None]
+
+            prefill_s = float(np.median([host_s(torch, lambda: engine.prefill(prompts))
+                                         for _ in range(3)]))
+            decode_s = host_s(torch, decode_loop)
+
+            want_logits, _ = plain.prefill(prompts)
+            want_tokens, margins = greedy_trace(torch, plain, prompts, steps)
+            if (tuple(logits.shape) != (requests, vocab)
+                    or not bool(torch.isfinite(logits).all())
+                    or res.tokens.shape != (requests, steps)
+                    or res.tokens.min() < 0 or res.tokens.max() >= vocab):
+                raise AssertionError(f"{what}: logits {tuple(logits.shape)} / tokens "
+                                     f"{res.tokens.shape} malformed or not finite")
+            err = float((logits.float() - want_logits.float()).abs().max())
+            if not err <= SERVE_LOGIT_ATOL[compute]:
+                raise AssertionError(f"{what}: prefill logits {err} from the plain "
+                                     f"attention's (atol {SERVE_LOGIT_ATOL[compute]})")
+            agree = compared = diverged = 0
+            for r in range(requests):
+                for i in range(steps):
+                    compared += 1
+                    if res.tokens[r, i] == want_tokens[r, i]:
+                        agree += 1
+                        continue
+                    if compute == "float32" or margins[r, i] > SERVE_MARGIN:
+                        raise AssertionError(
+                            f"{what}: request {r} step {i} token {res.tokens[r, i]} != "
+                            f"plain {want_tokens[r, i]} at top-2 margin {margins[r, i]}")
+                    diverged += 1
+                    break            # later tokens follow different prefixes
+            runs.append({
+                "batch": label, "compute_dtype": compute, "requests": requests,
+                "prompt_len": plen, "steps": steps, "max_len": max_len,
+                "generate_s": t_gen, "prefill_s": prefill_s,
+                "prefill_tokens_per_s": requests * plen / prefill_s,
+                "decode_s": decode_s, "decode_tokens_per_s": requests * steps / decode_s,
+                "decode_ms_per_step": decode_s / steps * 1e3,
+                "max_memory_allocated": peak,
+                "prefill_logits_max_abs_err": err,
+                "prefill_logits_atol": SERVE_LOGIT_ATOL[compute],
+                "tokens": requests * steps, "tokens_compared": compared,
+                "tokens_agree": agree, "diverged_at_margin_le_0.1": diverged,
+                "launches": {"generate": run_l["flash_attention"], "prefill": pre_l,
+                             "decode_step": dec_l}})
+            if compute == cfg.compute_dtype:      # the configuration as published
+                runs[-1]["profile"] = {
+                    "prefill": idle_share(torch, lambda: engine.prefill(prompts), prefill_s),
+                    "decode": idle_share(torch, decode_loop, decode_s)}
+    phase = {"phase": "serve_path", "arch": cfg.name, "layers": layers,
+             "d_model": cfg.d_model, "heads": cfg.num_heads, "head_dim":
+             cfg.resolved_head_dim, "vocab": vocab, "params": cfg.param_count(),
+             "stream_tokens": int(len(stream)), "setup_s": setup_s, "runs": runs,
+             "reference": "same engine and weights, attn_impl='ref'",
+             "nvidia_smi": smi}
+    return phase, total
+
+
 def check_equal(label: str, got: np.ndarray, want: np.ndarray) -> None:
     if got.dtype != want.dtype or got.shape != want.shape \
             or not np.array_equal(got, want):
@@ -1003,7 +1245,8 @@ def main() -> int:
     checks = check_kernels(torch, so)
     emit({"phase": "kernels_check", "seconds": time.perf_counter() - t0,
           "tolerance": "bitwise (integer counts, float32 min/max, row-order "
-                       "float32 sums)", **checks})
+                       "float32 sums); flash_attention within 2e-5 (float32) / "
+                       "2e-2 (bf16)", **checks})
 
     # ------------------------------------------------------ data: L1 log
     cfg = synthetic.paper_table6_config(1)
@@ -1493,9 +1736,14 @@ def main() -> int:
         emit({"phase": "discovery_path_profile",
               **idle_share(torch, lambda: run_streaming(h_kernel, source), t_disc)})
 
+        # ------------------- serve path: eventlm-100m, prefill + decode
+        serve, launches["serve_path"] = serve_path(torch, smi)
+        emit(serve)
+
         # ------------------------------------------- kernel times on card
         times = time_kernels(torch, so, engine, frame_gpu, ghosts)
         times.update(time_semiring_kernels(torch, g_gpu))
+        times.update(time_flash_attention(torch))
         emit({"phase": "kernel_times", "nvidia_smi": smi, "rows": times})
     finally:
         Path(path).unlink(missing_ok=True)
@@ -1528,6 +1776,8 @@ def main() -> int:
               times["segmented_sum_scan/chunk"]),
         entry("semiring_matmul", csrc + "semiring.cu", SEMIRING_TPU,
               times["semiring_matmul/plus_times/28x28x28"]),
+        entry("flash_attention", csrc + "flash_attention.cu", FLASH_TPU,
+              times[f"flash_attention/prefill_{FLASH_TIMED[2]}"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,1 +1,1 @@
-"""Synthetic event logs (the paper's Table-6 family)."""
+"""Synthetic event logs, the activity tokenizer and the LM token pipeline."""

@@ -1,0 +1,188 @@
+"""PyTorch port: flash attention and the model's attention against the JAX
+package, on the CPU.
+
+* The kernel's plain version (``flash_attention_ref``) and the
+  device-dispatched ``ops.flash_attention`` on CPU tensors against
+  ``repro.kernels.flash_attention.flash_attention_pallas`` (interpret mode)
+  and its ``attention_ref``: the six shapes and the dtype / block-size
+  sweeps of ``tests/test_kernels.py``, atol 2e-5 in float32 and 2e-2 in
+  bf16 (the JAX kernel tests' own bounds).
+* The model's ``attention`` (``ref``, ``chunked``, ``pallas``) and
+  ``attention_decode`` against ``repro.models.attention``, atol 1e-5.
+
+Inputs come from numpy seeds; bf16 inputs are the same float32 draws
+rounded to bf16 by both frameworks (round to nearest even, bit-identical).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import attention_ref as jax_kernel_ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
+                                                 flash_attention_ref, ops)
+from repro_torch.models import attention as tattn  # noqa: E402
+
+SHAPES = [(1, 4, 2, 128, 128, 64, True, None),
+          (2, 8, 2, 256, 256, 64, True, 512),
+          (1, 4, 4, 200, 200, 32, True, None),
+          (1, 4, 1, 1, 384, 64, False, None),
+          (1, 2, 2, 96, 96, 128, True, 32),
+          (2, 4, 2, 64, 64, 16, False, None)]
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _qkv(seed, b, h, kvh, sq, sk, d):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, sq, d)).astype(np.float32),
+            rng.standard_normal((b, kvh, sk, d)).astype(np.float32),
+            rng.standard_normal((b, kvh, sk, d)).astype(np.float32))
+
+
+def _both(arrays, dtype):
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrays]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+    return jx, tx
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal,win", SHAPES,
+                         ids=lambda v: str(v))
+def test_flash_attention_plain_matches_pallas_and_ref(dtype, b, h, kvh, sq, sk, d,
+                                                      causal, win):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(sq * 31 + d, b, h, kvh, sq, sk, d), dtype)
+    kvlen = sk - 17 if sk > 64 else None
+    want_pallas = flash_attention_pallas(
+        jq, jk, jv, None if kvlen is None else jnp.int32(kvlen), causal=causal,
+        window=win, interpret=True)
+    want_ref = jax_kernel_ref(jq, jk, jv, None if kvlen is None else jnp.int32(kvlen),
+                              causal=causal, window=win)
+    for got in (flash_attention_ref(tq, tk, tv, kvlen, causal=causal, window=win),
+                ops.flash_attention(tq, tk, tv, kvlen, causal=causal, window=win),
+                flash_attention_cuda(tq, tk, tv, kvlen, causal=causal, window=win)):
+        assert got.dtype == tq.dtype and tuple(got.shape) == (b, h, sq, d)
+        np.testing.assert_allclose(_f32(got), _f32(want_pallas), atol=ATOL[dtype])
+        np.testing.assert_allclose(_f32(got), _f32(want_ref), atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("bq,bk", [(64, 64), (128, 64), (64, 128)])
+def test_flash_attention_plain_matches_pallas_block_sweep(bq, bk):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(7, 1, 2, 2, 256, 256, 64), "float32")
+    want = flash_attention_pallas(jq, jk, jv, block_q=bq, block_k=bk, interpret=True)
+    np.testing.assert_allclose(flash_attention_ref(tq, tk, tv).numpy(),
+                               np.asarray(want), atol=2e-5)
+
+
+def test_flash_attention_kv_len_as_tensor():
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(3, 1, 4, 2, 130, 130, 32), "float32")
+    want = flash_attention_pallas(jq, jk, jv, jnp.int32(77), interpret=True)
+    got = ops.flash_attention(tq, tk, tv, torch.tensor(77, dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_rows_with_no_valid_column_are_zero(causal):
+    """``kv_len = 0`` leaves every row with no valid column.  The port's
+    kernel and plain version return 0 there, as the JAX package's
+    ``kernels/flash_attention/ref.py`` does.  The Pallas kernel does not:
+    its masked scores are -1e30, so ``exp(NEG_INF - NEG_INF) = 1`` and it
+    returns the mean of V over the key tiles it visited, padding included
+    (non-causal here: the sum of the 64 keys over one 128-key tile); and
+    the model-level ``attention_ref`` averages V uniformly over all keys.
+    The serving path never builds such a row (causal, ``kv_len >= 1``)."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(11, 1, 2, 1, 64, 64, 16), "float32")
+    want = np.asarray(jax_kernel_ref(jq, jk, jv, jnp.int32(0), causal=causal))
+    assert not want.any()
+    for got in (flash_attention_ref(tq, tk, tv, 0, causal=causal),
+                ops.flash_attention(tq, tk, tv, torch.tensor(0), causal=causal)):
+        assert not got.numpy().any()
+    pallas = np.asarray(flash_attention_pallas(jq, jk, jv, jnp.int32(0),
+                                               causal=causal, interpret=True))
+    if not causal:
+        np.testing.assert_allclose(pallas[0, 0, 0], np.asarray(jv)[0, 0].sum(0) / 128,
+                                   atol=1e-5)
+
+
+def test_flash_attention_window_leaving_a_row_nothing_is_zero():
+    (_, _, _), (tq, tk, tv) = _both(_qkv(5, 1, 2, 2, 64, 64, 16), "float32")
+    got = flash_attention_ref(tq, tk, tv, 10, causal=True, window=4)
+    # rows >= 13 see only columns > row - 4, all at or past kv_len = 10
+    assert not got[:, :, 13:].numpy().any()
+    assert got[:, :, :10].abs().sum() > 0
+
+
+@pytest.mark.parametrize("d,dtype,exc", [(48, torch.float32, ValueError),
+                                         (256, torch.bfloat16, ValueError),
+                                         (64, torch.float16, TypeError)])
+def test_flash_attention_wrapper_refuses_what_the_kernel_does_not_take(d, dtype, exc):
+    q = torch.zeros((1, 2, 8, d), dtype=dtype)
+    with pytest.raises(exc):
+        flash_attention_cuda(q, q, q)
+
+
+# --------------------------------------------------------- model level
+MODEL_SHAPES = [(2, 37, 37, 4, 2, 16, True, None, None),
+                (1, 64, 64, 4, 4, 32, True, 8, None),
+                (2, 40, 40, 4, 1, 16, True, None, 29),
+                (1, 5, 70, 2, 2, 16, False, None, 50)]
+
+
+def _model_qkv(seed, b, sq, sk, h, kvh, d):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, d)).astype(np.float32),
+            rng.standard_normal((b, sk, kvh, d)).astype(np.float32),
+            rng.standard_normal((b, sk, kvh, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("impl", ["ref", "chunked", "pallas"])
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,win,kvlen", MODEL_SHAPES,
+                         ids=lambda v: str(v))
+def test_model_attention_matches_jax(impl, b, sq, sk, h, kvh, d, causal, win, kvlen):
+    arrs = _model_qkv(b * 100 + sq, b, sq, sk, h, kvh, d)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrs, "float32")
+    kw = dict(causal=causal, window=win, kv_len=kvlen, chunk=16)
+    want = jattn.attention(jq, jk, jv, impl=impl, **kw)
+    got = tattn.attention(tq, tk, tv, impl=impl, **kw)
+    assert tuple(got.shape) == (b, sq, h, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_model_attention_chunked_p_dtype_matches_jax():
+    arrs = _model_qkv(9, 1, 48, 48, 4, 2, 16)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrs, "float32")
+    want = jattn.attention_chunked(jq, jk, jv, chunk=16, p_dtype=jnp.bfloat16)
+    got = tattn.attention_chunked(tq, tk, tv, chunk=16, p_dtype=torch.bfloat16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("kv_len", [1, 13, 40])
+def test_attention_decode_matches_jax(window, kv_len):
+    rng = np.random.default_rng(kv_len)
+    q = rng.standard_normal((3, 1, 4, 16)).astype(np.float32)
+    kc = rng.standard_normal((3, 40, 2, 16)).astype(np.float32)
+    vc = rng.standard_normal((3, 40, 2, 16)).astype(np.float32)
+    want = jattn.attention_decode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                                  jnp.int32(kv_len), window=window)
+    got = tattn.attention_decode(torch.from_numpy(q), torch.from_numpy(kc),
+                                 torch.from_numpy(vc), kv_len, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_model_attention_kernel_route_refuses_offset_causal_rows():
+    """The kernel counts causal rows from 0; the model offsets them by
+    ``sk - sq``.  Only ``sq == sk`` (every prefill) is sent to it."""
+    q = torch.zeros((1, 4, 2, 16))
+    k = torch.zeros((1, 9, 2, 16))
+    with pytest.raises(ValueError):
+        tattn.attention(q, k, k, impl="pallas", causal=True)

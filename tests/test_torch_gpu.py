@@ -1,9 +1,11 @@
 """PyTorch port on a CUDA card: each hand-written kernel against its plain
 PyTorch version, bitwise (integer counts, float32 min/max, row-order
 float32 sums, uint32 hashes, tropical and integer-valued semiring
-products; random-float ``plus_times`` within its rounding bound), and the
-DFG, statistics, filter, variants, performance, graph and discovery paths
-through the kernels (graph centrality ``flow`` within 1e-6 of the CPU).
+products; random-float ``plus_times`` within its rounding bound; flash
+attention within 2e-5 in float32, 2e-2 in bf16), and the DFG, statistics,
+filter, variants, performance, graph and discovery paths and the reduced
+EventLM served through the kernels (graph centrality ``flow`` within 1e-6
+of the CPU, greedy tokens equal to the CPU's).
 The row-order float fold has no plain version on a card (CUDA
 ``index_add_`` adds in no fixed order), so it is held against the plain
 fold run on CPU copies of its inputs; so are the float32 segmented sums.
@@ -607,3 +609,124 @@ def test_streamed_discovery_on_card_equal_cpu(cuda, chunk_rows):
     fit = conformance.heuristics_fitness(st.dfg, net)
     assert torch.equal(fit.cpu(), conformance.heuristics_fitness(st_cpu.dfg, net_cpu))
     assert 0.0 < float(fit) <= 1.0
+
+
+FLASH_SHAPES = [(1, 4, 2, 128, 128, 64, True, None),
+                (2, 8, 2, 256, 256, 64, True, 512),
+                (1, 4, 4, 200, 200, 32, True, None),
+                (1, 4, 1, 1, 384, 64, False, None),
+                (1, 2, 2, 96, 96, 128, True, 32),
+                (2, 4, 2, 64, 64, 16, False, None),
+                (8, 12, 12, 12, 12, 64, True, None),      # eventlm-100m prefill, (a)
+                (8, 12, 12, 1000, 1000, 64, True, None)]  # and (b)
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(gen, b, h, kvh, sq, sk, d, dtype, device):
+    return (torch.randn((b, h, sq, d), generator=gen, device=device).to(dtype),
+            torch.randn((b, kvh, sk, d), generator=gen, device=device).to(dtype),
+            torch.randn((b, kvh, sk, d), generator=gen, device=device).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_flash_attention_kernel_equals_plain(cuda, dtype, shape):
+    """The JAX kernel tests' shapes (``kv_len = sk - 17`` past 64 keys) and
+    the serving path's prefill shapes; atol 2e-5 in float32, 2e-2 in bf16."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_ref
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    b, h, kvh, sq, sk, d, causal, win = shape
+    gen = torch.Generator(device=cuda).manual_seed(sq * 131 + d)
+    q, k, v = _flash_inputs(gen, b, h, kvh, sq, sk, d, dtype, cuda)
+    kvlen = sk - 17 if sk > 64 and b < 8 else None
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, kvlen, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    want = flash_attention_ref(q, k, v, kvlen, causal=causal, window=win)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) <= FLASH_ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_kv_len_on_the_device(cuda, dtype):
+    """``kv_len`` as a 0-d CUDA tensor (int32 or int64), read on the card;
+    0 leaves every row with no valid column, which is 0."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_ref, ops
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = _flash_inputs(gen, 2, 4, 2, 150, 150, 64, dtype, cuda)
+    for n in (0, 1, 63, 64, 65, 150, 400):
+        for kv_len in (torch.tensor(n, device=cuda, dtype=torch.int32),
+                       torch.tensor(n, device=cuda)):
+            for causal in (True, False):
+                got = ops.flash_attention(q, k, v, kv_len, causal=causal)
+                want = flash_attention_ref(q, k, v, kv_len, causal=causal)
+                assert float((got.float() - want.float()).abs().max()) <= FLASH_ATOL[dtype]
+    got = flash_attention_cuda(q, k, v, torch.tensor(0, device=cuda), causal=False)
+    assert not bool(got.any())
+
+
+def test_flash_attention_strided_views_and_dispatch(cuda):
+    """The model's (B, S, H, D) buffers viewed as (B, H, S, D) are read in
+    place and the output keeps that layout; ``impl="ref"`` launches nothing."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_ref, ops
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn((2, 77, 6, 32), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((2, 77, 3, 32), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((2, 77, 3, 32), generator=gen, device=cuda).to(torch.bfloat16)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(qt, kt, vt, window=20)
+    assert flash_attention_cuda.launches == before + 1
+    assert got.transpose(1, 2).is_contiguous()
+    want = ops.flash_attention(qt, kt, vt, window=20, impl="ref")
+    assert flash_attention_cuda.launches == before + 1
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+    assert torch.equal(want, flash_attention_ref(qt.contiguous(), kt.contiguous(),
+                                                 vt.contiguous(), window=20))
+
+
+@pytest.mark.parametrize("d,dtype,exc", [(48, torch.float32, ValueError),
+                                         (256, torch.bfloat16, ValueError),
+                                         (64, torch.float16, TypeError)])
+def test_flash_attention_refuses_unsupported_inputs(cuda, d, dtype, exc):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q = torch.zeros((1, 2, 8, d), dtype=dtype, device=cuda)
+    before = flash_attention_cuda.launches
+    with pytest.raises(exc):
+        flash_attention_cuda(q, q, q)
+    assert flash_attention_cuda.launches == before
+
+
+def test_reduced_engine_on_card_equals_cpu(cuda):
+    """The reduced eventlm-100m (f32) served on the card -- prefill through
+    the kernel, one launch per layer, none in decode -- gives the CPU plain
+    run's greedy tokens."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.module import Initializer
+    from repro_torch.serve.engine import Engine
+
+    cfg = reduced_config(get_config("eventlm-100m"))
+
+    def model():
+        return Mdl.init_params(cfg, Initializer(torch.Generator().manual_seed(0),
+                                                cfg.param_dtype))
+
+    prompts = np.random.default_rng(0).integers(3, cfg.vocab_size, (4, 12)).astype(np.int32)
+    want = Engine(cfg, model(), max_len=64, device="cpu").generate(prompts, 8)
+    card = Engine(cfg, model(), max_len=64, device=cuda)
+    before = flash_attention_cuda.launches
+    logits, cache = card.prefill(prompts)
+    assert flash_attention_cuda.launches == before + cfg.num_layers
+    card.decode(cache, logits.argmax(-1)[:, None])
+    assert flash_attention_cuda.launches == before + cfg.num_layers
+    got = card.generate(prompts, 8)
+    assert flash_attention_cuda.launches == before + 2 * cfg.num_layers
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_allclose(got.prefill_logits, want.prefill_logits, atol=1e-3)
