@@ -90,6 +90,8 @@ HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 # the same data sheet: dense bf16 tensor-core rate (attention's products)
 BF16_TENSOR_OPS_PER_S = 989e12
+# dependent float32 adds issue one per 4 cycles on an SM (the fold's chain)
+ADD_CYCLES = 4
 NUM_CASES = 1_000_000
 PAIR_COUNT_TPU = "src/repro/kernels/segment_ops/pair_count.py:74"
 HISTOGRAM_TPU = "src/repro/kernels/segment_ops/histogram.py:56"
@@ -112,10 +114,12 @@ SEMIRING_SHAPES = ((1, 28, 28), (28, 28, 28), (17, 9, 23), (130, 7, 131),
                    (384, 384, 384))
 # (B, H, KVH, Sq, Sk, D, causal, window) of the flash-attention check: the
 # JAX kernel tests' shapes (tests/test_kernels.py:44-50, kv_len = Sk - 17
-# past 64 keys) and the serving path's two prefills
+# past 64 keys), GQA over ragged keys at D = 16 and 128, and the serving
+# path's two prefills
 FLASH_SHAPES = ((1, 4, 2, 128, 128, 64, True, None), (2, 8, 2, 256, 256, 64, True, 512),
                 (1, 4, 4, 200, 200, 32, True, None), (1, 4, 1, 1, 384, 64, False, None),
                 (1, 2, 2, 96, 96, 128, True, 32), (2, 4, 2, 64, 64, 16, False, None),
+                (1, 4, 2, 200, 200, 16, True, None), (2, 6, 2, 130, 130, 128, True, 48),
                 (8, 12, 12, 12, 12, 64, True, None),
                 (8, 12, 12, 1_000, 1_000, 64, True, None))
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX kernel tests' bounds
@@ -127,6 +131,14 @@ SERVE_ARCH = "eventlm-100m"
 SERVE_BATCHES = (("a", 8, 12, 37, 8, 64), ("b", 8, 1_000, 1_000, 16, 1_024))
 SERVE_LOGIT_ATOL = {"float32": 1e-3, "bfloat16": 5e-2}
 SERVE_MARGIN = 0.1
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return float(out.split()[0])
 
 
 def emit(obj) -> None:
@@ -330,15 +342,20 @@ def check_kernels(torch, so) -> dict:
                     got, want = got.view(torch.int32), want.view(torch.int32)
                 record("segment_reduce", got, want,
                        f"N={n} S={s} single_run={single} {dtype} {op}")
-    for b in (1, 26, 676):
-        for e in sizes_e[:4]:
-            v, w = ids(e, b), fweights(e)
+    # the fold: the sweep sizes, a size that is no multiple of the counting
+    # sort's tile, and every row in one bin (the longest chain); 5,000 bins
+    # take its large-bin route (global cursors, 4,096-row tiles)
+    for b in (1, 26, 676, 5000):
+        for e, one_bin in [(e, False) for e in sizes_e[:4] + (12_365,)] + [(524_288, True)]:
+            v = (torch.full((e,), b // 2, dtype=torch.int32, device=dev) if one_bin
+                 else ids(e, b))
+            w = fweights(e)
             for into in (None, fweights(b)):
                 got = so.ordered_histogram_cuda(v, w, b, into)
                 want = so.ordered_histogram_ref(
                     v.cpu(), w.cpu(), b, None if into is None else into.cpu())
                 record("ordered_histogram", got, want,
-                       f"B={b} E={e} into={into is not None}")
+                       f"B={b} E={e} one_bin={one_bin} into={into is not None}")
     check_scans(torch, so, gen, record)
     check_semiring(torch, gen, record, out)
     check_flash(torch, out)
@@ -350,7 +367,10 @@ def check_flash(torch, out) -> None:
     """The flash-attention kernel against its plain version on the card, at
     ``FLASH_SHAPES`` in float32 and bf16, within ``FLASH_ATOL``: ``kv_len``
     as an int and again as a 0-d int32 tensor on the card, and ``kv_len =
-    0`` (every row without a valid column, which must be 0)."""
+    0`` (every row without a valid column, which must be 0).  Then, at
+    every head dim: the model's (B, S, H, D) buffers viewed as (B, H, S, D)
+    (read in place, GQA, a window), and a CUDA-graph capture replayed after
+    ``kv_len`` changed on the card."""
     from repro_torch.kernels import flash_attention as fa
 
     if torch.backends.cuda.matmul.allow_tf32:
@@ -358,6 +378,17 @@ def check_flash(torch, out) -> None:
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(SEED)
     entry = out["flash_attention"]
+
+    def hold(got, want, dtype, what):
+        err = float((got.float() - want.float()).abs().max())
+        entry["cases"] += 1
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        key = f"max_abs_err_{dtype}"
+        entry[key] = max(entry.get(key, 0.0), err)
+        if got.dtype != want.dtype or got.shape != want.shape or not err <= FLASH_ATOL[dtype]:
+            raise AssertionError(f"flash_attention kernel != plain version at "
+                                 f"{what}: max abs err {err}")
+
     for b, h, kvh, sq, sk, d, causal, win in FLASH_SHAPES:
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
@@ -372,19 +403,36 @@ def check_flash(torch, out) -> None:
             for kv_len in lens:
                 got = fa.flash_attention_cuda(q, k, v, kv_len, causal=causal, window=win)
                 want = fa.flash_attention_ref(q, k, v, kv_len, causal=causal, window=win)
-                err = float((got.float() - want.float()).abs().max())
-                key = f"max_abs_err_{dtype}"
-                entry["cases"] += 1
-                entry["max_abs_err"] = max(entry["max_abs_err"], err)
-                entry[key] = max(entry.get(key, 0.0), err)
                 what = (f"B={b} H={h} KVH={kvh} Sq={sq} Sk={sk} D={d} causal={causal} "
                         f"window={win} kv_len={kv_len!r} {dtype}")
-                if got.dtype != dt or got.shape != want.shape or not err <= FLASH_ATOL[dtype]:
-                    raise AssertionError(f"flash_attention kernel != plain version at "
-                                         f"{what}: max abs err {err}")
+                hold(got, want, dtype, what)
                 if isinstance(kv_len, torch.Tensor) and int(kv_len) == 0 and bool(got.any()):
                     raise AssertionError(f"flash_attention at {what}: a row with no "
                                          f"valid column is not 0")
+    for d in (16, 32, 64, 128):
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q = torch.randn((2, 77, 6, d), generator=gen, device=dev).to(dt).transpose(1, 2)
+            k = torch.randn((2, 77, 3, d), generator=gen, device=dev).to(dt).transpose(1, 2)
+            v = torch.randn((2, 77, 3, d), generator=gen, device=dev).to(dt).transpose(1, 2)
+            got = fa.flash_attention_cuda(q, k, v, causal=True, window=20)
+            if not got.transpose(1, 2).is_contiguous():
+                raise AssertionError(f"flash_attention D={d} {dtype}: the output lost "
+                                     f"the (B, S, H, D) layout of its query")
+            hold(got, fa.flash_attention_ref(q, k, v, causal=True, window=20), dtype,
+                 f"(B, S, H, D) views D={d} {dtype}")
+            kv_len = torch.tensor(77, dtype=torch.int32, device=dev)
+            fa.flash_attention_cuda(q, k, v, kv_len, causal=False)   # first use
+            torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                got = fa.flash_attention_cuda(q, k, v, kv_len, causal=False)
+            for n in (77, 40, 0):
+                kv_len.fill_(n)
+                g.replay()
+                torch.cuda.synchronize()
+                hold(got, fa.flash_attention_ref(q, k, v, n, causal=False), dtype,
+                     f"CUDA-graph replay D={d} kv_len={n} {dtype}")
 
 
 def check_semiring(torch, gen, record, out) -> None:
@@ -663,6 +711,15 @@ def time_stats_kernels(torch, so, engine, frame_gpu, spans) -> dict:
     key_long = key.long()
     for label, (vals, vlong, bins) in (("sojourn_26", (prev_act, prev_long, a)),
                                         ("pair_676", (key, key_long, a * a))):
+        # the fold's floor: each call's longest bin is a chain of dependent
+        # float adds, ADD_CYCLES each at the SM clock
+        longest = [int(torch.bincount(sl(vlong, i)[(sl(vlong, i) >= 0)
+                                                   & (sl(vlong, i) < bins)],
+                                      minlength=bins).max()) for i in range(k)]
+        clock = sm_clock_mhz()
+        chain = {"longest_bin": float(np.mean(longest)), "sm_clock_mhz": clock,
+                 "chain_bound_ms": float(np.mean(longest)) * ADD_CYCLES
+                 / (clock * 1e6) * 1e3}
         into = torch.zeros(bins, dtype=torch.float32, device="cuda")
         lib_out = torch.zeros(bins, dtype=torch.float32, device="cuda")
         host = [(sl(vals, i).cpu(), sl(dt, i).cpu()) for i in range(k)]
@@ -681,7 +738,7 @@ def time_stats_kernels(torch, so, engine, frame_gpu, spans) -> dict:
             # yardstick only: CUDA index_add_ adds in no fixed order
             "library_ms": time_ms(torch, lambda i: lib_out.index_add_(
                 0, sl(vlong, i), sl(dt, i)), k),
-            **bound(8 * e + 8 * bins, e)}
+            **bound(8 * e + 8 * bins, e), **chain}
     torch.cuda.synchronize()
     return rows
 
@@ -1030,33 +1087,40 @@ def time_semiring_kernels(torch, g) -> dict:
 
 def time_flash_attention(torch) -> dict:
     """The flash-attention kernel at the serving path's long prefill shape,
-    rounded up to whole tiles: q, k, v ``FLASH_TIMED`` bf16, causal.
-    ``library_ms`` is ``scaled_dot_product_attention`` on the same inputs,
-    a yardstick the port never calls.  The bound counts q, k, v read and o
-    written once, and the two products over the causal pairs only, at the
-    bf16 tensor-core rate."""
+    rounded up to whole tiles: q, k, v ``FLASH_TIMED``, causal, in bf16 (the
+    tensor-core route) and in float32 (the SIMT route).  ``library_ms`` is
+    ``scaled_dot_product_attention`` on the same inputs, a yardstick the
+    port never calls.  The bound counts q, k, v read and o written once, and
+    the two products over the causal pairs only, at the bf16 tensor-core
+    rate (bf16) or the float32 rate outside the tensor cores (float32)."""
     from repro_torch.kernels import flash_attention as fa
 
     b, h, s, d = FLASH_TIMED
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
-               for _ in range(3))
-
-    def kern():
-        return fa.flash_attention_cuda(q, k, v, causal=True)
-
     pairs = s * (s + 1) // 2
-    row = {"B": b, "H": h, "S": s, "D": d, "dtype": "bfloat16", "causal": True,
-           "ms": time_ms(torch, lambda i: kern(), 1, iters=50),
-           "graph_ms": graph_ms(torch, lambda: [kern() for _ in range(5)], 5, replays=10),
-           "plain_ms": time_ms(torch, lambda i: fa.flash_attention_ref(
-               q, k, v, causal=True), 1, iters=10),
-           "library_ms": time_ms(torch, lambda i: torch.nn.functional.
-                                 scaled_dot_product_attention(q, k, v, is_causal=True),
-                                 1, iters=50),
-           **bound(4 * b * h * s * d * 2, 4 * d * pairs * b * h, BF16_TENSOR_OPS_PER_S)}
+    rows = {}
+    for dtype, rate in (("bfloat16", BF16_TENSOR_OPS_PER_S), ("float32", SCALAR_OPS_PER_S)):
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(dt)
+                   for _ in range(3))
+
+        def kern(q=q, k=k, v=v):
+            return fa.flash_attention_cuda(q, k, v, causal=True)
+
+        row = {"B": b, "H": h, "S": s, "D": d, "dtype": dtype, "causal": True,
+               "ms": time_ms(torch, lambda i: kern(), 1, iters=50),
+               "graph_ms": graph_ms(torch, lambda: [kern() for _ in range(5)], 5,
+                                    replays=10),
+               "plain_ms": time_ms(torch, lambda i: fa.flash_attention_ref(
+                   q, k, v, causal=True), 1, iters=10),
+               "library_ms": time_ms(torch, lambda i: torch.nn.functional.
+                                     scaled_dot_product_attention(q, k, v, is_causal=True),
+                                     1, iters=50),
+               **bound(4 * b * h * s * d * q.element_size(), 4 * d * pairs * b * h, rate)}
+        suffix = "" if dtype == "bfloat16" else "_float32"
+        rows[f"flash_attention/prefill_{s}{suffix}"] = row
     torch.cuda.synchronize()
-    return {f"flash_attention/prefill_{s}": row}
+    return rows
 
 
 def greedy_trace(torch, engine, prompts, steps: int):
@@ -1246,7 +1310,8 @@ def main() -> int:
     emit({"phase": "kernels_check", "seconds": time.perf_counter() - t0,
           "tolerance": "bitwise (integer counts, float32 min/max, row-order "
                        "float32 sums); flash_attention within 2e-5 (float32) / "
-                       "2e-2 (bf16)", **checks})
+                       "2e-2 (bf16, P rounded to bf16 before P.V: each weight "
+                       "within 2^-9 of itself)", **checks})
 
     # ------------------------------------------------------ data: L1 log
     cfg = synthetic.paper_table6_config(1)
@@ -1756,7 +1821,8 @@ def main() -> int:
                 "max_abs_err": checks[name]["max_abs_err"],
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"]}
+                "library_ms": row["library_ms"],
+                **{key: row[key] for key in ("chain_bound_ms", "graph_ms") if key in row}}
 
     csrc = "src/repro_torch/kernels/csrc/"
     emit({"kernels": [
@@ -1776,8 +1842,11 @@ def main() -> int:
               times["segmented_sum_scan/chunk"]),
         entry("semiring_matmul", csrc + "semiring.cu", SEMIRING_TPU,
               times["semiring_matmul/plus_times/28x28x28"]),
-        entry("flash_attention", csrc + "flash_attention.cu", FLASH_TPU,
-              times[f"flash_attention/prefill_{FLASH_TIMED[2]}"]),
+        {**entry("flash_attention", csrc + "flash_attention.cu", FLASH_TPU,
+                 times[f"flash_attention/prefill_{FLASH_TIMED[2]}"]),
+         "float32_route": {key: times[f"flash_attention/prefill_{FLASH_TIMED[2]}_float32"][key]
+                           for key in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,11 +3,14 @@
 The counterpart of the JAX package's ``flash_attention_pallas``: causal
 GQA online-softmax attention with an optional sliding window and a ragged
 ``kv_len``, q (B, H, Sq, D) against k / v (B, KVH, Sk, D), bf16 or float32
-in, float32 arithmetic, out in q's dtype.  The kernel
-(``kernels/csrc/flash_attention.cu``) gives each 64-row query tile of one
-head to a block that streams 64-key K / V tiles through shared memory and
-keeps the running softmax state in registers; a KV head serves
-``H // KVH`` query heads in place (no repeated K / V in memory).
+in, out in q's dtype.  The kernel (``kernels/csrc/flash_attention.cu``)
+gives each 64-row query tile of one head to a block that streams 64-key
+K / V tiles through shared memory and keeps the running softmax state in
+registers; a KV head serves ``H // KVH`` query heads in place (no
+repeated K / V in memory).  bf16 runs both products on the tensor cores
+(``wgmma``, float32 accumulators) with K / V fed by TMA, and rounds the
+softmax weights P to bf16 before P.V (each weight within 2^-9 of itself);
+float32 runs on the SIMT cores in float32 throughout.
 
 Semantics are the JAX kernel's (causal rows counted from 0) except for a
 row with no valid column (``kv_len = 0``, or a window that leaves a row
@@ -46,11 +49,18 @@ def _launcher():
 
 
 def _readable(t: torch.Tensor) -> torch.Tensor:
-    # the kernel reads rows of 4-element vectors: a unit last stride, row
-    # starts on 16-byte boundaries (float32) / 8 (bf16)
-    align = 4 * t.element_size()
-    if (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:3])
-            and t.data_ptr() % align == 0):
+    """``t`` itself when the kernel can read it in place, else a dense copy.
+
+    A unit last stride always.  float32 rows are read as 4-element vectors:
+    strides in multiples of 4 and a 16-byte-aligned base.  bf16 goes through
+    TMA, which takes a 16-byte-aligned base and strides in multiples of 16
+    bytes (8 elements), nonzero wherever a dimension is longer than 1."""
+    if t.dtype == torch.bfloat16:
+        ok = all(s % 8 == 0 and (s > 0 or n == 1)
+                 for s, n in zip(t.stride()[:3], t.shape[:3]))
+    else:
+        ok = all(s % 4 == 0 for s in t.stride()[:3])
+    if t.stride(-1) == 1 and ok and t.data_ptr() % 16 == 0:
         return t
     return t.contiguous()
 

@@ -5,8 +5,10 @@ No Pallas kernel stands behind it: the JAX package leaves float-weighted
 ``histogram`` / ``pair_count`` with ``into=`` to XLA's row-order scatter,
 and that order is what keeps a streamed float sum (the sojourn totals)
 bitwise equal to the whole-log one.  The kernel
-(``kernels/csrc/ordered_histogram.cu``) gives every bin one block, which
-compacts the bin's weights in row order and folds them one at a time onto
+(``kernels/csrc/ordered_histogram.cu``) sorts the weights by bin with a
+stable counting sort over row tiles (count per tile, offsets in
+bin-major, tile-minor order, a scatter that keeps row order within each
+bin), then folds each bin's contiguous segment one weight at a time onto
 ``into[b]``: ``out[b] = into[b] (or 0) + w_i + w_j + ...``.
 
 On a CPU tensor the wrapper takes the plain version
@@ -23,7 +25,14 @@ import torch
 from .. import _build
 from .ref import ordered_histogram_ref
 
-_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 3
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 6
+
+
+def tile_rows(num_bins: int) -> int:
+    """Rows per tile of the counting sort, as the source picks them: 1,024
+    up to 3,072 bins (more tiles, more warps in the scatter), 4,096 above
+    (a smaller (B, tiles) count array)."""
+    return 1024 if num_bins <= 3072 else 4096
 
 
 def _launcher():
@@ -58,7 +67,19 @@ def _check(values, weights, num_bins, into) -> torch.device:
             raise ValueError(f"ordered_histogram: {name} must be contiguous")
     if not 0 <= num_bins < 2**31:
         raise ValueError(f"ordered_histogram: num_bins {num_bins} outside [0, 2^31)")
+    if values.shape[0] >= 2**31:
+        raise ValueError(f"ordered_histogram: {values.shape[0]} rows; the kernel's "
+                         f"int32 offsets take fewer than 2^31")
     return devices.pop()
+
+
+def scratch_shapes(n: int, num_bins: int) -> dict[str, tuple[int, ...]]:
+    """The kernel's scratch for ``n`` rows: per-tile bin counts (then
+    offsets), the bins' starts in the sorted order plus the total, and the
+    weights sorted by bin."""
+    tiles = -(-n // tile_rows(num_bins))
+    return {"counts": (num_bins, tiles), "bin_start": (num_bins + 1,),
+            "sorted": (n,)}
 
 
 def ordered_histogram_cuda(values: torch.Tensor, weights: torch.Tensor,
@@ -80,10 +101,15 @@ def ordered_histogram_cuda(values: torch.Tensor, weights: torch.Tensor,
         return (torch.zeros(num_bins, dtype=torch.float32, device=device)
                 if into is None else into.clone())
     out = torch.empty(num_bins, dtype=torch.float32, device=device)
+    shapes = scratch_shapes(n, num_bins)
+    counts = torch.empty(shapes["counts"], dtype=torch.int32, device=device)
+    bin_start = torch.empty(shapes["bin_start"], dtype=torch.int32, device=device)
+    ordered = torch.empty(shapes["sorted"], dtype=torch.float32, device=device)
     lib, fn = _launcher()
     with torch.cuda.device(device):
         err = fn(values.data_ptr(), weights.data_ptr(), n, num_bins,
                  None if into is None else into.data_ptr(), out.data_ptr(),
+                 counts.data_ptr(), bin_start.data_ptr(), ordered.data_ptr(),
                  _build.stream_of(out))
     _build.check(lib, err, "ordered_histogram")
     ordered_histogram_cuda.launches += 1

@@ -102,11 +102,13 @@ def attn_decode_apply(p, x, cfg: ModelConfig, cache_k, cache_v, pos: int, *,
 
     Writes this token's K / V at ``pos`` into ``cache_k`` / ``cache_v`` in
     place (the JAX package returns updated copies) and returns the block's
-    output."""
+    output.  Past the cache the write lands on the last slot, where JAX's
+    ``dynamic_update_slice`` clamps it; RoPE and ``kv_len`` keep ``pos``."""
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = attn_qkv(p, x, cfg, positions, theta)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    slot = min(pos, cache_k.shape[1] - 1)
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
     o = attention_decode(q, cache_k, cache_v, pos + 1, window=window)
     return o.reshape(b, 1, -1) @ p["wo"].to(torch_dtype(cfg.compute_dtype))

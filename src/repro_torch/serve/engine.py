@@ -2,9 +2,16 @@
 
 Prefill runs the whole prompt through the model (on a card, each layer's
 attention is the flash-attention kernel) and copies its bf16 K / V into a
-cache preallocated at ``max_len``; each decode step then writes one
-position of that cache in place.  Tokens stay on the device until the
-loop ends.  Sampling draws from ``torch.multinomial`` with the caller's
+cache preallocated at ``max(max_len, prompt length)``; each decode step
+then writes one position of that cache in place.  Tokens stay on the
+device until the loop ends.
+
+Past the cache the shapes are the JAX package's: a prompt longer than
+``max_len`` keeps a cache of its own length, and a decode step at a
+position past the cache writes its K / V onto the last slot (as
+``dynamic_update_slice`` clamps there) while attending over every slot
+and taking RoPE at its true position.  So tokens past the cache are
+computed on an overwritten last slot, exactly as in JAX.  Sampling draws from ``torch.multinomial`` with the caller's
 generator: the same distribution as the JAX package's
 ``jax.random.categorical``, not its bits.
 """
@@ -47,11 +54,13 @@ class Engine:
 
     @torch.inference_mode()
     def prefill(self, prompts):
-        """(last-token logits, cache preallocated at ``max_len``)."""
+        """(last-token logits, cache preallocated at ``max(max_len, prompt
+        length)``)."""
         tokens = torch.as_tensor(prompts, device=self.device).long()
         logits, cache = Mdl.prefill(self.cfg, self.model, tokens)
-        full = Mdl.init_cache(self.cfg, tokens.shape[0], self.max_len, self.device)
         s = cache["pos"]
+        full = Mdl.init_cache(self.cfg, tokens.shape[0], max(self.max_len, s),
+                              self.device)
         full["k"][:, :, :s] = cache["k"]
         full["v"][:, :, :s] = cache["v"]
         full["pos"] = s

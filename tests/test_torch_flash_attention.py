@@ -75,6 +75,75 @@ def test_flash_attention_plain_matches_pallas_and_ref(dtype, b, h, kvh, sq, sk, 
         np.testing.assert_allclose(_f32(got), _f32(want_ref), atol=ATOL[dtype])
 
 
+def _p_in_bf16(q, k, v, kv_len, causal, window):
+    """The bf16 kernel's arithmetic in plain PyTorch: float32 scores and
+    online-softmax sums, but the weights P rounded to bf16 before P.V (the
+    tensor cores' A operand); returns float32, before the output's own
+    rounding."""
+    b, h, sq, d = q.shape
+    g = h // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * d ** -0.5
+    rows = torch.arange(sq)[:, None]
+    cols = torch.arange(k.shape[2])[None, :]
+    mask = cols < (k.shape[2] if kv_len is None else kv_len)
+    if causal:
+        mask = mask & (cols <= rows)
+    if window is not None:
+        mask = mask & (cols > rows - window)
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(-1, keepdim=True).clamp(min=-1e30)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vf)
+    return torch.where(l > 0, o / l.clamp(min=1e-30), 0.0)
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal,win", SHAPES, ids=lambda v: str(v))
+def test_p_in_bf16_stays_within_its_stated_bound(b, h, kvh, sq, sk, d, causal, win):
+    """The bf16 kernel rounds P to bf16 before P.V, where the JAX kernel
+    keeps it in float32.  Each weight then moves by at most 2^-9 of itself,
+    so an output moves by at most 2^-9 max|v| from float32 P; with the
+    output rounded to bf16 it stays within the 2e-2 of the JAX kernel tests
+    (Pallas in interpret mode, bf16 inputs)."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(sq * 7 + d, b, h, kvh, sq, sk, d), "bfloat16")
+    kvlen = sk - 17 if sk > 64 else None
+    exact = flash_attention_ref(tq.float(), tk.float(), tv.float(), kvlen,
+                                causal=causal, window=win)
+    rounded = _p_in_bf16(tq, tk, tv, kvlen, causal, win)
+    bound = 2.0 ** -9 * float(tv.float().abs().max())
+    assert float((rounded - exact).abs().max()) <= bound
+    want = flash_attention_pallas(jq, jk, jv, None if kvlen is None else jnp.int32(kvlen),
+                                  causal=causal, window=win, interpret=True)
+    np.testing.assert_allclose(_f32(rounded.to(torch.bfloat16)), _f32(want),
+                               atol=ATOL["bfloat16"])
+
+
+def test_readable_keeps_what_the_kernel_reads_in_place():
+    """The wrapper hands the kernel a view as it is when the kernel can read
+    it: float32 rows as 16-byte vectors, bf16 through TMA (16-byte base and
+    strides, nonzero where a dimension is longer than 1); else a copy."""
+    from repro_torch.kernels.flash_attention.flash_attention import _readable
+
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.zeros((2, 77, 6, 32), dtype=dtype)
+        view = buf.transpose(1, 2)                      # (B, H, S, D) of a (B, S, H, D)
+        assert _readable(view) is view
+        odd = torch.zeros(1 + buf.numel(), dtype=dtype)[1:].view(2, 77, 6, 32).transpose(1, 2)
+        assert _readable(odd) is not odd and _readable(odd).is_contiguous()
+        col = torch.zeros((2, 6, 77, 64), dtype=dtype)[..., :32]
+        assert _readable(col) is col                    # row stride 64: fine for both
+    narrow = torch.zeros((1, 2, 9, 4 * 16), dtype=torch.bfloat16)[..., 4:20]
+    assert _readable(narrow) is not narrow              # base 8 bytes past 16-byte alignment
+    wide = torch.zeros((1, 2, 9, 68), dtype=torch.bfloat16)[..., :16]
+    assert _readable(wide) is not wide                  # row stride 136 bytes
+    wide32 = torch.zeros((1, 2, 9, 68), dtype=torch.float32)[..., :16]
+    assert _readable(wide32) is wide32                  # 272 bytes: float4 rows fine
+    shared = torch.zeros((1, 1, 9, 16), dtype=torch.bfloat16).expand(1, 4, 9, 16)
+    assert _readable(shared) is not shared              # stride 0 over 4 heads
+
+
 @pytest.mark.parametrize("bq,bk", [(64, 64), (128, 64), (64, 128)])
 def test_flash_attention_plain_matches_pallas_block_sweep(bq, bk):
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(7, 1, 2, 2, 256, 256, 64), "float32")

@@ -95,7 +95,7 @@ def _float_weights(gen, n, device):
     return (torch.randn(n, generator=gen, device=device) * mag).float()
 
 
-@pytest.mark.parametrize("b", [1, 26, 676])
+@pytest.mark.parametrize("b", [1, 26, 676, 5000])
 @pytest.mark.parametrize("e", [0, 1, 511, 524_288])
 def test_ordered_fold_equals_cpu_plain_fold(cuda, b, e):
     from repro_torch.kernels import segment_ops as so
@@ -111,6 +111,28 @@ def test_ordered_fold_equals_cpu_plain_fold(cuda, b, e):
         want = so.ordered_histogram_ref(v.cpu(), w.cpu(), b,
                                         None if into is None else into.cpu())
         assert got.device == v.device and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("b", [1, 26, 676])
+@pytest.mark.parametrize("case", ["one_bin", "ragged_tile"])
+def test_ordered_fold_counting_sort_edges(cuda, b, case):
+    """The counting sort's edges, bitwise against the CPU plain fold, with
+    and without ``into``: every row in one bin (the longest chain, 524,288
+    adds) and a row count that is no multiple of the tile (1,024 rows here)."""
+    from repro_torch.kernels import segment_ops as so
+
+    gen = torch.Generator(device=cuda).manual_seed(b * 17 + len(case))
+    if case == "one_bin":
+        v = torch.full((524_288,), b - 1, dtype=torch.int32, device=cuda)
+    else:
+        v = _ids(gen, 3 * 4096 + 77, b, cuda)
+    w = _float_weights(gen, v.shape[0], cuda)
+    for into in (None, _float_weights(gen, b, cuda)):
+        got = so.ordered_histogram_cuda(v, w, b, into)
+        torch.cuda.synchronize()
+        want = so.ordered_histogram_ref(v.cpu(), w.cpu(), b,
+                                        None if into is None else into.cpu())
+        assert torch.equal(got.cpu(), want)
 
 
 def test_float_weights_launch_the_ordered_fold(cuda):
@@ -617,6 +639,8 @@ FLASH_SHAPES = [(1, 4, 2, 128, 128, 64, True, None),
                 (1, 4, 1, 1, 384, 64, False, None),
                 (1, 2, 2, 96, 96, 128, True, 32),
                 (2, 4, 2, 64, 64, 16, False, None),
+                (1, 4, 2, 200, 200, 16, True, None),      # GQA over ragged keys
+                (2, 6, 2, 130, 130, 128, True, 48),
                 (8, 12, 12, 12, 12, 64, True, None),      # eventlm-100m prefill, (a)
                 (8, 12, 12, 1000, 1000, 64, True, None)]  # and (b)
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -687,6 +711,77 @@ def test_flash_attention_strided_views_and_dispatch(cuda):
     assert float((got.float() - want.float()).abs().max()) <= 2e-2
     assert torch.equal(want, flash_attention_ref(qt.contiguous(), kt.contiguous(),
                                                  vt.contiguous(), window=20))
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_bf16_every_head_dim(cuda, d):
+    """The tensor-core route at each head dim: GQA over ragged keys (sk =
+    150, two full 64-key tiles and a zero-filled tail), causal and not, a
+    window, ``kv_len`` as an int, an int32 and an int64 tensor on the card,
+    and ``kv_len = 0`` giving zeros; within 2e-2 of the plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = _flash_inputs(gen, 2, 6, 2, 150, 150, d, torch.bfloat16, cuda)
+    for causal, win in ((True, None), (False, None), (True, 40), (False, 70)):
+        for n in (None, 150, 101, 64, 1):
+            for kv_len in ((n,) if n is None else
+                           (n, torch.tensor(n, device=cuda, dtype=torch.int32),
+                            torch.tensor(n, device=cuda))):
+                got = flash_attention_cuda(q, k, v, kv_len, causal=causal, window=win)
+                want = flash_attention_ref(q, k, v, kv_len, causal=causal, window=win)
+                assert got.dtype == torch.bfloat16 and got.shape == want.shape
+                assert float((got.float() - want.float()).abs().max()) <= 2e-2
+    zero = flash_attention_cuda(q, k, v, torch.tensor(0, device=cuda), causal=True)
+    torch.cuda.synchronize()
+    assert not bool(zero.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_strided_views_every_head_dim(cuda, d, dtype):
+    """(B, S, H, D) buffers viewed as (B, H, S, D) at each head dim, read in
+    place (TMA reads the view's strides on the bf16 route), GQA, a window;
+    a 16-byte-misaligned view is copied first, not refused."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(d + 1)
+    q = torch.randn((2, 77, 6, d), generator=gen, device=cuda).to(dtype).transpose(1, 2)
+    k = torch.randn((2, 77, 3, d), generator=gen, device=cuda).to(dtype).transpose(1, 2)
+    v = torch.randn((2, 77, 3, d), generator=gen, device=cuda).to(dtype).transpose(1, 2)
+    got = flash_attention_cuda(q, k, v, causal=True, window=20)
+    assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention_ref(q, k, v, causal=True, window=20)
+    assert float((got.float() - want.float()).abs().max()) <= FLASH_ATOL[dtype]
+    flat = torch.randn(1 + 2 * 6 * 77 * d, generator=gen, device=cuda).to(dtype)
+    q1 = flat[1:].view(2, 77, 6, d).transpose(1, 2)        # base off by one element
+    got = flash_attention_cuda(q1, k, v, causal=True)
+    want = flash_attention_ref(q1, k, v, causal=True)
+    assert float((got.float() - want.float()).abs().max()) <= FLASH_ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_cuda_graph_replay(cuda, dtype):
+    """A capture of the kernel replays with ``kv_len`` changed on the card:
+    no host sync and no per-call host state inside the launch."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = _flash_inputs(gen, 2, 4, 2, 200, 200, 64, dtype, cuda)
+    kv_len = torch.tensor(200, device=cuda, dtype=torch.int32)
+    flash_attention_cuda(q, k, v, kv_len, causal=True)     # first use, outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = flash_attention_cuda.launches
+    with torch.cuda.graph(graph):
+        out = flash_attention_cuda(q, k, v, kv_len, causal=True)
+    assert flash_attention_cuda.launches == before + 1
+    for n in (200, 130, 64, 0):
+        kv_len.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v, n, causal=True)
+        assert float((out.float() - want.float()).abs().max()) <= FLASH_ATOL[dtype]
 
 
 @pytest.mark.parametrize("d,dtype,exc", [(48, torch.float32, ValueError),

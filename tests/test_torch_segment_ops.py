@@ -342,6 +342,73 @@ def test_float_pair_count_into_matches_jax_bitwise(ns, nd):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _fold_plan(values, num_bins, tile):
+    """The counting sort's offsets as the kernel's first three passes
+    compute them: ``offsets`` (B, tiles), the exclusive prefix over tiles of
+    each bin's per-tile count, and ``bin_start`` (B + 1,), each bin's first
+    place in the sorted order, the in-range total last."""
+    n = values.shape[0]
+    tiles = -(-n // tile)
+    ok = (values >= 0) & (values < num_bins)
+    counts = np.zeros((num_bins, tiles), np.int64)
+    np.add.at(counts, (values[ok], np.arange(n)[ok] // tile), 1)
+    totals = counts.sum(1)
+    return counts.cumsum(1) - counts, np.concatenate([[0], totals.cumsum()])
+
+
+@pytest.mark.parametrize("nbins,n", [(26, 9000), (1, 1025), (676, 12_288), (7, 1),
+                                     (3, 0), (5000, 4097)])
+@pytest.mark.parametrize("with_into", [False, True])
+def test_ordered_fold_counting_sort_plan(nbins, n, with_into):
+    """The kernel's counting sort, replayed on the CPU at the wrapper's tile
+    and scratch shapes: each tile's rows placed at ``bin_start[b] +
+    offsets[b, t] + rank`` form the stable sort by bin (row order kept
+    within each bin), and folding each bin's segment left to right onto
+    ``into`` gives the JAX package's row-order scatter bitwise; ``n`` not a
+    multiple of the tile, one bin (the longest chain) and both tile sizes
+    included."""
+    from repro_torch.kernels.segment_ops import ordered_histogram as oh
+
+    gen = np.random.default_rng(nbins * 7 + n)
+    v = gen.integers(-2, nbins + 2, n).astype(np.int32)
+    w = (gen.standard_normal(n) * 10.0 ** gen.integers(-3, 7, n)).astype(np.float32)
+    into = (gen.standard_normal(nbins) * 1e4).astype(np.float32) if with_into else None
+    shapes = oh.scratch_shapes(n, nbins)
+    tile = oh.tile_rows(nbins)
+    assert tile == (1024 if nbins <= 3072 else 4096)
+    tiles = -(-n // tile)
+    assert shapes == {"counts": (nbins, tiles), "bin_start": (nbins + 1,),
+                      "sorted": (n,)}
+    offsets, bin_start = _fold_plan(v, nbins, tile)
+    assert offsets.shape == shapes["counts"] and bin_start.shape == shapes["bin_start"]
+    ok = (v >= 0) & (v < nbins)
+    assert bin_start[-1] == ok.sum()
+    # the scatter, one tile at a time in row order
+    place = np.full(n, -1, np.int64)
+    for t in range(tiles):
+        seen = {}
+        for i in range(t * tile, min(n, (t + 1) * tile)):
+            if ok[i]:
+                b = int(v[i])
+                place[i] = bin_start[b] + offsets[b, t] + seen.get(b, 0)
+                seen[b] = seen.get(b, 0) + 1
+    order = np.flatnonzero(ok)[np.argsort(v[ok], kind="stable")]
+    ordered = np.empty(int(ok.sum()), np.float32)
+    ordered[place[ok]] = w[ok]
+    np.testing.assert_array_equal(np.sort(place[ok]), np.arange(ok.sum()))
+    np.testing.assert_array_equal(ordered, w[order])
+    # the fold: one chain per bin, left to right
+    out = np.zeros(nbins, np.float32) if into is None else into.copy()
+    for b in range(nbins):
+        acc = out[b]
+        for x in ordered[bin_start[b]:bin_start[b + 1]]:
+            acc = np.float32(acc + x)
+        out[b] = acc
+    jinto = None if into is None else jnp.asarray(into)
+    want = _np(jso.histogram_ref(jnp.asarray(v), nbins, jnp.asarray(w), jinto))
+    np.testing.assert_array_equal(out, want)
+
+
 def test_ordered_fold_wrapper_checks_inputs():
     v = T(np.array([0, 1, 2], np.int32))
     w = T(np.ones(3, np.float32))

@@ -8,7 +8,8 @@ float32 compute) with the JAX package's parameters carried over bitwise by
 * ``prefill`` last logits within 1e-4 and the bf16 K / V cache within one
   bf16 ulp; ``decode_step`` logits within 1e-4;
 * ``Engine.generate`` (4 requests x 12-token prompts x 8 steps, ``max_len``
-  64) giving the JAX engine's greedy tokens exactly;
+  64) giving the JAX engine's greedy tokens exactly, and again with a
+  prompt longer than ``max_len`` and with decode past ``max_len``;
 * ``launch.serve.main`` running on the CPU and printing its lines, also
   from a checkpoint the JAX package's ``CheckpointManager`` wrote.
 
@@ -168,6 +169,27 @@ def test_engine_generate_greedy_matches_jax(jax_model):
     np.testing.assert_array_equal(got.tokens, np.asarray(want.tokens))
     np.testing.assert_allclose(got.prefill_logits, np.asarray(want.prefill_logits),
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("prompt_len,max_len,steps", [(12, 8, 4), (12, 14, 6)],
+                         ids=["prompt_past_max_len", "decode_past_max_len"])
+def test_engine_generate_past_max_len_matches_jax(jax_model, prompt_len, max_len, steps):
+    """A prompt longer than ``max_len`` keeps a cache of its own length, and
+    decode past the cache writes onto its last slot: the JAX engine's shapes
+    (``_grow_cache`` pads only a shorter cache; ``dynamic_update_slice``
+    clamps), so its greedy tokens and last logits (within 1e-4)."""
+    cfg_j, params_j = jax_model
+    cfg, model = _port(cfg_j, params_j)
+    prompts = _prompts(cfg, 2, prompt_len, seed=3)
+    want = JEngine(cfg_j, params_j, max_len=max_len).generate(prompts, steps=steps)
+    eng = Engine(cfg, model, max_len=max_len, device="cpu")
+    got = eng.generate(prompts, steps=steps)
+    assert got.tokens.shape == (2, steps)
+    np.testing.assert_array_equal(got.tokens, np.asarray(want.tokens))
+    np.testing.assert_allclose(got.prefill_logits, np.asarray(want.prefill_logits),
+                               atol=1e-4)
+    _, cache = eng.prefill(prompts)
+    assert cache["k"].shape[2] == max(max_len, prompt_len) and cache["pos"] == prompt_len
 
 
 def test_engine_from_state_dict_and_sampling(jax_model):
