@@ -88,8 +88,10 @@ SEED = 1
 # 32-bit rate (the counting kernels do one integer add per event)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
-# the same data sheet: dense bf16 tensor-core rate (attention's products)
+# the same data sheet: dense bf16 and TF32 tensor-core rates (attention's
+# products; the float32 route runs each as three TF32 products)
 BF16_TENSOR_OPS_PER_S = 989e12
+TF32_TENSOR_OPS_PER_S = 495e12
 # dependent float32 adds issue one per 4 cycles on an SM (the fold's chain)
 ADD_CYCLES = 4
 NUM_CASES = 1_000_000
@@ -123,7 +125,7 @@ FLASH_SHAPES = ((1, 4, 2, 128, 128, 64, True, None), (2, 8, 2, 256, 256, 64, Tru
                 (8, 12, 12, 12, 12, 64, True, None),
                 (8, 12, 12, 1_000, 1_000, 64, True, None))
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX kernel tests' bounds
-FLASH_TIMED = (8, 12, 1_024, 64)                     # (B, H, S, D), bf16, causal
+FLASH_TIMED = (8, 12, 1_024, 64)                     # (B, H, S, D), causal
 SERVE_ARCH = "eventlm-100m"
 # (label, requests, prompt length, stride between prompts in the token
 # stream, steps, max_len): (a) the defaults of launch/serve.py, (b) long
@@ -530,7 +532,8 @@ def check_scans(torch, so, gen, record) -> None:
     and affine (random uint32 maps) are compared with the plain version on
     the card; the float32 sums (non-integer rows across eight decades,
     (N, 26) and (N,)) with the plain version on CPU copies.  One run over a
-    whole chunk is held against the sequential folds above."""
+    whole chunk, a ghost-shaped chunk, a 2^20-row run, misaligned views and
+    a ragged last tile are held against the sequential folds above."""
     from repro_torch.core.polyhash import BASE1, BASE2
 
     dev = "cuda"
@@ -574,6 +577,35 @@ def check_scans(torch, so, gen, record) -> None:
                     record("segmented_sum_scan", ys, want, f"{what} shape={shape}")
                     if n:
                         record("segmented_sum_scan", out, ys[-1], f"{what} carry_out")
+    # where the head-of-run design was serial: a ghost-shaped chunk (2^17
+    # rows, one per case segment, the last ~56,000 one padding run of
+    # identity maps) and one run over 2^20 rows; then views one element off
+    # 16-byte alignment (the one-row-a-load path) and a ragged last tile.
+    # Held against the sequential fold.
+    carry = torch.tensor(0x9E3779B9 - 2**32, dtype=torch.int32, device=dev)
+    for label, n, off in (("ghost", 1 << 17, 0), ("one_run", 1 << 20, 0),
+                          ("unaligned", 100_003, 1), ("ragged", 3 * 4096 * 7 + 1234, 0)):
+        starts = torch.zeros(n + off, dtype=torch.bool, device=dev)
+        vals = torch.randint(-2**31, 2**31 - 1, (n + off,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        mul = torch.randint(-2**31, 2**31 - 1, (n + off,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        if label == "ghost":
+            d = n - 56_000 + 1
+            starts[:d] = True
+            mul[d:], vals[d:] = 1, 0
+        elif label != "one_run":
+            starts[off:] = torch.rand(n, generator=gen, device=dev) < 1 / 7
+        starts, vals, mul = starts[off:], vals[off:], mul[off:]
+        ys, out = so.segmented_polyhash_cuda(vals, starts, carry, BASE1)
+        ya, oa = so.segmented_affine_cuda(mul, vals, starts, carry)
+        want = torch.from_numpy(fold_affine(torch.full_like(vals, BASE1), vals, starts, carry))
+        want_a = torch.from_numpy(fold_affine(mul, vals, starts, carry))
+        what = f"{label} N={n}"
+        record("segmented_polyhash", ys, want, what)
+        record("segmented_affine", ya, want_a, what)
+        record("segmented_polyhash", out, want[-1], f"{what} carry_out")
+        record("segmented_affine", oa, want_a[-1], f"{what} carry_out")
 
 
 def time_kernels(torch, so, engine, frame_gpu, ghosts) -> dict:
@@ -623,14 +655,19 @@ def time_kernels(torch, so, engine, frame_gpu, ghosts) -> dict:
                 0, sl(act_long, i), sl(is_start, i)), k),
             **bound(8 * e + 4 * a, e)}
     # device time per call (the event times above include the host's
-    # per-call cost whenever the card outruns the launches)
+    # per-call cost whenever the card outruns the launches), the library
+    # call's too
     for label, sp in (("chunk", spans), ("whole_log", whole)):
         rows[f"pair_count/{label}"]["graph_ms"] = graph_ms(torch, lambda sp=sp: [
             so.pair_count_cuda(prev_act[lo:hi], act[lo:hi], pair[lo:hi], a, a)
             for lo, hi in sp], len(sp))
+        rows[f"pair_count/{label}"]["library_graph_ms"] = graph_ms(torch, lambda sp=sp: [
+            pc_out.index_add_(0, pair_key[lo:hi], pair[lo:hi]) for lo, hi in sp], len(sp))
         rows[f"histogram/{label}"]["graph_ms"] = graph_ms(torch, lambda sp=sp: [
             so.histogram_cuda(act[lo:hi], is_start[lo:hi], a)
             for lo, hi in sp], len(sp))
+        rows[f"histogram/{label}"]["library_graph_ms"] = graph_ms(torch, lambda sp=sp: [
+            h_out.index_add_(0, act_long[lo:hi], is_start[lo:hi]) for lo, hi in sp], len(sp))
     e = n
     rows["histogram/shift_whole_log"] = {
         "E": e, "B": a * a,
@@ -694,6 +731,9 @@ def time_stats_kernels(torch, so, engine, frame_gpu, spans) -> dict:
                 sl(vals, i), sl(seg, i), s_n, op), k),
             "library_ms": time_ms(torch, lambda i: lib_out.scatter_reduce_(
                 0, sl(seg_long, i), sl(lib_vals, i), lib_op[op], include_self=True), k),
+            "library_graph_ms": graph_ms(torch, lambda: [lib_out.scatter_reduce_(
+                0, seg_long[lo:hi], lib_vals[lo:hi], lib_op[op], include_self=True)
+                for lo, hi in spans], k),
             **bound(8 * e + 4 * s_n, e)}
     # one run over a whole chunk: one thread folds all of it
     one = torch.zeros(e, dtype=torch.int32, device="cuda")
@@ -738,6 +778,8 @@ def time_stats_kernels(torch, so, engine, frame_gpu, spans) -> dict:
             # yardstick only: CUDA index_add_ adds in no fixed order
             "library_ms": time_ms(torch, lambda i: lib_out.index_add_(
                 0, sl(vlong, i), sl(dt, i)), k),
+            "library_graph_ms": graph_ms(torch, lambda: [lib_out.index_add_(
+                0, vlong[lo:hi], dt[lo:hi]) for lo, hi in spans], k),
             **bound(8 * e + 8 * bins, e), **chain}
     torch.cuda.synchronize()
     return rows
@@ -751,7 +793,9 @@ def time_scan_kernels(torch, so, engine, frame_gpu, spans, ghosts) -> dict:
     of ``eventually_follows``.  No single PyTorch call computes a segmented
     scan (``library_ms`` is None); an unsegmented ``torch.cumsum`` of the
     same rows is recorded as a yardstick only.  ``single_run_ms``: one run
-    over a whole chunk, walked by one thread per column."""
+    over a whole chunk (which the sum scan walks with one thread per
+    column).  ``device_us_per_call``: the profiler's device time a call,
+    by kernel, memset and copy."""
     from repro_torch.core.polyhash import BASE1, SK_ADD1, SK_MUL1
 
     a_n = NUM_ACTIVITIES
@@ -800,12 +844,16 @@ def time_scan_kernels(torch, so, engine, frame_gpu, spans, ghosts) -> dict:
                "library_ms": None, **bound(nbytes, ops)}
         if yard is not None:
             row["yardstick_unsegmented_cumsum_ms"] = time_ms(torch, yard, k)
+        # device microseconds a call by activity (the polyhash / affine
+        # launcher zeroes its status words with a memset before the kernel)
+        row["device_us_per_call"] = {
+            key: us / count for key, (count, us) in profile_device(
+                torch, lambda kern=kern: [kern(i) for i in range(k)]).items()}
         rows[f"{name}/chunk"] = row
     # the affine scan at the ghost chunks' shape: one row per case segment
     # of a 524,288-row group, padded to a power of two with the tail case,
-    # so the padding is one run of up to half the rows, walked by one
-    # thread (and stepped once per row by the plain version, which is
-    # therefore not timed here)
+    # so the padding is one run of up to half the rows (stepped once per
+    # row by the plain version, hence one timed call)
     g = ghosts[0]
     gm, ga = g[SK_MUL1].view(torch.int32), g[SK_ADD1].view(torch.int32)
     gadj = engine.adjacent(g, engine.init_row_carry("cuda"))
@@ -815,6 +863,7 @@ def time_scan_kernels(torch, so, engine, frame_gpu, spans, ghosts) -> dict:
         "E": m,
         "ms": time_ms(torch, lambda i: so.segmented_affine_cuda(gm, ga, gs, c0), 1),
         "graph_ms": graph_ms(torch, lambda: [so.segmented_affine_cuda(gm, ga, gs, c0)], 1),
+        "plain_ms": 1e3 * host_s(torch, lambda: so.segmented_affine_ref(gm, ga, gs, c0)),
         "longest_run": int(torch.diff(torch.nonzero(torch.cat([
             gs, torch.ones(1, dtype=torch.bool, device="cuda")]))[:, 0]).max()),
         "library_ms": None, **bound(13 * m, 2 * m)}
@@ -1088,18 +1137,21 @@ def time_semiring_kernels(torch, g) -> dict:
 def time_flash_attention(torch) -> dict:
     """The flash-attention kernel at the serving path's long prefill shape,
     rounded up to whole tiles: q, k, v ``FLASH_TIMED``, causal, in bf16 (the
-    tensor-core route) and in float32 (the SIMT route).  ``library_ms`` is
-    ``scaled_dot_product_attention`` on the same inputs, a yardstick the
-    port never calls.  The bound counts q, k, v read and o written once, and
-    the two products over the causal pairs only, at the bf16 tensor-core
-    rate (bf16) or the float32 rate outside the tensor cores (float32)."""
+    ``wgmma`` route) and in float32 (the 3xTF32 ``mma.sync`` route).
+    ``library_ms`` / ``library_graph_ms`` are ``scaled_dot_product_attention``
+    on the same inputs, a yardstick the port never calls.  The bound counts
+    q, k, v read and o written once, and the two products over the causal
+    pairs only: at the bf16 tensor-core rate (bf16), or as three TF32
+    products each at the TF32 rate (float32; ``simt_bound_ms`` is the same
+    operations once each at the float32 rate outside the tensor cores)."""
     from repro_torch.kernels import flash_attention as fa
 
     b, h, s, d = FLASH_TIMED
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     pairs = s * (s + 1) // 2
+    ops = 4 * d * pairs * b * h
     rows = {}
-    for dtype, rate in (("bfloat16", BF16_TENSOR_OPS_PER_S), ("float32", SCALAR_OPS_PER_S)):
+    for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(dt)
                    for _ in range(3))
@@ -1107,16 +1159,25 @@ def time_flash_attention(torch) -> dict:
         def kern(q=q, k=k, v=v):
             return fa.flash_attention_cuda(q, k, v, causal=True)
 
+        def sdpa(q=q, k=k, v=v):
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        nbytes = 4 * b * h * s * d * q.element_size()
         row = {"B": b, "H": h, "S": s, "D": d, "dtype": dtype, "causal": True,
                "ms": time_ms(torch, lambda i: kern(), 1, iters=50),
                "graph_ms": graph_ms(torch, lambda: [kern() for _ in range(5)], 5,
                                     replays=10),
                "plain_ms": time_ms(torch, lambda i: fa.flash_attention_ref(
                    q, k, v, causal=True), 1, iters=10),
-               "library_ms": time_ms(torch, lambda i: torch.nn.functional.
-                                     scaled_dot_product_attention(q, k, v, is_causal=True),
-                                     1, iters=50),
-               **bound(4 * b * h * s * d * q.element_size(), 4 * d * pairs * b * h, rate)}
+               "library_ms": time_ms(torch, lambda i: sdpa(), 1, iters=50),
+               "library_graph_ms": graph_ms(torch, lambda: [sdpa() for _ in range(5)], 5,
+                                            replays=10)}
+        if dtype == "bfloat16":
+            row.update(bound(nbytes, ops, BF16_TENSOR_OPS_PER_S))
+        else:
+            row.update(bound(nbytes, 3 * ops, TF32_TENSOR_OPS_PER_S))
+            simt = bound(nbytes, ops, SCALAR_OPS_PER_S)
+            row.update(simt_bound_ms=simt["bound_ms"], simt_bound_by=simt["bound_by"])
         suffix = "" if dtype == "bfloat16" else "_float32"
         rows[f"flash_attention/prefill_{s}{suffix}"] = row
     torch.cuda.synchronize()
@@ -1309,7 +1370,8 @@ def main() -> int:
     checks = check_kernels(torch, so)
     emit({"phase": "kernels_check", "seconds": time.perf_counter() - t0,
           "tolerance": "bitwise (integer counts, float32 min/max, row-order "
-                       "float32 sums); flash_attention within 2e-5 (float32) / "
+                       "float32 sums, uint32 scans); flash_attention within 2e-5 "
+                       "(float32, 3xTF32 products: each within 2^-20 of itself) / "
                        "2e-2 (bf16, P rounded to bf16 before P.V: each weight "
                        "within 2^-9 of itself)", **checks})
 
@@ -1822,7 +1884,8 @@ def main() -> int:
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"],
-                **{key: row[key] for key in ("chain_bound_ms", "graph_ms") if key in row}}
+                **{key: row[key] for key in ("chain_bound_ms", "graph_ms", "library_graph_ms")
+                   if key in row}}
 
     csrc = "src/repro_torch/kernels/csrc/"
     emit({"kernels": [
@@ -1836,8 +1899,11 @@ def main() -> int:
               ORDERED_FOLD_TPU, times["ordered_histogram/sojourn_26/chunk"]),
         entry("segmented_polyhash", csrc + "segmented_scan.cu", POLYHASH_TPU,
               times["segmented_polyhash/chunk"]),
-        entry("segmented_affine", csrc + "segmented_scan.cu", AFFINE_TPU,
-              times["segmented_affine/chunk"]),
+        {**entry("segmented_affine", csrc + "segmented_scan.cu", AFFINE_TPU,
+                 times["segmented_affine/chunk"]),
+         "ghost_chunk": {key: times["segmented_affine/ghost_chunk"][key]
+                         for key in ("E", "longest_run", "ms", "graph_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}},
         entry("segmented_sum_scan", csrc + "segmented_scan.cu", SUM_SCAN_TPU,
               times["segmented_sum_scan/chunk"]),
         entry("semiring_matmul", csrc + "semiring.cu", SEMIRING_TPU,
@@ -1846,7 +1912,8 @@ def main() -> int:
                  times[f"flash_attention/prefill_{FLASH_TIMED[2]}"]),
          "float32_route": {key: times[f"flash_attention/prefill_{FLASH_TIMED[2]}_float32"][key]
                            for key in ("ms", "graph_ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")}},
+                                       "bound_by", "simt_bound_ms", "library_ms",
+                                       "library_graph_ms")}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -194,10 +194,11 @@ def filter_case_size(frame: EventFrame, min_events: int, max_events: int, num_ca
 
 def most_common_activity(frame: EventFrame, num_activities: int) -> torch.Tensor:
     """The paper's Table-5 filter target: the most frequent activity (the
-    first one on a tie), as a 0-d tensor on the frame's device."""
+    first one on a tie), as a 0-d int32 tensor on the frame's device (the
+    dtype of JAX's ``jnp.argmax``)."""
     counts = histogram(frame[ACTIVITY], num_activities,
                        weights=frame.rows_valid())
-    return torch.argmax(counts)
+    return torch.argmax(counts).to(torch.int32)
 
 
 def streaming_most_common_activity(chunks, num_activities: int) -> int:

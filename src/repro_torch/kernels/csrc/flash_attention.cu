@@ -17,10 +17,11 @@
 // rows x 64, bf16, causal) the bytes (q, k, v read once, o written once:
 // 50.3 MB at 3.35 TB/s, 0.015 ms) and the tensor-core operations (12.9
 // GFLOP at 989 TFLOP/s bf16, 0.013 ms) are close; the bytes bound it. The
-// products must run on the tensor cores to come near: on the SIMT cores
-// (67 TFLOP/s in float32) the operations alone take 0.19 ms, and the
-// float32 kernel below takes 1.11 ms; the bf16 kernel takes 0.097 ms there
-// (6.4 x the bound; scaled_dot_product_attention 0.051 ms).
+// bf16 kernel takes 0.097 ms there (6.4 x the bound;
+// scaled_dot_product_attention 0.051 ms). In float32 the bytes double
+// (100.6 MB, 0.030 ms) and the products run as three TF32 products each:
+// 3 x 12.9 GFLOP at 495 TFLOP/s is 0.078 ms, the float32 route's bound
+// (on the SIMT cores, at 67 TFLOP/s, the operations alone took 0.19 ms).
 //
 // bf16 route (flash_attention_bf16): the products on wgmma. One CTA of 160
 // threads per (64-row query tile, q head, batch), the heaviest causal tiles
@@ -49,14 +50,34 @@
 // other; 4 CTAs an SM (94 registers, 41 KB of shared memory at D = 64)
 // overlap them. Two consumer warpgroups that ping-pong are left to later.
 //
-// float32 route (flash_attention_f32): the SIMT kernel, kept because the
-// tensor cores would round float32 inputs to TF32 and this route is exact
-// to float32 rounding. One block of 256 threads per (64-row query tile, q
-// head, batch); four threads share a query row, each holding a quarter of
-// its q and output in registers (float4 chunks c = lane + 4 i); 64-key K
-// and V tiles are staged in shared memory (512 * D bytes, dynamic) with
-// keys past the end of k read as 0 and masked; per 16 keys two shuffles
-// complete each score and the online-softmax update folds them.
+// float32 route (flash_attention_f32): the products on mma.sync as 3xTF32.
+// Each float32 operand x is split into big = tf32(x) and small = tf32(x -
+// big), both rounded to nearest with ties away (cvt.rna's rounding, done
+// with two integer operations), and a product is big.big + big.small +
+// small.big (small terms first, float32 accumulators); only small.small
+// (2^-22 of the product) and the rounding of small are dropped, so each
+// product is within 2^-20 of itself and an output within ~2^-20 sum_j p_j
+// |v_j| of the float32 result (PERF.md section 2). One CTA of 4 warps per
+// (64-row query tile, q head, batch), the heaviest causal tiles first;
+// each warp owns 16 query rows. Q's A fragments are loaded once into
+// registers and split there (split again per use at D = 128, for
+// registers). 64-key K and V tiles come through a 2-stage cp.async ring in
+// shared memory, with row strides that keep the B fragments' reads on 32
+// banks; K and V are split as their fragments are read, K 16 bytes a read
+// (the dims of S's k-steps are permuted so a thread's K fragment for two
+// steps is 4 consecutive floats). S = Q.K^T on m16n8k8 tiles; the softmax
+// runs on the S accumulators, each thread holding 2 rows x 16 keys, a
+// row's max and sum over a quad by two shuffles, each exp2 taken once. The
+// S accumulators are P.V's A fragment as they lie: the k index of each
+// 8-key step is permuted (k = t holds key 2t, k = t + 4 key 2t + 1) and
+// V's B fragment reads the same keys, so P needs no shuffle and no
+// shared-memory pass; P is split like any operand. Each tile's P.V goes to
+// fresh accumulators and is added to the running O in float32, since the
+// tensor cores' accumulation does not round to nearest. The three products
+// of a group share their A operand and run as three passes over the group
+// so that consecutive mma.sync are independent. wgmma takes tf32 only
+// K-major, and V's (keys, D) tile is MN-major for P.V, so this route stays
+// on mma.sync.
 //
 // Both routes read kv_len on the device (a 0-d tensor or a value), never on
 // the host, so a CUDA-graph capture holds.
@@ -70,9 +91,8 @@ namespace {
 
 constexpr int kRows = 64;                 // query rows per block
 constexpr int kKeys = 64;                 // key rows per staged tile
-constexpr int kSub = 16;                  // f32: keys per online-softmax step
-constexpr int kLanes = 4;                 // f32: threads per query row
-constexpr int kThreads = kRows * kLanes;  // f32: 256
+constexpr int kThreadsF32 = 128;          // f32: 4 warps, 16 query rows each
+constexpr int kF32Stages = 2;             // f32: K / V ring depth
 constexpr int kConsumers = 128;           // bf16: one warpgroup
 constexpr int kThreadsTc = kConsumers + 32;  // bf16: plus the producer warp
 constexpr int kStages = 2;                // bf16: K / V ring depth
@@ -108,30 +128,104 @@ __device__ __forceinline__ int read_kv_len(const Params& p) {
   return min(max(kvl, 0), p.sk);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // ------------------------------------------------------- float32 route
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// 3xTF32 on mma.sync: x = big + small, big = tf32(x), small = tf32(x - big),
+// each rounded to nearest with ties away from zero (cvt.rna's rounding),
+// done with two integer operations on the bits
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
 }
+
+// D (16 x 8, float32) += A (16 x 8, tf32, row) . B (8 x 8, tf32, col); not
+// volatile, so the compiler may interleave independent products
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[off + i] += a . b[i] for a group of N products sharing the A
+// operand, the small terms first (small . small is dropped); each pass runs
+// over the group, so consecutive products are independent
+template <int N, int M>
+__device__ __forceinline__ void mma_3xtf32(float (&acc)[M][4], int off,
+                                           const uint32_t (&ab)[4], const uint32_t (&as)[4],
+                                           const uint32_t (&bb)[N][2],
+                                           const uint32_t (&bs)[N][2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(acc[off + i], as, bb[i]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(acc[off + i], ab, bs[i]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(acc[off + i], ab, bb[i]);
+}
+
+// Q's A-fragment element e of k-step kk from the thread's float4s (see
+// the permuted dims in flash_attention_f32); kk and e are constants once
+// unrolled
+template <int P>
+__device__ __forceinline__ float q_elem(const float4 (&qr)[P][2], int kk, int e) {
+  const float4 v = qr[kk >> 1][e & 1];
+  const int c = 2 * (kk & 1) + (e >> 1);
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  // src-size 0 zero-fills the 16 bytes (keys past the end of k and v)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Shared-memory geometry of the float32 route: kF32Stages (K, V) pairs of
+// 64 keys. A K row is read 16 bytes at a time (4 dims a thread, 8 threads
+// a phase over 2 keys), so its stride is 16 mod 32 floats; a V row is read
+// one float at a time (8 columns x 4 key pairs a warp), so its stride is 4
+// mod 32. Either way the B fragments' reads hit every bank once.
+template <int D>
+struct TileF32 {
+  static constexpr int kLdK = D % 32 == 16 ? D : D + 16;
+  static constexpr int kLdV = D + 4;
+  static constexpr int kStage = kKeys * (kLdK + kLdV);   // floats
+  static constexpr int kSmem = kF32Stages * kStage * (int)sizeof(float);
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreadsF32, D <= 64 ? 2 : 1)
 flash_attention_f32(const Params p) {
-  constexpr int C = D / 4;        // float4 chunks per row
-  constexpr int CT = C / kLanes;  // chunks per thread
-  extern __shared__ float4 smem[];
-  float4* ks = smem;              // [kKeys][C]
-  float4* vs = smem + kKeys * C;  // [kKeys][C]
+  using G = TileF32<D>;
+  constexpr int KS = D / 8;               // k-steps of S = Q.K^T
+  constexpr int C = D / 4;                // 16-byte chunks a row
+  constexpr bool kQSplit = D <= 64;       // Q held split (else split per use)
+  constexpr int NJ = 4;                   // key groups (of 8) a pass of S
+  constexpr int NO = D / 8 < 4 ? D / 8 : 4;  // output groups (of 8) a pass of P.V
+  extern __shared__ float4 smem_f4[];
+  float* const smem = reinterpret_cast<float*>(smem_f4);  // [stage][K | V]
+  const uint32_t smem_base = smem_u32(smem);
 
-  const int tid = threadIdx.x;
-  const int r = tid / kLanes, lane = tid % kLanes;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;  // the mma fragments' group / thread
   // the heaviest causal tiles (the last rows) start first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
   const int hq = blockIdx.y, b = blockIdx.z;
   const int hk = hq / p.group;
-  const int row = q0 + r;
+  const int r0 = q0 + 16 * w + gq;          // this thread's rows: r0, r0 + 8
 
   const float* qp = static_cast<const float*>(p.q) + b * p.q_sb + hq * p.q_sh;
   const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
@@ -139,100 +233,208 @@ flash_attention_f32(const Params p) {
   float* op = static_cast<float*>(p.o) + b * p.o_sb + hq * p.o_sh;
 
   const int kvl = read_kv_len(p);
-
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 q[CT], acc[CT];
-#pragma unroll
-  for (int i = 0; i < CT; ++i) {
-    q[i] = row < p.sq ? load4(qp + row * p.q_ss + 4 * (lane + kLanes * i))
-                      : zero;
-    acc[i] = zero;
-  }
-  float m = -INFINITY, l = 0.f;
-
   int kt_begin, kt_end;
   key_tiles(p, q0, kvl, kt_begin, kt_end);
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
+  // one 64-key K and V tile into stage st, 16 bytes a copy
+  auto load_tile = [&](int kt, int st) {
     const int k0 = kt * kKeys;
-    __syncthreads();  // the previous tile is consumed
-    for (int e = tid; e < kKeys * C; e += kThreads) {
+    const uint32_t ks = smem_base + (uint32_t)(st * G::kStage * sizeof(float));
+    const uint32_t vs = ks + (uint32_t)(kKeys * G::kLdK * sizeof(float));
+    for (int e = tid; e < kKeys * C; e += kThreadsF32) {
       const int j = e / C, c = e % C;
       const int key = k0 + j;
-      float4 kx = zero, vx = zero;
-      if (key < p.sk) {
-        kx = load4(kp + key * p.k_ss + 4 * c);
-        vx = load4(vp + key * p.v_ss + 4 * c);
-      }
-      ks[e] = kx;
-      vs[e] = vx;
+      const bool ok = key < p.sk;
+      cp_async16(ks + (uint32_t)((j * G::kLdK + 4 * c) * sizeof(float)),
+                 ok ? kp + (int64_t)key * p.k_ss + 4 * c : kp, ok);
+      cp_async16(vs + (uint32_t)((j * G::kLdV + 4 * c) * sizeof(float)),
+                 ok ? vp + (int64_t)key * p.v_ss + 4 * c : vp, ok);
     }
-    __syncthreads();
+  };
+  if (kt_begin < kt_end) load_tile(kt_begin, 0);
+  cp_async_commit();
 
-#pragma unroll 1
-    for (int j0 = 0; j0 < kKeys; j0 += kSub) {
-      float s[kSub];
-      float m_cur = -INFINITY;
+  // The dims of S's k-steps are permuted so that a thread's K fragment for
+  // two k-steps is 4 consecutive floats: in each 16 dims 16 pp .. +15, k =
+  // tq (+ 4) of step 2 pp + h holds dim 16 pp + 4 tq + 2 h (+ 1). Q's A
+  // fragment follows: [kk][0] row r0, [1] row r0 + 8 at k = tq, [2] and
+  // [3] the same rows at k = tq + 4. Rows past sq are 0.
+  float4 qr[D / 16][2];
 #pragma unroll
-      for (int jj = 0; jj < kSub; ++jj) {
-        const float4* kr = ks + (j0 + jj) * C + lane;
-        float dot = 0.f;
+  for (int pp = 0; pp < D / 16; ++pp)
 #pragma unroll
-        for (int i = 0; i < CT; ++i) {
-          const float4 kk = kr[kLanes * i];
-          dot = fmaf(q[i].x, kk.x, dot);
-          dot = fmaf(q[i].y, kk.y, dot);
-          dot = fmaf(q[i].z, kk.z, dot);
-          dot = fmaf(q[i].w, kk.w, dot);
-        }
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-        const int col = k0 + j0 + jj;
-        bool ok = col < kvl;
-        if (p.causal) ok = ok && col <= row;
-        if (p.window >= 0) ok = ok && col > row - p.window;
-        s[jj] = ok ? dot * p.scale : -INFINITY;
-        m_cur = fmaxf(m_cur, s[jj]);
-      }
-      const float m_new = fmaxf(m, m_cur);
-      // no valid key yet: every p below is exp(-inf) = 0 and alpha = 0
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m - m_use);
-#pragma unroll
-      for (int i = 0; i < CT; ++i) {
-        acc[i].x *= alpha;
-        acc[i].y *= alpha;
-        acc[i].z *= alpha;
-        acc[i].w *= alpha;
-      }
-      float psum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < kSub; ++jj) {
-        const float pj = expf(s[jj] - m_use);
-        psum += pj;
-        const float4* vr = vs + (j0 + jj) * C + lane;
-#pragma unroll
-        for (int i = 0; i < CT; ++i) {
-          const float4 vv = vr[kLanes * i];
-          acc[i].x = fmaf(pj, vv.x, acc[i].x);
-          acc[i].y = fmaf(pj, vv.y, acc[i].y);
-          acc[i].z = fmaf(pj, vv.z, acc[i].z);
-          acc[i].w = fmaf(pj, vv.w, acc[i].w);
-        }
-      }
-      l = l * alpha + psum;
-      m = m_new;
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      qr[pp][h] = row < p.sq
+                      ? *reinterpret_cast<const float4*>(qp + (int64_t)row * p.q_ss +
+                                                         16 * pp + 4 * tq)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
     }
+  uint32_t qb[kQSplit ? KS : 1][4], qs[kQSplit ? KS : 1][4];
+  if constexpr (kQSplit) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(q_elem(qr, kk, e), qb[kk][e], qs[kk][e]);
   }
 
-  if (row < p.sq) {
+  const float scale_log2 = p.scale * 1.4426950408889634f;
+  float o[D / 8][4];
 #pragma unroll
-    for (int i = 0; i < CT; ++i) {
-      float4 out = zero;
-      if (l > 0.f) {
-        out = make_float4(acc[i].x / l, acc[i].y / l, acc[i].z / l, acc[i].w / l);
+  for (int jn = 0; jn < D / 8; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[jn][e] = 0.f;
+  float m_row[2] = {-INFINITY, -INFINITY}, l_row[2] = {0.f, 0.f};
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) load_tile(kt + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();  // tile kt has landed
+    __syncthreads();
+    const float* ks = smem + st * G::kStage;
+    const float* vs = ks + kKeys * G::kLdK;
+    const int k0 = kt * kKeys;
+
+    // S = Q . K^T: s[j] is keys k0 + 8 j .. + 7; s[j][e] is row r0 + 8 (e >> 1),
+    // key k0 + 8 j + 2 tq + (e & 1)
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int jg = 0; jg < 8; jg += NJ) {
+#pragma unroll
+      for (int pp = 0; pp < D / 16; ++pp) {
+        float4 kv[NJ];  // K[key 8 j + gq][16 pp + 4 tq .. + 3]
+#pragma unroll
+        for (int i = 0; i < NJ; ++i)
+          kv[i] = *reinterpret_cast<const float4*>(ks + (8 * (jg + i) + gq) * G::kLdK +
+                                                   16 * pp + 4 * tq);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kk = 2 * pp + h;
+          uint32_t ab[4], as[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (kQSplit) {
+              ab[e] = qb[kk][e];
+              as[e] = qs[kk][e];
+            } else {
+              split_tf32(q_elem(qr, kk, e), ab[e], as[e]);
+            }
+          }
+          uint32_t bb[NJ][2], bs[NJ][2];
+#pragma unroll
+          for (int i = 0; i < NJ; ++i) {
+            split_tf32(h ? kv[i].z : kv[i].x, bb[i][0], bs[i][0]);
+            split_tf32(h ? kv[i].w : kv[i].y, bb[i][1], bs[i][1]);
+          }
+          mma_3xtf32<NJ>(s, jg, ab, as, bb, bs);
+        }
       }
-      store4(op + row * p.o_ss + 4 * (lane + kLanes * i), out);
+    }
+
+    // mask, in log2 units
+    const bool full_tile = k0 + kKeys <= kvl &&
+                           (!p.causal || k0 + kKeys - 1 <= q0) &&
+                           (p.window < 0 || k0 > q0 + kRows - 1 - p.window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + 8 * (e >> 1);
+        const int col = k0 + 8 * j + 2 * tq + (e & 1);
+        bool ok = full_tile || col < kvl;
+        if (!full_tile && p.causal) ok = ok && col <= row;
+        if (!full_tile && p.window >= 0) ok = ok && col > row - p.window;
+        s[j][e] = ok ? s[j][e] * scale_log2 : -INFINITY;
+      }
+    }
+
+    // online softmax on the fragment: a row's 64 scores lie on the 4
+    // threads of a quad, 16 each; each exp2 is taken once
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_row[h], mx);
+      // no valid key yet: every p below is exp2(-inf) = 0 and alpha = 0
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      alpha[h] = exp2f(m_row[h] - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pj = exp2f(s[j][2 * h + e] - m_use);
+          s[j][2 * h + e] = pj;
+          sum += pj;
+        }
+      }
+      l_row[h] = l_row[h] * alpha[h] + sum;  // this thread's columns only
+      m_row[h] = m_new;
+    }
+
+    // P . V of this tile, 8 keys a k-step, into accumulators of its own:
+    // the tensor cores' float32 sums are not rounded to nearest, and in one
+    // accumulator across all tiles their error grows with the tile count,
+    // so the running O takes each tile's sum by an ordinary add. The k index of
+    // the A fragment is permuted so that the S accumulators are the A
+    // fragment as they lie:
+    // k = tq holds key 2 tq, k = tq + 4 holds key 2 tq + 1, and V's B
+    // fragment reads the same keys (b[0] = V[key 2 tq][n], b[1] = V[2 tq + 1][n]).
+    float ot[D / 8][4];
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ot[jn][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t ab[4], as[4];
+      split_tf32(s[j][0], ab[0], as[0]);   // row r0,     key 2 tq
+      split_tf32(s[j][2], ab[1], as[1]);   // row r0 + 8, key 2 tq
+      split_tf32(s[j][1], ab[2], as[2]);   // row r0,     key 2 tq + 1
+      split_tf32(s[j][3], ab[3], as[3]);   // row r0 + 8, key 2 tq + 1
+      const float* vr = vs + (8 * j + 2 * tq) * G::kLdV + gq;
+#pragma unroll
+      for (int ng = 0; ng < D / 8; ng += NO) {
+        uint32_t bb[NO][2], bs[NO][2];
+#pragma unroll
+        for (int i = 0; i < NO; ++i) {
+          split_tf32(vr[8 * (ng + i)], bb[i][0], bs[i][0]);
+          split_tf32(vr[G::kLdV + 8 * (ng + i)], bb[i][1], bs[i][1]);
+        }
+        mma_3xtf32<NO>(ot, ng, ab, as, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[jn][e] = o[jn][e] * alpha[e >> 1] + ot[jn][e];
+    __syncthreads();  // stage st is read; the next prefetch may overwrite it
+  }
+
+  // normalize and store: o[jn][e] is row r0 + 8 (e >> 1), column 8 jn +
+  // 2 tq + (e & 1); rows past sq are not written
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_row[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = r0 + 8 * h;
+    if (row >= p.sq) continue;
+    float* orow = op + (int64_t)row * p.o_ss;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn) {
+      float2 out = make_float2(0.f, 0.f);
+      if (l > 0.f) out = make_float2(o[jn][2 * h] / l, o[jn][2 * h + 1] / l);
+      *reinterpret_cast<float2*>(orow + 8 * jn + 2 * tq) = out;
     }
   }
 }
@@ -254,10 +456,6 @@ struct Tile {
   // the base be rounded up to the swizzle's 1,024-byte repeat
   static constexpr int kSmem = (1 + 2 * kStages) * kBytes + 64 + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // wgmma shared-memory descriptor: start address, leading and stride byte
 // offsets (each >> 4), swizzle layout in bits 62-63
@@ -662,18 +860,18 @@ flash_attention_bf16(const __grid_constant__ Params p,
 // --------------------------------------------------------------- host
 template <int D>
 int launch_f32(const Params& p, int64_t b, int64_t h, cudaStream_t stream) {
-  const int smem = 2 * kKeys * D * (int)sizeof(float);
+  using G = TileF32<D>;
   // the opt-in above 48 KB, once per instantiation (so never inside a CUDA
   // graph capture that follows a first call)
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_attention_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const dim3 grid((unsigned)((p.sq + kRows - 1) / kRows), (unsigned)h, (unsigned)b);
-  flash_attention_f32<D><<<grid, kThreads, smem, stream>>>(p);
+  flash_attention_f32<D><<<grid, kThreadsF32, G::kSmem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 

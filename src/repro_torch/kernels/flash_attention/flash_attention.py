@@ -10,7 +10,9 @@ registers; a KV head serves ``H // KVH`` query heads in place (no
 repeated K / V in memory).  bf16 runs both products on the tensor cores
 (``wgmma``, float32 accumulators) with K / V fed by TMA, and rounds the
 softmax weights P to bf16 before P.V (each weight within 2^-9 of itself);
-float32 runs on the SIMT cores in float32 throughout.
+float32 runs both products on the tensor cores as 3xTF32 (``mma.sync``:
+each operand split into a TF32 part and a TF32 remainder, three products
+summed in float32), each product within 2^-20 of itself.
 
 Semantics are the JAX kernel's (causal rows counted from 0) except for a
 row with no valid column (``kv_len = 0``, or a window that leaves a row

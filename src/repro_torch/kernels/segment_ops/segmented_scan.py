@@ -2,11 +2,9 @@
 
 The counterparts of the JAX package's ``segmented_polyhash_pallas``,
 ``segmented_affine_pallas`` and ``segmented_sum_scan_pallas``
-(``kernels/csrc/segmented_scan.cu``).  The thread at each segment's head
-(row 0, or a row whose start flag is set) walks the run left to right and
-writes every inclusive value; an unflagged row 0 continues ``carry``, the
-previous chunk's open segment.  Results are bitwise the sequential fold:
-uint32 wraps mod 2^32, and float32 sums add in row order.
+(``kernels/csrc/segmented_scan.cu``).  An unflagged row 0 continues
+``carry``, the previous chunk's open segment.  Results are bitwise the
+sequential fold: uint32 wraps mod 2^32, and float32 sums add in row order.
 
 * ``segmented_polyhash_cuda`` — ``h <- h*base + v`` (mod 2^32), the
   rolling variant hash;
@@ -15,11 +13,18 @@ uint32 wraps mod 2^32, and float32 sums add in row order.
 * ``segmented_sum_scan_cuda`` — prefix sums of (N, K) float32 or int32 rows
   (the eventually-follows prefix counts).
 
+The polyhash and affine scans are one kernel: a single-pass block scan of
+the rows' affine maps over tiles of ``TILE_ROWS`` rows, the carry
+crossing tiles by a decoupled look-back over per-tile status words in
+scratch this wrapper allocates (``scratch_shape``).  The sum scan gives
+each segment's run to the thread at its head, which walks it left to
+right (row order).
+
 uint32 operands live in int32 tensors holding the bit patterns.  The carry
 is a device tensor (0-d, or (K,) for the sum) read by the kernel through a
-pointer, and ``carry_out`` is a copy of the last row, left on the
-device: nothing is read back to the host, so a stream of chunks never
-syncs.  On CPU tensors each wrapper takes its plain version
+pointer, and ``carry_out`` is a copy of the last row (written by the
+polyhash / affine kernel itself), left on the device: nothing is read back
+to the host, so a stream of chunks never syncs.  On CPU tensors each wrapper takes its plain version
 (``ref.segmented_scan_ref`` / ``ref.segmented_affine_ref``); on CUDA
 tensors it launches the kernel on the current stream or raises.  Each
 wrapper's ``.launches`` counts its launches.
@@ -35,19 +40,35 @@ from .ref import segmented_affine_ref, segmented_scan_ref
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    "repro_segmented_affine": [_P, _P, _P, _P, ctypes.c_int64, _P, _P],
+    "repro_segmented_affine": [_P, _P, _P, _P, ctypes.c_int64, _P, _P, _P, _P],
     "repro_segmented_polyhash": [_P, ctypes.c_int64, _P, _P, ctypes.c_int64,
-                                 _P, _P],
+                                 _P, _P, _P, _P],
     "repro_segmented_sum_scan": [_P, _P, _P, ctypes.c_int64, ctypes.c_int64,
                                  ctypes.c_int, _P, _P],
 }
 _MAX_THREADS = 256 * (2**31 - 1)      # the kernels' grid limit
+# rows a tile of the affine / polyhash scan (``kTileRows`` in the source,
+# checked against the built library at first use)
+TILE_ROWS = 4096
+
+
+def scratch_shape(n: int) -> tuple[int, int]:
+    """The affine / polyhash scan's scratch for ``n`` rows, int32: a
+    128-byte line whose first word is the tile ticket, then one line a
+    tile whose first 16 bytes are its status ``{kind, m, a, 0}`` (kind 0:
+    nothing yet, 1: the tile's aggregate map, 2: its inclusive state).  The
+    launcher zeroes it before the kernel."""
+    return (1 + -(-n // TILE_ROWS), 32)
 
 
 def _launcher(name: str):
     lib = _build.load("segmented_scan")
     fn = getattr(lib, name)
     if fn.argtypes is None:
+        if lib.repro_scan_tile_rows() != TILE_ROWS:
+            raise RuntimeError(f"segmented_scan: the library tiles "
+                               f"{lib.repro_scan_tile_rows()} rows, the "
+                               f"wrapper {TILE_ROWS}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return lib, fn
@@ -100,13 +121,16 @@ def segmented_polyhash_cuda(values: torch.Tensor, seg_starts: torch.Tensor,
     if n == 0:
         return values, carry
     ys = torch.empty_like(values)
+    out = torch.empty((), dtype=torch.int32, device=device)
+    scratch = torch.empty(scratch_shape(n), dtype=torch.int32, device=device)
     lib, fn = _launcher("repro_segmented_polyhash")
     with torch.cuda.device(device):
         err = fn(values.data_ptr(), int(base) & 0xFFFFFFFF, seg_starts.data_ptr(),
-                 carry.data_ptr(), n, ys.data_ptr(), _build.stream_of(ys))
+                 carry.data_ptr(), n, ys.data_ptr(), out.data_ptr(),
+                 scratch.data_ptr(), _build.stream_of(ys))
     _build.check(lib, err, "segmented_polyhash")
     segmented_polyhash_cuda.launches += 1
-    return ys, ys[-1].clone()
+    return ys, out
 
 
 def segmented_affine_cuda(mul: torch.Tensor, add: torch.Tensor,
@@ -125,13 +149,16 @@ def segmented_affine_cuda(mul: torch.Tensor, add: torch.Tensor,
     if n == 0:
         return add, carry
     ys = torch.empty_like(add)
+    out = torch.empty((), dtype=torch.int32, device=device)
+    scratch = torch.empty(scratch_shape(n), dtype=torch.int32, device=device)
     lib, fn = _launcher("repro_segmented_affine")
     with torch.cuda.device(device):
         err = fn(mul.data_ptr(), add.data_ptr(), seg_starts.data_ptr(),
-                 carry.data_ptr(), n, ys.data_ptr(), _build.stream_of(ys))
+                 carry.data_ptr(), n, ys.data_ptr(), out.data_ptr(),
+                 scratch.data_ptr(), _build.stream_of(ys))
     _build.check(lib, err, "segmented_affine")
     segmented_affine_cuda.launches += 1
-    return ys, ys[-1].clone()
+    return ys, out
 
 
 def segmented_sum_scan_cuda(values: torch.Tensor, seg_starts: torch.Tensor,

@@ -209,7 +209,9 @@ def test_most_common_activity_matches_jax_and_breaks_ties_low():
     cols, _, rv = _log(9, masked=0.3)
     jf, tf = _frames(cols, None, rv)
     got = tfilt.most_common_activity(tf, A)
-    assert got.dim() == 0 and int(got) == int(jfilt.most_common_activity(jf, A))
+    want = np.asarray(jfilt.most_common_activity(jf, A))
+    assert got.dim() == 0 and int(got) == int(want)
+    assert str(got.dtype).removeprefix("torch.") == str(want.dtype) == "int32"
     tie = {CASE: np.array([0, 0, 1, 1], np.int64),
            ACTIVITY: np.array([4, 2, 2, 4], np.int32),
            TIMESTAMP: np.zeros(4, np.float32)}

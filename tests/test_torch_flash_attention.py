@@ -120,6 +120,82 @@ def test_p_in_bf16_stays_within_its_stated_bound(b, h, kvh, sq, sk, d, causal, w
                                atol=ATOL["bfloat16"])
 
 
+def _tf32(x):
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero: the kernel's ``tf32_rna`` on the bits."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_attention(q, k, v, kv_len, causal, window, split):
+    """Attention over float32 numpy inputs with every product taken exactly
+    (float64 sums): ``split`` takes each product of q.k and of p.v as the
+    float32 route's three TF32 products big.big + big.small + small.big
+    (big = tf32(x), small = tf32(x - big)); P is float32, as in the kernel.
+    Returns the float64 output and the softmax weights P / l."""
+    b, h, sq, d = q.shape
+    g = h // k.shape[1]
+    kf, vf = np.repeat(k, g, axis=1), np.repeat(v, g, axis=1)
+
+    def product(eq, x, y):
+        if not split:
+            return np.einsum(eq, x.astype(np.float64), y.astype(np.float64))
+        xb, yb = _tf32(x), _tf32(y)
+        xs, ys = _tf32(x - xb), _tf32(y - yb)
+        f64 = np.float64
+        return (np.einsum(eq, xs.astype(f64), yb.astype(f64))
+                + np.einsum(eq, xb.astype(f64), ys.astype(f64))
+                + np.einsum(eq, xb.astype(f64), yb.astype(f64)))
+
+    rows = np.arange(sq)[:, None]
+    cols = np.arange(k.shape[2])[None, :]
+    mask = cols < (k.shape[2] if kv_len is None else kv_len)
+    if causal:
+        mask = mask & (cols <= rows)
+    if window is not None:
+        mask = mask & (cols > rows - window)
+    s = np.where(mask, product("bhqd,bhkd->bhqk", q, kf) * d ** -0.5, -np.inf)
+    m = np.maximum(s.max(-1, keepdims=True), -1e300)
+    p = np.where(mask, np.exp(s - m), 0.0).astype(np.float32)
+    l = p.astype(np.float64).sum(-1, keepdims=True)
+    safe = np.where(l > 0, l, 1.0)
+    o = np.where(l > 0, product("bhqk,bhkd->bhqd", p, vf) / safe, 0.0)
+    return o, p / safe
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal,win", SHAPES, ids=lambda v: str(v))
+def test_f32_split_products_stay_within_their_stated_bound(b, h, kvh, sq, sk, d, causal, win):
+    """The float32 kernel takes each product as 3xTF32: both operands split
+    into big = tf32(x) and small = tf32(x - big) (nearest, ties away), and
+    big.big + big.small + small.big summed.  Dropping small.small and the
+    rounding of small leaves each product within 3 x 2^-22 < 2^-20 of
+    itself, so an output moves from the float32 result by at most
+    2^-20 (sum_j p_j |v_j| + scale sum_j p_j |v_j - o| sum_e |q_e k_je|)
+    (p the softmax weights; the second term carries the scores' error
+    through the softmax), plus 2^-23 sum_j p_j |v_j| for P's float32
+    rounding: at most 6e-6 to 1.9e-5 at these shapes, where the emulated
+    outputs move by at most 4e-7.  The emulation also stays within the 2e-5
+    of the JAX kernel tests (Pallas in interpret mode)."""
+    q, k, v = _qkv(sq * 5 + d, b, h, kvh, sq, sk, d)
+    kvlen = sk - 17 if sk > 64 else None
+    exact, p = _split_attention(q, k, v, kvlen, causal, win, split=False)
+    split, _ = _split_attention(q, k, v, kvlen, causal, win, split=True)
+    g = h // kvh
+    kf, vf = np.repeat(k, g, axis=1).astype(np.float64), np.repeat(v, g, axis=1).astype(np.float64)
+    qk_abs = np.einsum("bhqd,bhkd->bhqk", np.abs(q.astype(np.float64)), np.abs(kf))
+    pv = np.einsum("bhqk,bhkd->bhqd", p, np.abs(vf))
+    spread = np.abs(vf[:, :, None, :, :] - exact[:, :, :, None, :])      # |v_j - o|
+    scores = np.einsum("bhqk,bhqkd->bhqd", p * qk_abs * d ** -0.5, spread)
+    bound = 2.0 ** -20 * (pv + scores) + 2.0 ** -23 * pv
+    err = np.abs(split - exact)
+    assert (err <= bound).all(), float((err / np.maximum(bound, 1e-300)).max())
+    assert float(bound.max()) < 2e-5
+    (jq, jk, jv), _ = _both((q, k, v), "float32")
+    want = flash_attention_pallas(jq, jk, jv, None if kvlen is None else jnp.int32(kvlen),
+                                  causal=causal, window=win, interpret=True)
+    np.testing.assert_allclose(split.astype(np.float32), np.asarray(want), atol=ATOL["float32"])
+
+
 def test_readable_keeps_what_the_kernel_reads_in_place():
     """The wrapper hands the kernel a view as it is when the kernel can read
     it: float32 rows as 16-byte vectors, bf16 through TMA (16-byte base and

@@ -414,6 +414,47 @@ def test_segmented_scans_equal_plain(cuda, n, runs, flag0):
         assert torch.equal(ys.cpu(), want)
 
 
+@pytest.mark.parametrize("case", ["ghost_2^17", "one_run_2^20", "one_run_2^20_flagged",
+                                  "unaligned_views", "ragged_tail"])
+def test_affine_scan_long_runs_equal_sequential_fold(cuda, case):
+    """The single-pass scan where the head-of-run design was serial: a
+    ghost-shaped chunk (2^17 rows, one row per case segment, the tail case
+    padding the last ~56,000 rows into one run, identity maps there) and one
+    run over 2^20 rows, row 0 flagged and not; views one element off
+    16-byte alignment (the one-row-a-load path) and a ragged last tile.
+    polyhash and affine, bitwise against the sequential fold, carry_out
+    included, one launch each."""
+    from repro_torch.kernels import segment_ops as so
+
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    n = 1 << 20 if case.startswith("one_run") else 1 << 17
+    off = 1 if case == "unaligned_views" else 0
+    if case == "ragged_tail":
+        n = 3 * 4096 * 7 + 1234
+    starts = torch.zeros(n + off, dtype=torch.bool, device=cuda)
+    vals, mul = _u32(gen, (n + off,), cuda), _u32(gen, (n + off,), cuda)
+    if case == "ghost_2^17":
+        d = n - 56_000 + 1
+        starts[:d] = True
+        mul[d:], vals[d:] = 1, 0
+    elif case != "one_run_2^20":
+        starts[off:] = torch.rand(n, generator=gen, device=cuda) < 1 / 7
+    starts[off] = case in ("ghost_2^17", "one_run_2^20_flagged")
+    starts, vals, mul = starts[off:], vals[off:], mul[off:]
+    carry = torch.tensor(0x9E3779B9 - 2**32, dtype=torch.int32, device=cuda)
+    before = (so.segmented_polyhash_cuda.launches, so.segmented_affine_cuda.launches)
+    ys, out = so.segmented_polyhash_cuda(vals, starts, carry, 1_000_003)
+    ya, oa = so.segmented_affine_cuda(mul, vals, starts, carry)
+    torch.cuda.synchronize()
+    assert (so.segmented_polyhash_cuda.launches, so.segmented_affine_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = _oracle_affine(torch.full_like(vals, 1_000_003), vals, starts, carry)
+    want_a = _oracle_affine(mul, vals, starts, carry)
+    assert torch.equal(ys.cpu(), want) and torch.equal(ya.cpu(), want_a)
+    assert int(out) == int(want[-1]) and int(oa) == int(want_a[-1])
+    assert out.shape == () and out.device.type == "cuda"
+
+
 @pytest.mark.parametrize("chunk_rows", [1, 1000, 100_000])
 def test_streamed_variants_on_card_equal_cpu(cuda, chunk_rows):
     from repro_torch.core import ChunkedEventFrame, run_streaming, variants

@@ -6,6 +6,8 @@ uint32 mod 2^32, the one-hot prefix sums are integer-valued float32, and
 the non-integer float32 sums are added in row order in both packages (the
 JAX side runs its sequential ``impl="xla"`` fold for those).  Also the
 unsigned ``segment_reduce`` route the variants take."""
+import importlib
+
 import numpy as np
 import pytest
 
@@ -192,3 +194,197 @@ def test_uint32_segment_reduce_matches_jax(n, s):
             assert w.dtype == np.uint32
             np.testing.assert_array_equal(_u32(got_o.view(torch.int32)), w)
             np.testing.assert_array_equal(_u32(got_w.view(torch.int32)), w)
+
+
+# ------------------------------------- the single-pass scan's scheme, replayed
+M32 = np.uint64(0xFFFFFFFF)
+IDENTITY = (np.uint64(1), np.uint64(0))
+
+
+def _compose(f, g):
+    """The map of f then g, ``h -> h*m + a`` on uint32 (uint64 arithmetic
+    wraps mod 2^64, so the & keeps it exact mod 2^32)."""
+    with np.errstate(over="ignore"):
+        return (f[0] * g[0]) & M32, (f[1] * g[0] + g[1]) & M32
+
+
+def _look_back(status, tile, lanes, per_lane):
+    """The state entering ``tile``: warp 0 reads ``lanes * per_lane``
+    predecessors a round (lane l the tiles hi - per_lane l - i, nearest
+    first), each lane composes back to its nearest inclusive state, lanes
+    past the nearest lane with one count as the identity, and a shuffle-down
+    tree composes the window; windows repeat until one holds an inclusive
+    state.  ``status[j]`` is ``(kind, (m, a))``, kind 2 inclusive."""
+    acc = IDENTITY
+    hi = tile - 1
+    while True:
+        maps, found = [], []
+        for lane in range(lanes):
+            f, inc = IDENTITY, False
+            for i in range(per_lane):
+                j = hi - per_lane * lane - i
+                kind, g = status[j] if j >= 0 else (2, (np.uint64(0), np.uint64(0)))
+                f = _compose(g, f)
+                if kind == 2:
+                    inc = True
+                    break
+            maps.append(f)
+            found.append(inc)
+        first = found.index(True) if any(found) else lanes
+        maps = [f if lane <= first else IDENTITY for lane, f in enumerate(maps)]
+        d = 1
+        while d < lanes:
+            maps = [_compose(maps[lane + d], maps[lane]) if lane + d < lanes else maps[lane]
+                    for lane in range(lanes)]
+            d *= 2
+        acc = _compose(maps[0], acc)
+        if any(found):
+            return acc[1]          # acc starts with an inclusive state: m = 0
+        hi -= lanes * per_lane
+
+
+def _replay_affine_scan(mul, add, starts, carry, threads, items, per_lane, seed):
+    """``affine_scan`` of ``kernels/csrc/segmented_scan.cu`` on the CPU:
+    row maps (0, add) at flagged rows and (mul, add) elsewhere, identity past
+    n; per tile a serial compose of each thread's ``items`` rows, a
+    Hillis-Steele warp scan of the threads' maps and a block compose of the
+    warps'; then, in a random completion order (all aggregates published
+    first), each tile's decoupled look-back for the state entering it,
+    the carry as the constant map (0, carry) in front of tile 0."""
+    n = len(add)
+    rows = threads * items
+    tiles = -(-n // rows)
+    pad = tiles * rows - n
+    m = np.concatenate([np.where(starts, 0, mul).astype(np.uint64),
+                        np.ones(pad, np.uint64)]).reshape(tiles, threads, items)
+    a = np.concatenate([add.astype(np.uint64),
+                        np.zeros(pad, np.uint64)]).reshape(tiles, threads, items)
+    t_map = (np.ones((tiles, threads), np.uint64), np.zeros((tiles, threads), np.uint64))
+    for k in range(items):
+        t_map = _compose(t_map, (m[..., k], a[..., k]))
+    warps = threads // 32
+    inc = tuple(x.reshape(tiles, warps, 32) for x in t_map)
+    d = 1
+    while d < 32:
+        shifted = _compose((inc[0][..., :-d], inc[1][..., :-d]), (inc[0][..., d:], inc[1][..., d:]))
+        inc = tuple(np.concatenate([x[..., :d], s], axis=-1) for x, s in zip(inc, shifted))
+        d *= 2
+    excl = tuple(np.concatenate([np.full((tiles, warps, 1), v, np.uint64), x[..., :-1]], axis=-1)
+                 for x, v in zip(inc, IDENTITY))
+    w_agg = (inc[0][..., -1], inc[1][..., -1])
+    tile_agg = IDENTITY
+    w_pre = [IDENTITY]
+    for w in range(warps):
+        tile_agg = _compose(tile_agg, (w_agg[0][:, w], w_agg[1][:, w]))
+        w_pre.append(tile_agg)
+    status = [(1, (tile_agg[0][t], tile_agg[1][t])) for t in range(tiles)]
+    state_in = np.zeros(tiles, np.uint64)
+    c = np.uint64(int(carry))
+    state_in[0] = c
+    status[0] = (2, (np.uint64(0), _compose((np.uint64(0), c), status[0][1])[1]))
+    for t in np.random.default_rng(seed).permutation(np.arange(1, tiles)):
+        state_in[t] = _look_back(status, t, 32, per_lane)
+        status[t] = (2, (np.uint64(0), _compose((np.uint64(0), state_in[t]), status[t][1])[1]))
+    # each thread's rows from the state entering it
+    h = np.broadcast_to(state_in[:, None, None], (tiles, warps, 32)).copy()
+    for_warp = (np.stack([np.broadcast_to(w_pre[w][0], (tiles,)) for w in range(warps)], 1),
+                np.stack([np.broadcast_to(w_pre[w][1], (tiles,)) for w in range(warps)], 1))
+    with np.errstate(over="ignore"):
+        h = (h * for_warp[0][..., None] + for_warp[1][..., None]) & M32
+        h = (h * excl[0] + excl[1]) & M32
+        h = h.reshape(tiles, threads)
+        ys = np.empty((tiles, threads, items), np.uint64)
+        for k in range(items):
+            h = (h * m[..., k] + a[..., k]) & M32
+            ys[..., k] = h
+    return ys.reshape(-1)[:n].astype(np.uint32)
+
+
+def _fold(mul, add, starts, carry):
+    h, out = int(carry), np.empty(len(add), np.uint32)
+    for i, (mi, ai, fi) in enumerate(zip(mul.tolist(), add.tolist(), starts.tolist())):
+        h = ((0 if fi else h) * mi + ai) & 0xFFFFFFFF
+        out[i] = h
+    return out
+
+
+def _ghost_starts(n_segments):
+    """A ghost chunk's start flags as the JAX query executor pads one
+    (``query/exec.py`` ``_ghost_chunk``): one row per case segment, the tail
+    case repeated up to the next power of two, so rows d-1 .. 2^k - 1 are
+    one unflagged run; the maps on the padding are the identity."""
+    m = 1 << (n_segments - 1).bit_length()
+    starts = np.zeros(m, bool)
+    starts[:n_segments] = True
+    return starts, m
+
+
+SCHEME_CASES = {
+    # name: (n, flag probability, row 0 flagged, carry)
+    "one_row": (1, 0.2, False, 0x9E3779B9),
+    "tile_minus_one": (4095, 0.2, True, 0),
+    "one_tile": (4096, 0.15, False, 7),
+    "tile_plus_one": (4097, 0.15, False, 0xFFFFFFFF),
+    "runs_across_tiles": (3 * 4096 + 5, 0.0005, True, 0),
+    "one_run_over_every_tile": (5 * 4096 + 3, 0.0, False, 0x12345678),
+    "one_run_flagged_row0": (5 * 4096 + 3, 0.0, True, 0x12345678),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCHEME_CASES) + ["ghost_chunk"])
+def test_single_pass_scan_scheme_matches_pallas_and_fold(name):
+    """The kernel's single-pass scheme at its own geometry (256 threads x 16
+    rows a tile, 4 tiles a lane of the look-back), replayed on the CPU,
+    equals the sequential fold and the Pallas kernels (interpret mode),
+    bitwise, ``carry_out`` included: runs crossing tile edges, one run over
+    every tile, row 0 flagged and not, nonzero carries, n not a multiple of
+    the tile, and a ghost chunk of 2^14 rows whose last 7,384 are one run."""
+    # the module, not the package's segmented_scan function of that name
+    ss = importlib.import_module("repro_torch.kernels.segment_ops.segmented_scan")
+    gen = np.random.default_rng(len(name) * 31 + 5)
+    if name == "ghost_chunk":
+        starts, n = _ghost_starts(9001)
+        flag0, carry = True, np.uint32(0xDEADBEEF)
+    else:
+        n, p, flag0, carry = SCHEME_CASES[name]
+        carry = np.uint32(carry)
+        starts = gen.random(n) < p
+        starts[0] = flag0
+    mul = gen.integers(0, 2**32, n, dtype=np.uint32)
+    add = gen.integers(0, 2**32, n, dtype=np.uint32)
+    if name == "ghost_chunk":
+        d = int(starts.sum())
+        mul[d:], add[d:] = 1, 0
+    assert ss.TILE_ROWS == 256 * 16
+    assert ss.scratch_shape(n) == (1 + -(-n // ss.TILE_ROWS), 32)
+    want = _fold(mul, add, starts, carry)
+    for base in (None, BASES[1]):
+        m = mul if base is None else np.full(n, base, np.uint32)
+        fold = want if base is None else _fold(m, add, starts, carry)
+        got = _replay_affine_scan(m, add, starts, carry, 256, 16, 4, seed=n)
+        np.testing.assert_array_equal(got, fold)
+        if base is None:
+            ys, c = jso.segmented_affine(jnp.asarray(m), jnp.asarray(add), jnp.asarray(starts),
+                                         jnp.uint32(carry), impl="pallas", block_e=4096)
+        else:
+            ys, c = jso.segmented_scan(jnp.asarray(add), jnp.asarray(starts), jnp.uint32(carry),
+                                       "polyhash", base=base, impl="pallas", block_e=4096)
+        np.testing.assert_array_equal(np.asarray(ys), got)
+        assert int(c) == int(got[-1])
+
+
+@pytest.mark.parametrize("per_lane", [1, 4])
+@pytest.mark.parametrize("p", [0.0, 0.01])
+def test_single_pass_scan_scheme_over_many_windows(per_lane, p):
+    """The same scheme on small tiles (32 threads x 2 rows), so 20,000 rows
+    make 313 tiles and a look-back crosses several windows of
+    32 x ``per_lane`` tiles; equal to the sequential fold bitwise."""
+    gen = np.random.default_rng(int(p * 100) + per_lane)
+    n = 20_000
+    starts = gen.random(n) < p
+    starts[0] = False
+    mul = gen.integers(0, 2**32, n, dtype=np.uint32)
+    add = gen.integers(0, 2**32, n, dtype=np.uint32)
+    carry = np.uint32(0xCAFEF00D)
+    got = _replay_affine_scan(mul, add, starts, carry, 32, 2, per_lane, seed=7)
+    np.testing.assert_array_equal(got, _fold(mul, add, starts, carry))
