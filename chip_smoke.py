@@ -98,6 +98,9 @@ NUM_CASES = 1_000_000
 PAIR_COUNT_TPU = "src/repro/kernels/segment_ops/pair_count.py:74"
 HISTOGRAM_TPU = "src/repro/kernels/segment_ops/histogram.py:56"
 SEGMENT_REDUCE_TPU = "src/repro/kernels/segment_ops/segment_reduce.py:92"
+# the segment_reduce routes the mining paths take, timed at chunk shape
+SEGMENT_REDUCE_ROUTES = ("sum_int32", "min_float32", "max_float32", "max_bool",
+                         "max_uint32")
 SCAN_TPU = "src/repro/kernels/segment_ops/segmented_scan.py:"
 POLYHASH_TPU, AFFINE_TPU, SUM_SCAN_TPU = (SCAN_TPU + "135", SCAN_TPU + "172",
                                           SCAN_TPU + "213")
@@ -257,8 +260,10 @@ def check_kernels(torch, so) -> dict:
     signed; sizes 242 and 300 (and 242^2 bins) take the global-atomic
     branch.  ``segment_reduce``: sorted ids with leading -1s, skipped ids
     and ids >= S, int32 / float32 / bool / uint32 values, sum / min / max,
-    up to a 524,288-row chunk into 10^6 segments and one run over a whole
-    chunk.  The row-order float fold (and a float32 segment sum) is held
+    up to a 524,288-row chunk into 10^6 segments, one run over a whole
+    chunk (a fill stripe on both sides), and runs of up to 127 rows that
+    skip up to 40 ids each; every output block was filled with 0x5A first,
+    so a slot the kernel leaves unwritten shows.  The row-order float fold (and a float32 segment sum) is held
     against the plain version on CPU copies of the inputs: CUDA
     ``index_add_`` adds in no fixed order, so the card has no plain
     row-order fold.  The segmented scans: see ``check_scans``."""
@@ -279,6 +284,10 @@ def check_kernels(torch, so) -> dict:
         return (torch.randn(n, generator=gen, device=dev) * mag).float()
 
     def sorted_ids(n, s, single_run=False):
+        if single_run == "gaps":
+            step = torch.randint(0, 128, (n,), generator=gen, device=dev) == 0
+            skip = torch.randint(1, 42, (n,), generator=gen, device=dev)
+            return (1_000 + torch.cumsum(step * skip, 0)).to(torch.int32)
         if single_run:
             return torch.full((n,), s // 2, dtype=torch.int32, device=dev)
         p = min(1.0, (s + 3) / max(n, 1))
@@ -320,7 +329,7 @@ def check_kernels(torch, so) -> dict:
                 record("histogram", got, want, f"B={b} E={e} w={kind}")
     for n, s, single in ((0, 10, False), (1, 10, False), (511, 300, False),
                          (524_288, 75_000, False), (524_288, NUM_CASES, False),
-                         (524_288, NUM_CASES, True)):
+                         (524_288, NUM_CASES, True), (300_001, NUM_CASES, "gaps")):
         seg = sorted_ids(n, s, single)
         for dtype in ("int32", "float32", "bool", "uint32"):
             if dtype == "uint32":
@@ -335,6 +344,9 @@ def check_kernels(torch, so) -> dict:
             else:
                 vals = (torch.rand(n, generator=gen, device=dev) < 0.3).to(torch.int32)
             for op in ("sum", "min", "max"):
+                # a freed block of the output's size, filled with 0x5A,
+                # which the caching allocator hands to the output
+                torch.empty(4 * s, dtype=torch.uint8, device=dev).fill_(0x5A)
                 got = so.segment_reduce_cuda(vals, seg, s, op)
                 if dtype == "float32" and op == "sum":
                     want = so.segment_reduce_ref(vals.cpu(), seg.cpu(), s, op)
@@ -533,7 +545,9 @@ def check_scans(torch, so, gen, record) -> None:
     the card; the float32 sums (non-integer rows across eight decades,
     (N, 26) and (N,)) with the plain version on CPU copies.  One run over a
     whole chunk, a ghost-shaped chunk, a 2^20-row run, misaligned views and
-    a ragged last tile are held against the sequential folds above."""
+    a ragged last tile are held against the sequential folds above, and so
+    are the sum scan's tile edges: runs past a tile and its halo, rows at an
+    odd row offset, tiles without a head, K = 1, 26 and 300."""
     from repro_torch.core.polyhash import BASE1, BASE2
 
     dev = "cuda"
@@ -606,6 +620,33 @@ def check_scans(torch, so, gen, record) -> None:
         record("segmented_affine", ya, want_a, what)
         record("segmented_polyhash", out, want[-1], f"{what} carry_out")
         record("segmented_affine", oa, want_a[-1], f"{what} carry_out")
+    # the tile-staged sum scan where its tiles meet: runs of 200-400 rows
+    # (past a tile and its halo, continued window by window), 104-byte rows
+    # viewed at an odd row offset (the 4-byte copies), tiles without a head;
+    # K = 26, 1 and 300 (two column slices).  Held against the sequential
+    # fold, carry_out included.
+    for k in (26, 1, 300):
+        for label in ("crossing_runs", "odd_row_offset", "tile_without_head"):
+            n, off = 100_003, int(label == "odd_row_offset")
+            starts = torch.zeros(n + off, dtype=torch.bool, device=dev)
+            if label == "crossing_runs":
+                starts[torch.cumsum(torch.randint(200, 400, (n // 200,), generator=gen,
+                                                  device=dev), 0)[:-1].clamp(max=n - 1)] = True
+            elif label == "odd_row_offset":
+                starts = torch.rand(n + off, generator=gen, device=dev) < 1 / 7
+            else:
+                starts[::5_000] = True
+            starts[off] = label == "tile_without_head"
+            shape = (n + off, k) if k > 1 else (n + off,)
+            mag = 10.0 ** torch.randint(-3, 5, shape, generator=gen, device=dev)
+            x = (torch.randn(shape, generator=gen, device=dev) * mag).float()[off:]
+            starts = starts[off:]
+            carry = torch.randn(shape[1:], generator=gen, device=dev)
+            ys, out = so.segmented_sum_scan_cuda(x, starts, carry)
+            want = torch.from_numpy(fold_sum(x, starts, carry))
+            what = f"sum {label} N={n} K={k}"
+            record("segmented_sum_scan", ys, want, what)
+            record("segmented_sum_scan", out, want[-1], f"{what} carry_out")
 
 
 def time_kernels(torch, so, engine, frame_gpu, ghosts) -> dict:
@@ -734,14 +775,22 @@ def time_stats_kernels(torch, so, engine, frame_gpu, spans) -> dict:
             "library_graph_ms": graph_ms(torch, lambda: [lib_out.scatter_reduce_(
                 0, seg_long[lo:hi], lib_vals[lo:hi], lib_op[op], include_self=True)
                 for lo, hi in spans], k),
+            # device microseconds a call by activity: one kernel, no fill
+            "device_us_per_call": {
+                key: us / count for key, (count, us) in profile_device(
+                    torch, lambda op=op, vals=vals: [
+                        so.segment_reduce_cuda(vals[lo:hi], seg[lo:hi], s_n, op)
+                        for lo, hi in spans]).items()},
             **bound(8 * e + 4 * s_n, e)}
-    # one run over a whole chunk: one thread folds all of it
+    # one run over a whole chunk, folded serially by the block that holds
+    # its head: float32 min, and the float32 sum (a chain of dependent adds)
     one = torch.zeros(e, dtype=torch.int32, device="cuda")
-    rows["segment_reduce/single_run/chunk"] = {
-        "E": e, "S": s_n, "op": "min", "dtype": "float32",
-        "ms": time_ms(torch, lambda i: so.segment_reduce_cuda(
-            ts[:e], one, s_n, "min"), 1, iters=5),
-        **bound(8 * e + 4 * s_n, e)}
+    for label, op in (("single_run", "min"), ("single_run_sum", "sum")):
+        rows[f"segment_reduce/{label}/chunk"] = {
+            "E": e, "S": s_n, "op": op, "dtype": "float32",
+            "ms": time_ms(torch, lambda i, op=op: so.segment_reduce_cuda(
+                ts[:e], one, s_n, op), 1, iters=5),
+            **bound(8 * e + 4 * s_n, e)}
 
     # the sojourn fold: bins = source activity, weights = dt, onto a state
     dt = torch.where(adj.pair, adj.ts - adj.prev_ts, 0.0).contiguous()
@@ -1893,8 +1942,14 @@ def main() -> int:
               times["pair_count/chunk"]),
         entry("histogram", csrc + "histogram.cu", HISTOGRAM_TPU,
               times["histogram/chunk"]),
-        entry("segment_reduce", csrc + "segment_reduce.cu", SEGMENT_REDUCE_TPU,
-              times["segment_reduce/sum_int32/chunk"]),
+        {**entry("segment_reduce", csrc + "segment_reduce.cu", SEGMENT_REDUCE_TPU,
+                 times["segment_reduce/sum_int32/chunk"]),
+         "routes": {label: {key: times[f"segment_reduce/{label}/chunk"][key]
+                            for key in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms", "library_graph_ms")}
+                    for label in SEGMENT_REDUCE_ROUTES},
+         "single_run_ms": {label: times[f"segment_reduce/{label}/chunk"]["ms"]
+                           for label in ("single_run", "single_run_sum")}},
         entry("ordered_histogram", csrc + "ordered_histogram.cu",
               ORDERED_FOLD_TPU, times["ordered_histogram/sojourn_26/chunk"]),
         entry("segmented_polyhash", csrc + "segmented_scan.cu", POLYHASH_TPU,
@@ -1904,8 +1959,9 @@ def main() -> int:
          "ghost_chunk": {key: times["segmented_affine/ghost_chunk"][key]
                          for key in ("E", "longest_run", "ms", "graph_ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")}},
-        entry("segmented_sum_scan", csrc + "segmented_scan.cu", SUM_SCAN_TPU,
-              times["segmented_sum_scan/chunk"]),
+        {**entry("segmented_sum_scan", csrc + "segmented_scan.cu", SUM_SCAN_TPU,
+                 times["segmented_sum_scan/chunk"]),
+         "single_run_ms": times["segmented_sum_scan/chunk"]["single_run_ms"]},
         entry("semiring_matmul", csrc + "semiring.cu", SEMIRING_TPU,
               times["semiring_matmul/plus_times/28x28x28"]),
         {**entry("flash_attention", csrc + "flash_attention.cu", FLASH_TPU,

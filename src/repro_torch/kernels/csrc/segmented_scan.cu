@@ -44,25 +44,33 @@
 // length no longer matters: one run over a chunk costs what short runs do.
 // The block of the last tile writes carry_out (ys[n - 1]).
 //
-// Design of the sum scan: the blocks of the card run in no order, so no
-// carry can flow from tile to tile as on the TPU, and float32 sums must
-// keep row order. Instead each segment's run is given to the thread at
-// its head (row 0, or a flagged row), which walks the run left to right
-// and writes every inclusive value; the other threads exit after reading
-// one flag. Runs never meet, so there is no shared state, no atomic and no
-// second pass; a float sum is the row-order fold (0 + x_a) + x_b + ...,
-// bitwise the sequential fold of the plain version. K neighbouring threads
-// take the K columns of one row, so a run's loads and stores are
-// contiguous. A run is walked 16 rows per step with the loads issued
-// together; a run over a whole chunk is correct but serial in one thread
-// (the event logs' cases are short: ~7 rows on average at L1, at most 64).
+// Design of the sum scan: float32 sums must keep row order, so no tree
+// scan is open to it, and the blocks of the card run in no order, so no
+// carry can flow from tile to tile as on the TPU. Instead each run is
+// folded left to right by the tile that holds its head. A tile owns 256
+// rows (fewer for rows wider than 30 columns: a staged window holds at
+// most 8,192 words, and rows wider than 256 columns are cut into column
+// slices, one grid row each); it stages them and a 16-row halo into shared
+// memory with cp.async (16 bytes a copy when the rows' base is 16-byte
+// aligned, 4 otherwise: chunk slices at odd row offsets of 104-byte rows
+// are not), finds its heads (row 0, unflagged from the carry and flagged
+// from 0, or a flagged row) by a warp ballot and a block prefix, and
+// spreads the (head, column) items over its threads, neighbouring threads
+// on neighbouring columns. Each item adds its run's rows in row order in
+// shared memory, h = h + x, writing each inclusive value in place, and the
+// tile stores rows [first head, end of its last run) coalesced, 16 bytes a
+// store where aligned. Rows before a tile's first head belong to an
+// earlier tile's run, which writes them, so no row is written twice: the
+// halo holds most of the L1 log's crossing runs (7 rows a case on average,
+// at most 64); a run that outlasts it is continued by the whole block,
+// which stages window after window while one thread a column folds them
+// (a run over a whole chunk stays one serial chain of adds a column, the
+// order the float sum needs, but fed from shared memory). The thread that
+// writes row n - 1 writes carry_out.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kStep = 16;
 
 constexpr int kScanThreads = 256;
 constexpr int kScanItems = 16;                         // rows a thread
@@ -333,51 +341,201 @@ affine_scan(const uint32_t* __restrict__ mul, uint32_t base,
   }
 }
 
-// the sum scan over (n, k) rows: thread t takes row t / k, column t % k
+constexpr int kSumThreads = 256;  // a tile's rows are checked one a thread
+constexpr int kSumMaxRows = kSumThreads;
+constexpr int kSumHalo = 16;      // rows staged past the tile
+constexpr int kSumMaxCols = 256;  // columns a block takes
+constexpr int kSumWords = 8192;   // words a staged window holds, at most
+
+// rows a tile owns for a slice of kc columns: 256 up to 30 columns, then
+// as many as the window's words allow (16 at 256 columns)
+__host__ __device__ inline int sum_tile_rows(int kc) {
+  const int r = kSumWords / kc - kSumHalo;
+  return r < kSumMaxRows ? r : kSumMaxRows;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Columns [c0, c0 + cols) of rows [pos, pos + rows) into s_x (row-major,
+// cols words a row), by cp.async: issued here, waited for by the caller.
 template <typename T>
-__global__ void sum_runs(const T* __restrict__ x,
-                         const uint8_t* __restrict__ start,
-                         const T* __restrict__ carry, int64_t n, int64_t k,
-                         T* __restrict__ ys) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n * k) return;
-  const int64_t i = t / k;
-  const int64_t c = t - i * k;
-  const bool flagged = start[i] != 0;
-  if (i > 0 && !flagged) return;                  // not a run head
-  T h = (i == 0 && !flagged) ? carry[c] : T(0);
-  h = h + x[t];
-  ys[t] = h;
-  int64_t j = i + 1;
-  bool in_run = true;
-  while (in_run && j + kStep <= n) {
-    uint8_t ff[kStep];
-    T xx[kStep];
-#pragma unroll
-    for (int r = 0; r < kStep; ++r) {
-      ff[r] = start[j + r];
-      xx[r] = x[(j + r) * k + c];
+__device__ __forceinline__ void stage_rows(const T* __restrict__ x, int64_t k, int c0,
+                                           int cols, int64_t pos, int rows, T* s_x) {
+  const int tid = threadIdx.x;
+  const int words = rows * cols;
+  if (cols == k) {  // one contiguous range
+    const T* src = x + pos * k;
+    int vecs = 0;
+    if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0u) {
+      vecs = words / 4;
+      for (int v = tid; v < vecs; v += kSumThreads) cp_async16(s_x + 4 * v, src + 4 * v);
     }
-#pragma unroll
-    for (int r = 0; r < kStep; ++r) {
-      if (in_run && !ff[r]) {
-        h = h + xx[r];
-        ys[(j + r) * k + c] = h;
-      } else {
-        in_run = false;
-      }
-    }
-    j += kStep;
+    for (int w = 4 * vecs + tid; w < words; w += kSumThreads) cp_async4(s_x + w, src + w);
+    return;
   }
-  for (; in_run && j < n; ++j) {
-    if (start[j]) break;
-    h = h + x[j * k + c];
-    ys[j * k + c] = h;
+  for (int w = tid; w < words; w += kSumThreads) {
+    const int r = w / cols;
+    cp_async4(s_x + w, x + (pos + r) * k + c0 + (w - r * cols));
   }
 }
 
-unsigned blocks_for(int64_t threads) {
-  return (unsigned)((threads + kThreads - 1) / kThreads);
+// Staged rows [r0, r1) of s_x to rows pos + r0 .. of ys, coalesced; 16
+// bytes a store where both sides are aligned.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ ys, int64_t k, int c0, int cols,
+                                           int64_t pos, int r0, int r1, const T* s_x) {
+  const int tid = threadIdx.x;
+  const int w0 = r0 * cols, w1 = r1 * cols;
+  if (cols == k) {
+    T* dst = ys + pos * k;
+    int a0 = w0, a1 = w0;  // [a0, a1) moves 16 bytes a store
+    if ((reinterpret_cast<uintptr_t>(dst) & 15u) == 0u) {
+      a0 = min((w0 + 3) & ~3, w1);
+      a1 = max(w1 & ~3, a0);
+    }
+    for (int w = w0 + tid; w < a0; w += kSumThreads) dst[w] = s_x[w];
+    for (int v = a0 / 4 + tid; v < a1 / 4; v += kSumThreads)
+      reinterpret_cast<uint4*>(dst)[v] = reinterpret_cast<const uint4*>(s_x)[v];
+    for (int w = a1 + tid; w < w1; w += kSumThreads) dst[w] = s_x[w];
+    return;
+  }
+  for (int w = w0 + tid; w < w1; w += kSumThreads) {
+    const int r = w / cols;
+    ys[(pos + r) * k + c0 + (w - r * cols)] = s_x[w];
+  }
+}
+
+// Column c of staged rows [r0, r1) summed in row order onto acc, each
+// inclusive value written back in place; 8 rows a step, their loads
+// issued before the adds.
+template <typename T>
+__device__ __forceinline__ T fold_rows(T* s_x, int cols, int c, int r0, int r1, T acc) {
+  constexpr int kFold = 8;
+  for (int r = r0; r < r1; r += kFold) {
+    T v[kFold];
+#pragma unroll
+    for (int q = 0; q < kFold; ++q) v[q] = r + q < r1 ? s_x[(r + q) * cols + c] : T(0);
+#pragma unroll
+    for (int q = 0; q < kFold; ++q) {
+      if (r + q < r1) {
+        acc = acc + v[q];
+        s_x[(r + q) * cols + c] = acc;
+      }
+    }
+  }
+  return acc;
+}
+
+// The sum scan over (n, k) rows: block (t, y) takes the runs headed in
+// rows [t rows, (t + 1) rows) and the columns [y kc, (y + 1) kc). Dynamic
+// shared memory: the staged window ((rows + kSumHalo) x kc) and the
+// crossing run's sums (kc).
+template <typename T>
+__global__ void __launch_bounds__(kSumThreads)
+sum_scan(const T* __restrict__ x, const uint8_t* __restrict__ start,
+         const T* __restrict__ carry, int64_t n, int64_t k, int rows, int kc,
+         T* __restrict__ ys, T* __restrict__ carry_out) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  __shared__ int s_head[kSumMaxRows];
+  __shared__ int s_count[kSumThreads / 32];
+  __shared__ int s_stop;
+  const int win = rows + kSumHalo;
+  T* s_x = reinterpret_cast<T*>(s_raw);
+  T* s_run = s_x + win * kc;
+  const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
+  const int64_t row0 = (int64_t)blockIdx.x * rows;
+  const int c0 = blockIdx.y * kc;
+  const int cols = k - c0 < kc ? (int)(k - c0) : kc;
+  const int64_t left = n - row0;
+  const int lim = left < win ? (int)left : win;    // staged rows
+  const int own = left < rows ? (int)left : rows;  // rows whose heads it owns
+
+  stage_rows<T>(x, k, c0, cols, row0, lim, s_x);
+  const bool head = tid < own && (row0 + tid == 0 || start[row0 + tid] != 0);
+  // the first flagged halo row ends the tile's last run
+  const bool halo_head = tid < lim - own && start[row0 + own + tid] != 0;
+  const unsigned mask = __ballot_sync(0xffffffffu, head);
+  if (lane == 0) s_count[wp] = __popc(mask);
+  if (tid == 0) s_stop = lim;
+  __syncthreads();
+  if (halo_head) atomicMin(&s_stop, own + tid);
+  int heads = 0, before = 0;
+#pragma unroll
+  for (int i = 0; i < kSumThreads / 32; ++i) {
+    before += i < wp ? s_count[i] : 0;
+    heads += s_count[i];
+  }
+  if (head) s_head[before + __popc(mask & ((1u << lane) - 1u))] = tid;
+  cp_async_wait_all();
+  __syncthreads();
+  if (heads == 0) return;  // every row belongs to an earlier tile's run
+  const int stop = s_stop;
+  const bool more = stop == lim && row0 + lim < n;  // the last run goes on
+
+  for (int j = tid; j < heads * cols; j += kSumThreads) {
+    const int h = j / cols, c = j - h * cols;
+    const int r0 = s_head[h];
+    const int r1 = h + 1 < heads ? s_head[h + 1] : stop;
+    T acc = row0 + r0 == 0 && start[0] == 0 ? carry[c0 + c] : T(0);
+    acc = fold_rows(s_x, cols, c, r0, r1, acc);
+    if (more && h + 1 == heads) s_run[c] = acc;
+  }
+  __syncthreads();
+  store_rows<T>(ys, k, c0, cols, row0, s_head[0], stop, s_x);
+  if (row0 + stop == n)
+    for (int c = tid; c < cols; c += kSumThreads) carry_out[c0 + c] = s_x[(stop - 1) * cols + c];
+  if (!more) return;
+
+  // the block continues its last run, one window at a time
+  for (int64_t pos = row0 + lim;;) {
+    __syncthreads();  // the staged rows are stored and s_stop is read
+    const int64_t rest = n - pos;
+    const int lim2 = rest < win ? (int)rest : win;
+    stage_rows<T>(x, k, c0, cols, pos, lim2, s_x);
+    const bool f0 = tid < lim2 && start[pos + tid] != 0;
+    const bool f1 = kSumThreads + tid < lim2 && start[pos + kSumThreads + tid] != 0;
+    if (tid == 0) s_stop = lim2;
+    __syncthreads();
+    if (f0) atomicMin(&s_stop, tid);
+    if (f1) atomicMin(&s_stop, kSumThreads + tid);
+    cp_async_wait_all();
+    __syncthreads();
+    const int end = s_stop;
+    for (int c = tid; c < cols; c += kSumThreads) {
+      const T acc = fold_rows(s_x, cols, c, 0, end, s_run[c]);
+      s_run[c] = acc;
+      if (pos + end == n) carry_out[c0 + c] = acc;
+    }
+    __syncthreads();
+    store_rows<T>(ys, k, c0, cols, pos, 0, end, s_x);
+    if (end < lim2 || pos + lim2 == n) return;
+    pos += lim2;
+  }
+}
+
+template <typename T>
+int launch_sum(const void* x, const void* start, const void* carry, int64_t n, int64_t k,
+               void* ys, void* carry_out, cudaStream_t st) {
+  const int kc = k < kSumMaxCols ? (int)k : kSumMaxCols;
+  const int rows = sum_tile_rows(kc);
+  const int64_t tiles = (n + rows - 1) / rows;
+  const int64_t slices = (k + kc - 1) / kc;
+  if (tiles > INT32_MAX || slices > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)((rows + kSumHalo) * kc + kc) * sizeof(T);
+  sum_scan<T><<<dim3((unsigned)tiles, (unsigned)slices), kSumThreads, smem, st>>>(
+      (const T*)x, (const uint8_t*)start, (const T*)carry, n, k, rows, kc, (T*)ys,
+      (T*)carry_out);
+  return (int)cudaGetLastError();
 }
 
 template <bool kPerRowMul>
@@ -430,24 +588,25 @@ extern "C" int repro_segmented_polyhash(const void* values, int64_t base,
                               carry_out, scratch, (cudaStream_t)stream);
 }
 
+// Rows a tile of the sum scan owns at k columns (the wrapper's
+// sum_tile_rows).
+extern "C" int repro_sum_tile_rows(int64_t k) {
+  return sum_tile_rows(k < kSumMaxCols ? (int)k : kSumMaxCols);
+}
+
 // x, ys: (n, k) row-major, float32 (is_float == 1) or int32 (is_float ==
-// 0); start: (n,) bool; carry: (k,) of x's type on the device.
+// 0); start: (n,) bool; carry, carry_out: (k,) of x's type on the device
+// (carry_out is ys[n - 1]). Returns the launch's cudaError_t (0 on
+// success; cudaErrorInvalidValue past the grid's limits); never
+// synchronizes.
 extern "C" int repro_segmented_sum_scan(const void* x, const void* start,
                                         const void* carry, int64_t n,
                                         int64_t k, int is_float, void* ys,
-                                        void* stream) {
+                                        void* carry_out, void* stream) {
   if (n <= 0 || k <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (is_float) {
-    sum_runs<float><<<blocks_for(n * k), kThreads, 0, st>>>(
-        (const float*)x, (const uint8_t*)start, (const float*)carry, n, k,
-        (float*)ys);
-  } else {
-    // int32 wraps like the plain version's add; computed as uint32 so the
-    // wrap is defined behaviour
-    sum_runs<uint32_t><<<blocks_for(n * k), kThreads, 0, st>>>(
-        (const uint32_t*)x, (const uint8_t*)start, (const uint32_t*)carry, n,
-        k, (uint32_t*)ys);
-  }
-  return (int)cudaGetLastError();
+  if (is_float) return launch_sum<float>(x, start, carry, n, k, ys, carry_out, st);
+  // int32 wraps like the plain version's add; computed as uint32 so the
+  // wrap is defined behaviour
+  return launch_sum<uint32_t>(x, start, carry, n, k, ys, carry_out, st);
 }

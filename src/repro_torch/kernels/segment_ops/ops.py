@@ -24,8 +24,10 @@ Float accumulation is order-sensitive, and the streaming engine promises
 row-order fold (``ordered_histogram_cuda`` on a card, ``index_add_`` on the
 CPU), which adds each weight onto ``into`` one row at a time, as the JAX
 package's XLA scatter does; integer counts are exact in any order and take
-the atomic kernels.  The segmented scans add in row order on both
-lowerings, so they need no such rule.
+the atomic kernels.  A float ``segment_reduce`` sum takes the same fold
+unless the caller vouches for sorted ids (``assume_exact=True``) or names
+``impl``, as the JAX package's dispatch does.  The segmented scans add in
+row order on both lowerings, so they need no such rule.
 
 uint32 operands (the polyhash scans) are int32 bit patterns or
 ``torch.uint32`` tensors; the scans return the dtype they were given.
@@ -61,20 +63,28 @@ def _weights(weights, like: torch.Tensor) -> torch.Tensor:
 
 def segment_reduce(values: torch.Tensor, segment_ids: torch.Tensor,
                    num_segments: int, op: str = "sum", *,
-                   impl: str | None = None) -> torch.Tensor:
+                   impl: str | None = None,
+                   assume_exact: bool = False) -> torch.Tensor:
     """(num_segments,) ``op``-reduction of ``values`` grouped by sorted ids.
 
     ``segment_ids`` must be the sorted, consecutive ids produced by
     ``ops.segment_ids_sorted`` / ``engine.global_segments``; out-of-range
     ids (including -1) are dropped.  Empty segments hold the op identity.
     Bool values reduce as int32, and bool min/max come back as bool.
+
+    A float sum is order-sensitive, so, as in the JAX package, it stays off
+    the kernel unless the caller names ``impl`` or passes
+    ``assume_exact=True``: on a card it takes the row-order fold
+    (``ordered_histogram_cuda``), which adds in row order for any ids.
     """
     was_bool = values.dtype == torch.bool
     vals = values.to(torch.int32) if was_bool else values
     if _resolve(values.device, impl) == "cuda":
-        out = segment_reduce_cuda(vals.contiguous(),
-                                  segment_ids.to(torch.int32).contiguous(),
-                                  num_segments, op)
+        ids = segment_ids.to(torch.int32).contiguous()
+        if (op == "sum" and vals.is_floating_point() and not assume_exact
+                and impl in (None, "auto")):
+            return ordered_histogram_cuda(ids, vals.contiguous(), num_segments)
+        out = segment_reduce_cuda(vals.contiguous(), ids, num_segments, op)
     else:
         out = _ref.segment_reduce_ref(vals, segment_ids, num_segments, op)
     if was_bool and op in ("min", "max"):

@@ -1,15 +1,18 @@
 """Sum / min / max over sorted segment ids: the CUDA kernel's wrapper.
 
 The counterpart of the JAX package's ``segment_reduce_pallas`` (the
-paper's ``group(D, case)`` + aggregate).  The kernel
-(``kernels/csrc/segment_reduce.cu``) gives each run of equal ids to the
-thread at its head, which folds the run left to right and combines the
-result into the output once; the wrapper fills the output with the op's
-identity first (``torch.full``) and allocates nothing else.  int32,
-float32 and uint32 values; a float32 sum stays in row order while the ids
-are sorted (each segment is one run), bitwise equal to the plain row-order
-scatter.  uint32 (``torch.uint32`` tensors, read as 32-bit storage)
-reduces unsigned: identity 0 for max, 2^32 - 1 for min.
+paper's ``group(D, case)`` + aggregate).  The ids must be sorted
+(non-decreasing), as the JAX kernel requires: each id's rows are then one
+contiguous run.  The kernel (``kernels/csrc/segment_reduce.cu``) is one
+pass that writes every output slot exactly once: each run's head folds
+the run left to right from shared memory and stores its value, and owns
+the identity in the slots of the ids skipped before it; extra blocks of
+the same grid write the identity below the first id and above the last.
+So the wrapper allocates the output with ``torch.empty`` and a call is
+one kernel node.  int32, float32 and uint32 values; a float32 sum is the
+row-order fold, bitwise equal to the plain row-order scatter.  uint32
+(``torch.uint32`` tensors, read as 32-bit storage) reduces unsigned:
+identity 0 for max, 2^32 - 1 for min.
 
 On a CPU tensor the wrapper takes the plain version
 (``ref.segment_reduce_ref``); on CUDA tensors it launches the kernel on the
@@ -72,24 +75,27 @@ def segment_reduce_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
 
     ``values`` is 1-D contiguous int32, float32 or uint32; ids outside
     ``[0, num_segments)`` (including -1) are dropped and empty segments hold
-    the op's identity.
+    the op's identity.  The ids must be sorted (non-decreasing): on a card,
+    unsorted ids leave the result undefined.
     """
     device = _check(values, segment_ids, num_segments, op)
     if device.type == "cpu":
         return segment_reduce_ref(values, segment_ids, num_segments, op)
     if device.type != "cuda":
         raise ValueError(f"segment_reduce: unsupported device {device}")
-    if values.dtype == torch.uint32:
-        # the identity's bit pattern in int32 storage (-1 is 0xFFFFFFFF)
-        out = torch.full((num_segments,), -1 if op == "min" else 0,
-                         dtype=torch.int32, device=device).view(torch.uint32)
-    else:
-        out = torch.full((num_segments,),
-                         reduce_identity(op, values.dtype).item(),
-                         dtype=values.dtype, device=device)
     n = values.shape[0]
     if n == 0 or num_segments == 0:
-        return out
+        # no row: every slot holds the identity, and nothing is launched
+        if values.dtype == torch.uint32:
+            # the identity's bit pattern in int32 storage (-1 is 0xFFFFFFFF)
+            return torch.full((num_segments,), -1 if op == "min" else 0,
+                              dtype=torch.int32, device=device).view(torch.uint32)
+        return torch.full((num_segments,),
+                          reduce_identity(op, values.dtype).item(),
+                          dtype=values.dtype, device=device)
+    # the kernel writes every slot (uint32 allocated as int32 storage)
+    out = torch.empty((num_segments,), dtype=torch.int32 if values.dtype == torch.uint32
+                      else values.dtype, device=device).view(values.dtype)
     lib, fn = _launcher()
     with torch.cuda.device(device):
         err = fn(segment_ids.data_ptr(), values.data_ptr(), n, num_segments,

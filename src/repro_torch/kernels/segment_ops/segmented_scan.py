@@ -16,15 +16,17 @@ sequential fold: uint32 wraps mod 2^32, and float32 sums add in row order.
 The polyhash and affine scans are one kernel: a single-pass block scan of
 the rows' affine maps over tiles of ``TILE_ROWS`` rows, the carry
 crossing tiles by a decoupled look-back over per-tile status words in
-scratch this wrapper allocates (``scratch_shape``).  The sum scan gives
-each segment's run to the thread at its head, which walks it left to
-right (row order).
+scratch this wrapper allocates (``scratch_shape``).  The sum scan stages
+tiles of rows (``sum_tile_rows``) and a halo in shared memory; each run is
+folded left to right (row order) there by the tile that holds its head,
+one thread a (run, column), and a run that outlasts the halo is continued
+window by window by the same block.
 
 uint32 operands live in int32 tensors holding the bit patterns.  The carry
 is a device tensor (0-d, or (K,) for the sum) read by the kernel through a
-pointer, and ``carry_out`` is a copy of the last row (written by the
-polyhash / affine kernel itself), left on the device: nothing is read back
-to the host, so a stream of chunks never syncs.  On CPU tensors each wrapper takes its plain version
+pointer, and ``carry_out`` is a copy of the last row written by the kernel
+itself, left on the device: nothing is read back to the host, so a stream
+of chunks never syncs.  On CPU tensors each wrapper takes its plain version
 (``ref.segmented_scan_ref`` / ``ref.segmented_affine_ref``); on CUDA
 tensors it launches the kernel on the current stream or raises.  Each
 wrapper's ``.launches`` counts its launches.
@@ -44,9 +46,8 @@ _ARGTYPES = {
     "repro_segmented_polyhash": [_P, ctypes.c_int64, _P, _P, ctypes.c_int64,
                                  _P, _P, _P, _P],
     "repro_segmented_sum_scan": [_P, _P, _P, ctypes.c_int64, ctypes.c_int64,
-                                 ctypes.c_int, _P, _P],
+                                 ctypes.c_int, _P, _P, _P],
 }
-_MAX_THREADS = 256 * (2**31 - 1)      # the kernels' grid limit
 # rows a tile of the affine / polyhash scan (``kTileRows`` in the source,
 # checked against the built library at first use)
 TILE_ROWS = 4096
@@ -61,6 +62,14 @@ def scratch_shape(n: int) -> tuple[int, int]:
     return (1 + -(-n // TILE_ROWS), 32)
 
 
+def sum_tile_rows(k: int) -> int:
+    """Rows a tile of the sum scan owns at ``k`` columns (``sum_tile_rows``
+    in the source): a staged window holds at most 8,192 words, 16 of its
+    rows a halo, and rows wider than 256 columns are cut into slices of
+    256 columns."""
+    return min(256, 8192 // min(k, 256) - 16)
+
+
 def _launcher(name: str):
     lib = _build.load("segmented_scan")
     fn = getattr(lib, name)
@@ -69,6 +78,13 @@ def _launcher(name: str):
             raise RuntimeError(f"segmented_scan: the library tiles "
                                f"{lib.repro_scan_tile_rows()} rows, the "
                                f"wrapper {TILE_ROWS}")
+        lib.repro_sum_tile_rows.argtypes = [ctypes.c_int64]
+        for k in (1, 26, 256, 300):
+            if lib.repro_sum_tile_rows(k) != sum_tile_rows(k):
+                raise RuntimeError(f"segmented_scan: the library's sum tiles "
+                                   f"at {k} columns are "
+                                   f"{lib.repro_sum_tile_rows(k)} rows, the "
+                                   f"wrapper's {sum_tile_rows(k)}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return lib, fn
@@ -166,7 +182,8 @@ def segmented_sum_scan_cuda(values: torch.Tensor, seg_starts: torch.Tensor,
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Inclusive segmented prefix sum of (N, K) float32 or int32 rows (or
     (N,) with a 0-d carry), seeded by ``carry`` (K,) at an unflagged row 0.
-    Returns ``(ys, carry_out)``; float32 sums are added in row order."""
+    Returns ``(ys, carry_out)``; float32 sums are added in row order.
+    ``carry_out`` (the last row) is written by the kernel."""
     if values.dtype not in (torch.float32, torch.int32):
         raise TypeError(f"segmented_sum_scan: values must be float32 or "
                         f"int32, got {values.dtype}")
@@ -181,18 +198,19 @@ def segmented_sum_scan_cuda(values: torch.Tensor, seg_starts: torch.Tensor,
     n = values.shape[0]
     if n == 0:
         return values, carry
-    if n * k > _MAX_THREADS:
-        raise ValueError(f"segmented_sum_scan: {n} x {k} cells exceed one "
-                         f"launch's grid")
+    if -(-n // sum_tile_rows(k)) > 2**31 - 1:
+        raise ValueError(f"segmented_sum_scan: {n} rows of {k} columns exceed "
+                         f"one launch's grid")
     ys = torch.empty_like(values)
+    out = torch.empty_like(carry)
     lib, fn = _launcher("repro_segmented_sum_scan")
     with torch.cuda.device(device):
         err = fn(values.data_ptr(), seg_starts.data_ptr(), carry.data_ptr(), n,
                  k, int(values.dtype == torch.float32), ys.data_ptr(),
-                 _build.stream_of(ys))
+                 out.data_ptr(), _build.stream_of(ys))
     _build.check(lib, err, "segmented_sum_scan")
     segmented_sum_scan_cuda.launches += 1
-    return ys, ys[-1].clone()
+    return ys, out
 
 
 segmented_polyhash_cuda.launches = 0

@@ -157,7 +157,14 @@ def test_float_weights_launch_the_ordered_fold(cuda):
 def _sorted_segments(gen, n, s, device, single_run=False):
     """Sorted int32 ids, about n / s rows a segment: leading ids below 0,
     some ids skipped (empty segments), ids >= s at the tail when n > s; or
-    one run over everything."""
+    one run over everything (``single_run=True``, a fill stripe on both
+    sides); or ``"gaps"``: ids from 1,000 on, each run skipping 0 to 40 ids
+    and lasting 1 to 127 rows, so runs cross the kernel's tiles and halos
+    and the heads write the skipped ids."""
+    if single_run == "gaps":
+        step = torch.randint(0, 128, (n,), generator=gen, device=device) == 0
+        skip = torch.randint(1, 42, (n,), generator=gen, device=device)
+        return (1_000 + torch.cumsum(step * skip, 0)).to(torch.int32)
     if single_run:
         return torch.full((n,), s // 2, dtype=torch.int32, device=device)
     p = min(1.0, (s + 3) / max(n, 1))
@@ -175,12 +182,23 @@ def _segment_values(gen, n, dtype, device):
     return _float_weights(gen, n, device)
 
 
+def _poison(nbytes, device):
+    """Fill a freed block of ``nbytes`` with the byte 0x5A, so the caching
+    allocator hands it to the next allocation of that size: a slot the
+    kernel leaves unwritten then shows."""
+    torch.empty(nbytes, dtype=torch.uint8, device=device).fill_(0x5A)
+
+
 @pytest.mark.parametrize("dtype", ["int32", "float32", "bool"])
 @pytest.mark.parametrize("n,s,single", [(0, 10, False), (1, 10, False),
                                         (511, 300, False), (524_288, 1_000_000, False),
                                         (524_288, 75_000, False),
-                                        (524_288, 1_000_000, True)])
+                                        (524_288, 1_000_000, True),
+                                        (300_001, 1_000_000, "gaps")])
 def test_segment_reduce_kernel_equals_plain(cuda, dtype, n, s, single):
+    """Every slot of the output is written by the kernel: the block it gets
+    was filled with 0x5A first.  Sorted ids, so the float32 sum is taken on
+    the kernel (``assume_exact=True``), in row order."""
     from repro_torch.kernels import segment_ops as so
 
     gen = torch.Generator(device=cuda).manual_seed(n + s + len(dtype))
@@ -188,7 +206,8 @@ def test_segment_reduce_kernel_equals_plain(cuda, dtype, n, s, single):
     vals = _segment_values(gen, n, dtype, cuda)
     for op in ("sum", "min", "max"):
         before = so.segment_reduce_cuda.launches
-        got = so.segment_reduce(vals, seg, s, op)
+        _poison(4 * s, cuda)
+        got = so.segment_reduce(vals, seg, s, op, assume_exact=True)
         torch.cuda.synchronize()
         assert so.segment_reduce_cuda.launches == before + (1 if n else 0)
         iv = vals.to(torch.int32) if dtype == "bool" else vals
@@ -299,7 +318,8 @@ def test_streamed_dfg_on_card_equals_cpu(cuda, chunk_rows):
 
 @pytest.mark.parametrize("n,s,single", [(0, 10, False), (1, 10, False),
                                         (511, 300, False), (524_288, 1_000_000, False),
-                                        (524_288, 1_000_000, True)])
+                                        (524_288, 1_000_000, True),
+                                        (300_001, 1_000_000, "gaps")])
 def test_segment_reduce_uint32_equals_plain(cuda, n, s, single):
     from repro_torch.kernels import segment_ops as so
 
@@ -310,6 +330,7 @@ def test_segment_reduce_uint32_equals_plain(cuda, n, s, single):
     vals = bits.view(torch.uint32)
     for op in ("sum", "min", "max"):
         before = so.segment_reduce_cuda.launches
+        _poison(4 * s, cuda)
         got = so.segment_reduce(vals, seg, s, op)
         torch.cuda.synchronize()
         assert so.segment_reduce_cuda.launches == before + (1 if n else 0)
@@ -412,6 +433,8 @@ def test_segmented_scans_equal_plain(cuda, n, runs, flag0):
         else:
             want, _ = so.segmented_scan_ref(x.cpu(), starts.cpu(), carry.cpu(), "sum")
         assert torch.equal(ys.cpu(), want)
+        if n:
+            assert torch.equal(out.cpu(), ys[-1].cpu())
 
 
 @pytest.mark.parametrize("case", ["ghost_2^17", "one_run_2^20", "one_run_2^20_flagged",
@@ -453,6 +476,70 @@ def test_affine_scan_long_runs_equal_sequential_fold(cuda, case):
     assert torch.equal(ys.cpu(), want) and torch.equal(ya.cpu(), want_a)
     assert int(out) == int(want[-1]) and int(oa) == int(want_a[-1])
     assert out.shape == () and out.device.type == "cuda"
+
+
+@pytest.mark.parametrize("k", [26, 1, 300])
+@pytest.mark.parametrize("case", ["crossing_runs", "odd_row_offset", "one_run_2^19",
+                                  "tile_without_head"])
+def test_sum_scan_tiles_equal_sequential_fold(cuda, k, case):
+    """The tile-staged sum scan where its tiles meet: runs of 200-400 rows
+    (past a tile and its halo, so the block continues them window by
+    window), (N, 26) rows viewed at an odd row offset (104-byte rows off
+    16-byte alignment: the 4-byte copies), one unflagged run over 2^19
+    rows from the carry, and tiles holding no head; K = 1 ((N,) rows, a
+    0-d carry) and K = 300 (two column slices).  Bitwise against the
+    sequential float32 fold, ``carry_out`` equal to the last row, one
+    launch."""
+    from repro_torch.kernels import segment_ops as so
+
+    gen = torch.Generator(device=cuda).manual_seed(k * 7 + len(case))
+    n = 1 << 19 if case == "one_run_2^19" else 100_003
+    off = 1 if case == "odd_row_offset" else 0
+    starts = torch.zeros(n + off, dtype=torch.bool, device=cuda)
+    if case == "crossing_runs":
+        starts[torch.cumsum(torch.randint(200, 400, (n // 200,), generator=gen,
+                                          device=cuda), 0)[:-1].clamp(max=n - 1)] = True
+    elif case == "odd_row_offset":
+        starts = torch.rand(n + off, generator=gen, device=cuda) < 1 / 7
+    elif case == "tile_without_head":
+        starts[::5_000] = True
+    starts[off] = case == "tile_without_head"
+    rows = (n + off, k) if k > 1 else (n + off,)
+    mag = 10.0 ** torch.randint(-3, 5, rows, generator=gen, device=cuda)
+    x = (torch.randn(rows, generator=gen, device=cuda) * mag).float()
+    starts, x = starts[off:], x[off:]
+    carry = torch.randn(rows[1:], generator=gen, device=cuda)
+    before = so.segmented_sum_scan_cuda.launches
+    ys, out = so.segmented_sum_scan_cuda(x, starts, carry)
+    torch.cuda.synchronize()
+    assert so.segmented_sum_scan_cuda.launches == before + 1
+    want = _oracle_sum(x.reshape(n, -1), starts, carry.reshape(-1)).reshape(x.shape)
+    assert torch.equal(ys.cpu(), want)
+    assert out.shape == carry.shape and torch.equal(out.cpu(), want[-1])
+
+
+def test_unsorted_float_sum_takes_the_row_order_fold(cuda):
+    """A float32 sum through ``segment_reduce`` with unsorted ids (and ids
+    out of range) takes the row-order fold, not the sorted-id kernel, and
+    equals the CPU plain version bitwise; integer sums and an explicit
+    ``assume_exact=True`` take the kernel."""
+    from repro_torch.kernels import segment_ops as so
+
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    ids = torch.randint(-2, 1_002, (200_000,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    vals = _float_weights(gen, 200_000, cuda)
+    before = (so.ordered_histogram_cuda.launches, so.segment_reduce_cuda.launches)
+    got = so.segment_reduce(vals, ids, 1_000, "sum")
+    torch.cuda.synchronize()
+    assert (so.ordered_histogram_cuda.launches, so.segment_reduce_cuda.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(got.cpu(), so.segment_reduce(vals.cpu(), ids.cpu(), 1_000, "sum"))
+    seg = torch.sort(ids).values
+    so.segment_reduce(vals, seg, 1_000, "sum", assume_exact=True)
+    so.segment_reduce(vals.to(torch.int32), ids, 1_000, "sum")
+    assert (so.ordered_histogram_cuda.launches, so.segment_reduce_cuda.launches) == (
+        before[0] + 1, before[1] + 2)
 
 
 @pytest.mark.parametrize("chunk_rows", [1, 1000, 100_000])

@@ -430,3 +430,167 @@ def test_build_paths_hash_the_sources():
         assert (_build.CSRC / f"{name}.cu").exists()
     assert {"segment_reduce", "ordered_histogram"} <= set(_build.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# -------------------------------- segment_reduce's one-pass scheme, replayed
+def _combine(op, acc, v):
+    """The kernel's combine: float32 / int32 arithmetic, NaN propagating."""
+    if op == "sum":
+        return acc + v
+    if op == "min":
+        return v if (v < acc or v != v) else acc
+    return v if (v > acc or v != v) else acc
+
+
+def _replay_segment_reduce(vals, seg, s, op, tile, halo, fill_slots):
+    """``segment_reduce_tiles`` of ``kernels/csrc/segment_reduce.cu`` on the
+    CPU: per tile, the heads among its own rows fold their runs left to
+    right from the staged rows (tile + halo) and store them, each head also
+    writing the identity into the ids skipped before it; a run that outlasts
+    the staged rows is continued window by window; every block writes its
+    share of the identity below ``seg[0]`` and above ``seg[n - 1]``.  Every
+    store is counted: each slot must be written exactly once."""
+    n = seg.size
+    ident = np.asarray(tso.reduce_identity(op, torch.from_numpy(vals[:0]).dtype))
+    ident = ident.astype(vals.dtype)
+    out = np.full(s, 0x5A5A5A5A, np.uint32).view(vals.dtype)
+    writes = np.zeros(s, np.int64)
+
+    def store(slot, v):
+        out[slot] = v
+        writes[slot] += 1
+
+    def fold(lo, lim, sid, acc):
+        j = lo
+        while j < lim and seg[j] == sid:
+            acc = _combine(op, acc, vals[j])
+            j += 1
+        return j, acc
+
+    window = tile + halo
+    for row0 in range(0, n, tile):
+        lim, own = min(window, n - row0), min(tile, n - row0)
+        cont = None
+        for r in range(own):
+            i = row0 + r
+            sid = int(seg[i])
+            if i > 0 and sid == seg[i - 1]:
+                continue
+            if i > 0:
+                for g in range(max(int(seg[i - 1]) + 1, 0), min(sid, s)):
+                    store(g, ident)
+            if not 0 <= sid < s:
+                continue
+            end, acc = fold(i, row0 + lim, sid, ident)
+            if end == row0 + lim and end < n:
+                assert cont is None            # one run a tile crosses out
+                cont = (end, sid, acc)
+            else:
+                store(sid, acc)
+        if cont is not None:
+            pos, sid, acc = cont
+            while True:
+                lim2 = min(window, n - pos)
+                end, acc = fold(pos, pos + lim2, sid, acc)
+                if end < pos + lim2 or pos + lim2 == n:
+                    store(sid, acc)
+                    break
+                pos += lim2
+    # every block writes its share of the stripes: one block a tile, and
+    # at least one a ``fill_slots`` slots of the output
+    blocks = max(-(-n // tile), -(-s // fill_slots))
+    share = -(-(-(-s // blocks)) // 4) * 4
+    lo, hi = min(int(seg[0]), s), max(int(seg[-1]) + 1, 0)
+    for b in range(blocks):
+        slots = np.arange(b * share, min((b + 1) * share, s))
+        for g in slots[(slots < lo) | (slots >= hi)]:
+            store(g, ident)
+    np.testing.assert_array_equal(writes, np.ones(s, np.int64))
+    return out
+
+
+def _reduce_ids(case, gen):
+    """(ids, S) for the scheme's edge cases."""
+    if case == "leading_minus_ones":
+        return np.repeat(np.arange(-1, 300, dtype=np.int32),
+                         np.r_[70, gen.integers(1, 9, 300)]), 400
+    if case == "tail_past_s":
+        return np.repeat(np.arange(0, 260, dtype=np.int32), gen.integers(1, 9, 260)), 200
+    if case == "skipped_ids":      # gaps of 1-5 ids, within the Pallas window
+        ids = np.cumsum((gen.integers(0, 4, 3000) == 0) * gen.integers(1, 6, 3000))
+        return (ids + 5).astype(np.int32), int(ids[-1]) + 40
+    if case == "runs_across_tiles":     # 1,000-row runs cross tiles and halos
+        return np.repeat(np.arange(1, 5, dtype=np.int32), [1500, 1000, 190, 1313]), 9
+    if case == "one_run":
+        return np.full(2600, 3, np.int32), 7
+    if case == "one_row":
+        return np.array([2], np.int32), 5
+    # "ragged": 2,500 rows, no multiple of the tile, ~7 rows a run
+    return np.sort(gen.integers(-3, 400, 2500)).astype(np.int32), 380
+
+
+REDUCE_CASES = ["leading_minus_ones", "tail_past_s", "skipped_ids", "runs_across_tiles",
+                "one_run", "one_row", "ragged"]
+
+
+@pytest.mark.parametrize("case", REDUCE_CASES)
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_segment_reduce_one_pass_scheme_matches_pallas_and_xla(case, dtype):
+    """The kernel's one-pass scheme at its own geometry (1,024-row tiles, a
+    64-row halo, a block at least every 4,096 output slots) and on small
+    tiles (8 rows, a 4-row halo, 16 slots), so every run crosses tiles:
+    each slot written once, bitwise the XLA reference (float32 sums in row
+    order) and the Pallas kernel in interpret mode (on integer-valued
+    values, where its one-hot sums are exact), for sum, min and max."""
+    gen = np.random.default_rng(len(case) * 7 + len(dtype))
+    seg, s = _reduce_ids(case, gen)
+    n = seg.size
+    if dtype == "int32":
+        vals = gen.integers(-1000, 1000, n).astype(np.int32)
+        exact = vals
+    else:
+        vals = (gen.standard_normal(n) * 10.0 ** gen.integers(-3, 5, n)).astype(np.float32)
+        exact = gen.integers(-50, 50, n).astype(np.float32)
+    for op in ("sum", "min", "max"):
+        xla = _np(jso.segment_reduce(jnp.asarray(vals), jnp.asarray(seg), s, op, impl="xla"))
+        pallas = _np(jso.segment_reduce_pallas(jnp.asarray(exact), jnp.asarray(seg), s, op,
+                                               interpret=True))
+        for geometry in ((1024, 64, 4096), (8, 4, 16)):
+            np.testing.assert_array_equal(
+                _replay_segment_reduce(vals, seg, s, op, *geometry), xla)
+            np.testing.assert_array_equal(
+                _replay_segment_reduce(exact, seg, s, op, *geometry), pallas)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_segment_reduce_float_sums_take_the_row_order_fold(monkeypatch, dtype):
+    """With the kernels chosen (``backend.resolve`` forced to ``"cuda"``), a
+    float sum without ``impl`` or ``assume_exact`` goes to the row-order fold,
+    as the JAX package sends it to XLA; an explicit ``impl="cuda"`` or
+    ``assume_exact=True``, and every integer sum or min / max, go to the
+    sorted-id kernel.  The wrappers run their plain versions on these CPU
+    tensors, so the fold's result is held bitwise against the JAX package's
+    own dispatch on unsorted ids."""
+    monkeypatch.setattr(backend, "resolve", lambda device, impl=None: "cuda")
+    calls = []
+    for name in ("ordered_histogram_cuda", "segment_reduce_cuda"):
+        real = getattr(tso.ops, name)
+        monkeypatch.setattr(tso.ops, name,
+                            lambda *a, _real=real, _name=name: calls.append(_name) or _real(*a))
+    gen = np.random.default_rng(18)
+    ids = gen.integers(-2, 45, 3000).astype(np.int32)            # unsorted
+    if dtype == "float32":
+        vals = (gen.standard_normal(3000) * 10.0 ** gen.integers(-3, 5, 3000)).astype(np.float32)
+    else:
+        vals = gen.integers(-9, 9, 3000).astype(np.int32)
+    want = _np(jso.segment_reduce(jnp.asarray(vals), jnp.asarray(ids), 40, "sum"))
+    got = tso.segment_reduce(T(vals), T(ids), 40, "sum")
+    np.testing.assert_array_equal(got.numpy(), want)
+    fold = dtype == "float32"
+    assert calls == ["ordered_histogram_cuda" if fold else "segment_reduce_cuda"]
+    calls.clear()
+    srt = np.sort(ids)
+    tso.segment_reduce(T(vals), T(srt), 40, "sum", assume_exact=True)
+    tso.segment_reduce(T(vals), T(srt), 40, "sum", impl="cuda")
+    tso.segment_reduce(T(vals), T(srt), 40, "max")
+    assert calls == ["segment_reduce_cuda"] * 3

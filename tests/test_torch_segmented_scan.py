@@ -388,3 +388,98 @@ def test_single_pass_scan_scheme_over_many_windows(per_lane, p):
     carry = np.uint32(0xCAFEF00D)
     got = _replay_affine_scan(mul, add, starts, carry, 32, 2, per_lane, seed=7)
     np.testing.assert_array_equal(got, _fold(mul, add, starts, carry))
+
+
+# ------------------------------- the tile-staged sum scan's scheme, replayed
+def _replay_sum_scan(x, starts, carry, rows, halo):
+    """``sum_scan`` of ``kernels/csrc/segmented_scan.cu`` on the CPU: tile t
+    stages rows [t rows, (t + 1) rows + halo), owns the runs whose heads
+    (row 0, or a flagged row) lie in its first ``rows`` rows, folds each in
+    row order from the staged rows (row 0 unflagged from the carry, a
+    flagged head from 0), and stores rows [first head, end of its last run);
+    a last run that outlasts the staged rows is continued window by window.
+    The row that is stored last at n - 1 gives ``carry_out``.  Every row is
+    written exactly once."""
+    n = x.shape[0]
+    ys = np.full(x.shape, 0x5A5A5A5A, np.uint32).view(x.dtype)
+    writes = np.zeros(n, np.int64)
+    carry_out = None
+    win = rows + halo
+    for row0 in range(0, n, rows):
+        lim, own = min(win, n - row0), min(rows, n - row0)
+        sx = x[row0:row0 + lim].copy()
+        heads = [r for r in range(own) if row0 + r == 0 or starts[row0 + r]]
+        in_halo = [r for r in range(own, lim) if starts[row0 + r]]
+        stop = in_halo[0] if in_halo else lim
+        if not heads:
+            continue
+        more = stop == lim and row0 + lim < n
+        for h, r0 in enumerate(heads):
+            r1 = heads[h + 1] if h + 1 < len(heads) else stop
+            acc = carry.copy() if row0 + r0 == 0 and not starts[0] else np.zeros_like(carry)
+            for r in range(r0, r1):
+                acc = acc + sx[r]
+                sx[r] = acc
+        ys[row0 + heads[0]:row0 + stop] = sx[heads[0]:stop]
+        writes[row0 + heads[0]:row0 + stop] += 1
+        if row0 + stop == n:
+            carry_out = sx[stop - 1]
+        pos = row0 + lim
+        while more:
+            lim2 = min(win, n - pos)
+            flagged = np.flatnonzero(starts[pos:pos + lim2])
+            end = int(flagged[0]) if flagged.size else lim2
+            for r in range(end):
+                acc = acc + x[pos + r]
+                ys[pos + r] = acc
+            writes[pos:pos + end] += 1
+            if pos + end == n:
+                carry_out = acc
+            more = end == lim2 and pos + lim2 < n
+            pos += lim2
+    np.testing.assert_array_equal(writes, np.ones(n, np.int64))
+    return ys, carry_out
+
+
+SUM_SCHEME_CASES = {
+    # name: (n, flag probability, row 0 flagged)
+    "row0_from_carry": (700, 1 / 7, False),
+    "row0_flagged": (700, 1 / 7, True),
+    "runs_across_tiles": (1500, 1 / 150, False),
+    "tiles_without_heads": (2000, 1 / 900, True),
+    "one_run": (1300, 0.0, False),
+    "one_row": (1, 0.0, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SUM_SCHEME_CASES))
+@pytest.mark.parametrize("k", [1, 26])
+def test_sum_scan_tile_scheme_matches_pallas_and_fold(name, k):
+    """The kernel's tile-staged scheme at its own geometry (``sum_tile_rows``
+    rows a tile, a 16-row halo) and on small tiles (8 rows, a 4-row halo,
+    so runs cross tiles and halos), replayed on the CPU: bitwise the
+    sequential XLA fold on non-integer float32 rows and the Pallas kernel
+    (interpret mode) on integer-valued rows, ``carry_out`` included; K = 1
+    is (N,) rows with a 0-d carry."""
+    ss = importlib.import_module("repro_torch.kernels.segment_ops.segmented_scan")
+    n, p, flag0 = SUM_SCHEME_CASES[name]
+    gen = np.random.default_rng(len(name) * 3 + k)
+    starts = gen.random(n) < p
+    starts[0] = flag0
+    if name == "tiles_without_heads":
+        starts[:] = False
+        starts[[0, 5, 1400]] = True
+    shape = (n, k) if k > 1 else (n,)
+    x = (gen.standard_normal(shape) * 10.0 ** gen.integers(-3, 5, shape)).astype(np.float32)
+    xi = gen.integers(-9, 9, shape).astype(np.float32)
+    carry = gen.standard_normal(shape[1:]).astype(np.float32)
+    ci = gen.integers(-9, 9, shape[1:]).astype(np.float32)
+    assert ss.sum_tile_rows(k) == 256 and ss.sum_tile_rows(300) == 16
+    for rows, halo in ((ss.sum_tile_rows(k), 16), (8, 4)):
+        for vals, c, impl in ((x, carry, "xla"), (xi, ci, "pallas")):
+            ys, out = jso.segmented_scan(jnp.asarray(vals), jnp.asarray(starts), jnp.asarray(c),
+                                         "sum", impl=impl, block_e=128)
+            got, got_c = _replay_sum_scan(vals.reshape(n, -1), starts, c.reshape(-1),
+                                          rows, halo)
+            np.testing.assert_array_equal(got.reshape(shape), np.asarray(ys))
+            np.testing.assert_array_equal(got_c.reshape(c.shape), np.asarray(out))
