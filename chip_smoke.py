@@ -65,6 +65,13 @@ streamed from disk onto the card, and the EventLM serving path:
 Each path's launch counts are set to 0 just before it runs and read just
 after, and must show its kernels.
 
+``python3 chip_smoke.py --counting`` builds only the two counting kernels,
+prints their times (``time_counting``: the int32 yardstick rows, the DFG
+update's own calls with a bool mask and ``into``, one whole update) and
+stops, without the ``ok`` line.  A copy of this script placed at the root of
+another checkout (a parent commit unpacked with ``git archive``) times that
+checkout's kernels with the same code.
+
 Every line of standard output is one JSON object; the last one is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
 passed.  The script exits non-zero, before any work, when no CUDA device is
@@ -256,17 +263,20 @@ def graph_ms(torch, fn, launches: int, replays: int = 50) -> float:
 def check_kernels(torch, so) -> dict:
     """Each kernel against its plain version, bitwise, over the shape sweep.
 
-    Counting kernels: ids include -1 and >= the bound, weights 0/1 and
-    signed; sizes 242 and 300 (and 242^2 bins) take the global-atomic
-    branch.  ``segment_reduce``: sorted ids with leading -1s, skipped ids
-    and ids >= S, int32 / float32 / bool / uint32 values, sum / min / max,
-    up to a 524,288-row chunk into 10^6 segments, one run over a whole
-    chunk (a fill stripe on both sides), and runs of up to 127 rows that
-    skip up to 40 ids each; every output block was filled with 0x5A first,
-    so a slot the kernel leaves unwritten shows.  The row-order float fold (and a float32 segment sum) is held
-    against the plain version on CPU copies of the inputs: CUDA
-    ``index_add_`` adds in no fixed order, so the card has no plain
-    row-order fold.  The segmented scans: see ``check_scans``."""
+    Counting kernels: ids include -1 and >= the bound, weights 0/1, signed
+    and bool, ``into`` absent and given, columns aligned and sliced one row
+    in; output and partials blocks filled with 0x5A first, so a bin the
+    kernels leave unwritten shows; sizes 242 and 300 (and 242^2 bins) take
+    the global-atomic branch.  ``segment_reduce``: sorted ids with leading
+    -1s, skipped ids and ids >= S, int32 / float32 / bool / uint32 values,
+    sum / min / max, up to a 524,288-row chunk into 10^6 segments, one run
+    over a whole chunk (a fill stripe on both sides), and runs of up to 127
+    rows that skip up to 40 ids each; every output block was filled with
+    0x5A first, so a slot the kernel leaves unwritten shows.  The row-order
+    float fold (and a float32 segment sum) is held against the plain
+    version on CPU copies of the inputs: CUDA ``index_add_`` adds in no
+    fixed order, so the card has no plain row-order fold.  The segmented
+    scans: see ``check_scans``."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dev = "cuda"
 
@@ -312,21 +322,51 @@ def check_kernels(torch, so) -> dict:
             raise AssertionError(f"{name} kernel != plain version at {what}: "
                                  f"max abs err {err}")
 
+    from repro_torch.kernels.segment_ops import counting
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def count_inputs(e, ids_hi, shape):
+        # 0/1, signed and bool weights; into absent and given; every column
+        # sliced one row in (off a 16-byte boundary) or not
+        for kind in ("mask", "signed", "bool"):
+            for with_into in (False, True):
+                for offset in (0, 1):
+                    cols = [ids(e + offset, hi)[offset:] for hi in ids_hi]
+                    w = (torch.rand(e + offset, generator=gen, device=dev) < 0.6
+                         if kind == "bool" else weights(e + offset, kind))[offset:]
+                    into = (torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                                          device=dev, dtype=torch.int32)
+                            if with_into else None)
+                    yield f"w={kind} into={with_into} offset={offset}", cols, w, into
+
+    def poison_counting(nbins, tensors):
+        # freed blocks of the output's and the partials' sizes, held at
+        # once and filled with 0x5A, which the allocator hands to the call
+        sizes = [4 * nbins]
+        if counting.shared_route(nbins) and tensors[0].shape[0]:
+            plan = counting.count_plan(tensors[0].shape[0], nbins, sms,
+                                       counting.head_rows(*tensors))
+            sizes.append(4 * nbins * plan.grid)
+        blocks = [torch.empty(nb, dtype=torch.uint8, device=dev).fill_(0x5A)
+                  for nb in sizes]
+        del blocks
+
     shapes = [(a, a) for a in (1, 26, 129, 241, 242, 300)] + [(3, 200), (11, 7)]
     for s, d in shapes:
         for e in sizes_e:
-            for kind in ("mask", "signed"):
-                src, dst, w = ids(e, s), ids(e, d), weights(e, kind)
-                got = so.pair_count_cuda(src, dst, w, s, d)
-                want = so.pair_count_ref(src, dst, w, s, d)
-                record("pair_count", got, want, f"S={s} D={d} E={e} w={kind}")
+            for what, (src, dst), w, into in count_inputs(e, (s, d), (s, d)):
+                poison_counting(s * d, (src, dst, w))
+                got = so.pair_count_cuda(src, dst, w, s, d, into)
+                want = so.pair_count_ref(src, dst, w.to(torch.int32), s, d, into)
+                record("pair_count", got, want, f"S={s} D={d} E={e} {what}")
     for b in (1, 26, 129, 241, 242, 300, 676, 241 * 241, 242 * 242):
         for e in sizes_e:
-            for kind in ("mask", "signed"):
-                v, w = ids(e, b), weights(e, kind)
-                got = so.histogram_cuda(v, w, b)
-                want = so.histogram_ref(v, b, w)
-                record("histogram", got, want, f"B={b} E={e} w={kind}")
+            for what, (v,), w, into in count_inputs(e, (b,), (b,)):
+                poison_counting(b, (v, w))
+                got = so.histogram_cuda(v, w, b, into)
+                want = so.histogram_ref(v, b, w.to(torch.int32), into)
+                record("histogram", got, want, f"B={b} E={e} {what}")
     for n, s, single in ((0, 10, False), (1, 10, False), (511, 300, False),
                          (524_288, 75_000, False), (524_288, NUM_CASES, False),
                          (524_288, NUM_CASES, True), (300_001, NUM_CASES, "gaps")):
@@ -650,14 +690,71 @@ def check_scans(torch, so, gen, record) -> None:
 
 
 def time_kernels(torch, so, engine, frame_gpu, ghosts) -> dict:
-    """Kernel, plain-version and library times at the main path's shapes:
-    the DFG update's inputs over the L1 log, per 524,288-row chunk (the
-    chunks cycle, so inputs come from HBM, not L2) and over the whole log."""
+    """Kernel, plain-version and library times at the main paths' shapes."""
+    n = frame_gpu.nrows
+    spans = [(lo, min(lo + ROW_GROUP_ROWS, n)) for lo in range(0, n, ROW_GROUP_ROWS)]
+    spans = [s for s in spans if s[1] - s[0] == ROW_GROUP_ROWS]
+    rows = time_counting(torch, so, engine, frame_gpu)
+    rows.update(time_stats_kernels(torch, so, engine, frame_gpu, spans))
+    rows.update(time_scan_kernels(torch, so, engine, frame_gpu, spans, ghosts))
+    return rows
+
+
+def graph_nodes(torch, fn) -> dict:
+    """The device nodes one call of ``fn`` makes: ``fn`` captured into a CUDA
+    graph, its nodes counted by type with the driver's ``cuGraphGetNodes``
+    and ``cuGraphNodeGetType`` (the profiler dropped some kernels of these
+    calls once earlier traces had run in the process)."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    for name in ("cuGraphGetNodes", "cuGraphNodeGetType"):
+        getattr(cuda, name).restype = ctypes.c_int
+
+    def check(res, what):
+        if res != 0:
+            raise RuntimeError(f"{what} failed: CUresult {res}")
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(graph, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    kinds = {0: "kernel", 1: "memcpy", 2: "memset"}
+    by_type: dict = {}
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)),
+              "cuGraphNodeGetType")
+        key = kinds.get(t.value, f"type_{t.value}")
+        by_type[key] = by_type.get(key, 0) + 1
+    g.reset()
+    return {"nodes": count.value, "nodes_by_type": by_type}
+
+
+def time_counting(torch, so, engine, frame_gpu) -> dict:
+    """The counting kernels at the DFG update's shapes over the L1 log, per
+    524,288-row chunk (the chunks cycle, so inputs come from HBM, not L2) and
+    over the whole log: the kernels' wrappers with int32 weights and no
+    ``into`` (the yardstick every earlier run timed), the main path's call
+    (``ops.pair_count`` / ``ops.histogram`` with a bool mask and an int32
+    ``into``, as ``dfg_kernel``'s update makes it) with its device nodes,
+    and one whole DFG update (``adjacent`` plus the three calls).  Only
+    entry points that every tree since the first counting kernels has are
+    called, so a parent tree is timed by the same code."""
+    from repro_torch.core import ChunkedEventFrame, dfg_kernel
+
     a = NUM_ACTIVITIES
     adj = engine.adjacent(frame_gpu, engine.init_row_carry("cuda"))
     prev_act, act = adj.prev_act.contiguous(), adj.act.contiguous()
-    pair = adj.pair.to(torch.int32)
-    is_start = adj.is_start.to(torch.int32)
+    pair_b, start_b = adj.pair.contiguous(), adj.is_start.contiguous()
+    pair = pair_b.to(torch.int32)
+    is_start = start_b.to(torch.int32)
     pair_key = prev_act.long() * a + act.long()
     act_long = act.long()
     n = act.shape[0]
@@ -667,6 +764,8 @@ def time_kernels(torch, so, engine, frame_gpu, ghosts) -> dict:
     pc_out = torch.zeros(a * a, dtype=torch.int32, device="cuda")
     h_out = torch.zeros(a, dtype=torch.int32, device="cuda")
     h2_out = torch.zeros(a * a, dtype=torch.int32, device="cuda")
+    pc_into = torch.randint(0, 1000, (a, a), dtype=torch.int32, device="cuda")
+    h_into = torch.randint(0, 1000, (a,), dtype=torch.int32, device="cuda")
     shift_key = (prev_act * a + act).contiguous()   # the shift method's df:pair ids
     rows = {}
     for label, sp in (("chunk", spans), ("whole_log", whole)):
@@ -715,10 +814,65 @@ def time_kernels(torch, so, engine, frame_gpu, ghosts) -> dict:
         "ms": time_ms(torch, lambda i: so.histogram_cuda(shift_key, pair, a * a), 1),
         "plain_ms": time_ms(torch, lambda i: so.histogram_ref(shift_key, a * a, pair), 1),
         "library_ms": time_ms(torch, lambda i: h2_out.index_add_(0, pair_key, pair), 1),
+        "graph_ms": graph_ms(torch, lambda: so.histogram_cuda(shift_key, pair, a * a), 1),
         **bound(8 * e + 4 * a * a, e)}
+
+    # the main path's call: a bool mask read in place, the state as into
+    k = len(spans)
+    e = ROW_GROUP_ROWS
+
+    def pc_call(i, impl=None):
+        lo, hi = spans[i]
+        return so.pair_count(prev_act[lo:hi], act[lo:hi], a, weights=pair_b[lo:hi],
+                             into=pc_into, impl=impl)
+
+    def h_call(i, impl=None):
+        lo, hi = spans[i]
+        return so.histogram(act[lo:hi], a, weights=start_b[lo:hi], into=h_into,
+                            impl=impl)
+
+    for name, call, nbytes, lib_row in (
+            ("pair_count", pc_call, 9 * e + 8 * a * a, rows["pair_count/chunk"]),
+            ("histogram", h_call, 5 * e + 8 * a, rows["histogram/chunk"])):
+        rows[f"{name}/main_call"] = {
+            "E": e, "bins": a * a if name == "pair_count" else a,
+            "weights": "bool", "into": True,
+            "ms": time_ms(torch, call, k),
+            "graph_ms": graph_ms(torch, lambda call=call: [call(i) for i in range(k)], k),
+            "plain_ms": time_ms(torch, lambda i, call=call: call(i, "ref"), k),
+            # index_add_ takes no bool source: int32 weights, no into
+            "library_ms": lib_row["library_ms"],
+            "library_graph_ms": lib_row["library_graph_ms"],
+            **graph_nodes(torch, lambda call=call: call(0)),
+            **bound(nbytes, e)}
+
+    # one DFG update: adjacent, the three counting calls, the next carry
+    kernel = dfg_kernel(a)
+    chunks = [c for c in ChunkedEventFrame.from_frame(frame_gpu, ROW_GROUP_ROWS)
+              if c.nrows == ROW_GROUP_ROWS]
+    state, carry = kernel.init("cuda")
+
+    def update():
+        return kernel.update(state, carry, chunks[0])
+
+    def rest():
+        return (engine.adjacent(chunks[0], carry),
+                engine.next_row_carry(carry, chunks[0]))
+
+    whole, others = graph_nodes(torch, update), graph_nodes(torch, rest)
+    update_ms = graph_ms(torch, lambda: [kernel.update(state, carry, c)
+                                         for c in chunks], len(chunks))
+    rest_ms = graph_ms(torch, lambda: [(engine.adjacent(c, carry),
+                                        engine.next_row_carry(carry, c))
+                                       for c in chunks], len(chunks))
+    rows["dfg_update/chunk"] = {
+        "E": e, "nodes": whole["nodes"], "nodes_by_type": whole["nodes_by_type"],
+        "counting_nodes": whole["nodes"] - others["nodes"],
+        "graph_ms": update_ms, "counting_graph_ms": update_ms - rest_ms,
+        "ms": time_ms(torch, lambda i: kernel.update(state, carry, chunks[i]),
+                      len(chunks)),
+        "counting_bound_ms": bound(9 * e + 8 * a * a + 2 * (5 * e + 8 * a), 3 * e)["bound_ms"]}
     torch.cuda.synchronize()
-    rows.update(time_stats_kernels(torch, so, engine, frame_gpu, spans))
-    rows.update(time_scan_kernels(torch, so, engine, frame_gpu, spans, ghosts))
     return rows
 
 
@@ -1405,14 +1559,25 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
     # ----------------------------------------------------------------- build
+    counting_only = "--counting" in sys.argv[1:]
     t0 = time.perf_counter()
-    log = _build.build()
+    log = _build.build(("pair_count", "histogram") if counting_only else _build.SOURCES)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {name: {"seconds": v["seconds"], "cached": v["cached"],
                              "ptxas": [ln.strip() for ln in v["ptxas"].splitlines()
                                        if "Used" in ln or "spill" in ln
                                        or "entry function" in ln]}
                       for name, v in log.items()}})
+
+    if counting_only:
+        # the counting kernels' times alone; a copy of this script placed in
+        # another checkout (a parent commit) times that tree's kernels
+        cols, _ = synthetic.generate_numpy(**synthetic.paper_table6_config(1))
+        frame_gpu = EventFrame.from_numpy(
+            {c: cols[c] for c in (CASE, ACTIVITY, TIMESTAMP)}, device="cuda")
+        emit({"phase": "counting_times", "root": str(ROOT), "nvidia_smi": smi,
+              "rows": time_counting(torch, so, engine, frame_gpu)})
+        return 0
 
     # --------------------------------------------------- kernels vs plain
     t0 = time.perf_counter()
@@ -1937,11 +2102,16 @@ def main() -> int:
                    if key in row}}
 
     csrc = "src/repro_torch/kernels/csrc/"
+    main_keys = ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "nodes",
+                 "nodes_by_type", "library_ms", "library_graph_ms")
     emit({"kernels": [
-        entry("pair_count", csrc + "pair_count.cu", PAIR_COUNT_TPU,
-              times["pair_count/chunk"]),
-        entry("histogram", csrc + "histogram.cu", HISTOGRAM_TPU,
-              times["histogram/chunk"]),
+        {**entry("pair_count", csrc + "pair_count.cu", PAIR_COUNT_TPU,
+                 times["pair_count/chunk"]),
+         "main_call": {key: times["pair_count/main_call"][key] for key in main_keys},
+         "dfg_update": times["dfg_update/chunk"]},
+        {**entry("histogram", csrc + "histogram.cu", HISTOGRAM_TPU,
+                 times["histogram/chunk"]),
+         "main_call": {key: times["histogram/main_call"][key] for key in main_keys}},
         {**entry("segment_reduce", csrc + "segment_reduce.cu", SEGMENT_REDUCE_TPU,
                  times["segment_reduce/sum_int32/chunk"]),
          "routes": {label: {key: times[f"segment_reduce/{label}/chunk"][key]

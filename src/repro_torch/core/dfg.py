@@ -110,7 +110,8 @@ def dfg_kernel(num_activities: int, method: str = "auto") -> engine.ChunkKernel:
     log therefore yields counts identical to the whole-log pass.
 
     Each ``update`` makes one ``pair_count`` and two ``histogram`` calls —
-    three kernel launches on a card — and reads nothing back to the host.
+    on a card three kernel launches of two nodes each, the counts added onto
+    the state inside them — and reads nothing back to the host.
     """
     return _dfg_kernel(num_activities, _method_impl(method))
 
@@ -160,12 +161,15 @@ def _dfg_kernel(num_activities: int, impl: str | None) -> engine.ChunkKernel:
 
     def update(state, carry, chunk):
         adj = engine.adjacent(chunk, carry)
-        counts = state.counts + pair_count(adj.prev_act, adj.act, a,
-                                           weights=adj.pair, impl=impl)
-        starts = state.starts + histogram(adj.act, a, weights=adj.is_start,
-                                          impl=hist_impl)
-        ends = state.ends + histogram(adj.prev_act, a, weights=adj.end_prev,
-                                      impl=hist_impl)
+        # each count lands on the state inside the kernel (into=): on a
+        # card one call is the kernel's two nodes, the bool masks read as
+        # they are; integer sums, so bitwise state + counts
+        counts = pair_count(adj.prev_act, adj.act, a, weights=adj.pair,
+                            into=state.counts, impl=impl)
+        starts = histogram(adj.act, a, weights=adj.is_start,
+                           into=state.starts, impl=hist_impl)
+        ends = histogram(adj.prev_act, a, weights=adj.end_prev,
+                         into=state.ends, impl=hist_impl)
         return DFG(counts, starts, ends), engine.next_row_carry(carry, chunk)
 
     def finalize(state, carry):

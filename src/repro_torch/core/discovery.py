@@ -342,7 +342,7 @@ def discovery_kernel(num_activities: int,
 
     def update(state, carry, chunk):
         p2, p1, hit = l2_triple_hits(chunk, carry)
-        l2 = state["l2"] + pair_count(p2, p1, a, weights=hit, impl=impl)
+        l2 = pair_count(p2, p1, a, weights=hit, into=state["l2"], impl=impl)
         dfg_state, ncarry = dk.update(state["dfg"], carry, chunk)
         return ({"dfg": dfg_state, "l2": l2},
                 next_l2_carry(ncarry, carry, chunk))

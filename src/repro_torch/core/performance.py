@@ -54,8 +54,8 @@ def _performance_dfg_kernel(num_activities: int, impl: str | None) -> engine.Chu
         counts, total = state
         adj = engine.adjacent(chunk, carry, need_ts=True)
         dt = torch.where(adj.pair, adj.ts - adj.prev_ts, 0.0)
-        counts = counts + pair_count(adj.prev_act, adj.act, a,
-                                     weights=adj.pair, impl=impl)
+        counts = pair_count(adj.prev_act, adj.act, a, weights=adj.pair,
+                            into=counts, impl=impl)
         # float wait totals are order-sensitive: into= folds each row's dt
         # onto the running state in row order
         total = pair_count(adj.prev_act, adj.act, a, weights=dt, into=total,

@@ -125,8 +125,8 @@ def _activity_counts_kernel(num_activities: int, impl: str | None) -> engine.Chu
                 engine.init_row_carry(device))
 
     def update(state, carry, chunk):
-        state = state + histogram(chunk[ACTIVITY], a,
-                                  weights=chunk.rows_valid(), impl=impl)
+        state = histogram(chunk[ACTIVITY], a, weights=chunk.rows_valid(),
+                          into=state, impl=impl)
         return state, engine.next_row_carry(carry, chunk)
 
     return engine.ChunkKernel(f"activity_counts[{a},{impl or 'auto'}]",
@@ -157,7 +157,7 @@ def _sojourn_times_kernel(num_activities: int, impl: str | None) -> engine.Chunk
         # onto the running state in row order, keeping streaming ==
         # whole-log bitwise (a per-chunk sum added on would regroup them)
         tot = histogram(adj.prev_act, a, weights=dt, into=tot, impl=impl)
-        cnt = cnt + histogram(adj.prev_act, a, weights=adj.pair, impl=impl)
+        cnt = histogram(adj.prev_act, a, weights=adj.pair, into=cnt, impl=impl)
         return (tot, cnt), engine.next_row_carry(carry, chunk)
 
     def finalize(state, carry):

@@ -17,7 +17,9 @@ primitive              paper operation (§5.3/5.4, Table 3)   lowerings
 Dispatch (``core.backend.resolve``): an explicit ``impl=`` wins; otherwise a
 CUDA tensor takes the hand-written kernel and a CPU tensor the plain
 version.  Weights follow the JAX package: ``None`` counts (int32), bool or
-integer weights become int32, float weights float32.
+integer weights count as int32, float weights float32.  The integer
+counting kernels read a bool mask in place and add an int32 ``into``
+themselves, so a call on a card is the kernel and nothing else.
 
 Float accumulation is order-sensitive, and the streaming engine promises
 *bitwise* streaming == whole-log results.  Float weights therefore take the
@@ -53,12 +55,28 @@ def _resolve(device, impl):
     return backend.resolve(device, impl)
 
 
-def _weights(weights, like: torch.Tensor) -> torch.Tensor:
+def _weights(weights, like: torch.Tensor, *, keep_bool: bool = False
+             ) -> torch.Tensor:
+    """int32 counts for ``None``, int32 for bool / integer weights (a bool
+    mask kept as it is when ``keep_bool``: the counting kernels read it in
+    place), float32 for float weights."""
     if weights is None:
         return torch.ones(like.shape, dtype=torch.int32, device=like.device)
+    if keep_bool and weights.dtype == torch.bool:
+        return weights
     if weights.dtype == torch.bool or not weights.is_floating_point():
         return weights.to(torch.int32)
     return weights.to(torch.float32)
+
+
+def _kernel_into(into, shape, device):
+    """``into`` as the counting kernels take it (added inside the kernel):
+    an int32 tensor of the output's shape on the inputs' card; None for any
+    other, which the caller adds afterwards (JAX's ``into + out``)."""
+    if (into is not None and into.dtype == torch.int32
+            and into.device == device and tuple(into.shape) == shape):
+        return into.contiguous()
+    return None
 
 
 def segment_reduce(values: torch.Tensor, segment_ids: torch.Tensor,
@@ -101,18 +119,20 @@ def histogram(values: torch.Tensor, num_bins: int,
     ``weights=None`` counts occurrences (int32); bool/int weights produce
     int32 counts; float weights a float32 accumulation, folded onto
     ``into`` in row order.  ``into`` adds onto an existing (num_bins,)
-    state (it is not modified).
+    state (it is not modified).  On a card a bool mask goes to the kernel
+    as it is and an int32 ``into`` is added inside it.
     """
-    w = _weights(weights, values)
     if _resolve(values.device, impl) == "cuda":
+        w = _weights(weights, values, keep_bool=True)
         v = values.to(torch.int32).contiguous()
         if w.is_floating_point():
             return ordered_histogram_cuda(
                 v, w.contiguous(), num_bins,
                 None if into is None else into.to(torch.float32).contiguous())
-        out = histogram_cuda(v, w.contiguous(), num_bins)
-        return out if into is None else into + out
-    return _ref.histogram_ref(values, num_bins, w, into)
+        k_into = _kernel_into(into, (num_bins,), v.device)
+        out = histogram_cuda(v, w.contiguous(), num_bins, k_into)
+        return out if into is None or k_into is not None else into + out
+    return _ref.histogram_ref(values, num_bins, _weights(weights, values), into)
 
 
 def pair_count(src: torch.Tensor, dst: torch.Tensor, num_src: int,
@@ -124,14 +144,16 @@ def pair_count(src: torch.Tensor, dst: torch.Tensor, num_src: int,
 
     The generalized DFG counter: ``impl`` may also name the one-hot
     ``"matmul"`` formulation (float32 accumulation, exact while every
-    per-cell sum stays < 2^24).  ``into`` adds onto an existing state.
+    per-cell sum stays < 2^24).  ``into`` adds onto an existing state; on a
+    card a bool mask and an int32 ``into`` go to the kernel as they are.
     """
     num_dst = num_src if num_dst is None else num_dst
-    w = _weights(weights, src)
     if impl == "matmul":
-        out = _ref.pair_count_matmul(src, dst, w, num_src, num_dst)
+        out = _ref.pair_count_matmul(src, dst, _weights(weights, src), num_src,
+                                     num_dst)
         return out if into is None else into + out
     if _resolve(src.device, impl) == "cuda":
+        w = _weights(weights, src, keep_bool=True)
         if w.is_floating_point():
             # the row-order fold over the flat key; a pair with either side
             # out of range is dropped first (key -1)
@@ -143,11 +165,13 @@ def pair_count(src: torch.Tensor, dst: torch.Tensor, num_src: int,
                 None if into is None
                 else into.reshape(-1).to(torch.float32).contiguous())
             return flat.reshape(num_src, num_dst)
+        k_into = _kernel_into(into, (num_src, num_dst), src.device)
         out = pair_count_cuda(src.to(torch.int32).contiguous(),
                               dst.to(torch.int32).contiguous(),
-                              w.contiguous(), num_src, num_dst)
-        return out if into is None else into + out
-    return _ref.pair_count_ref(src, dst, w, num_src, num_dst, into)
+                              w.contiguous(), num_src, num_dst, k_into)
+        return out if into is None or k_into is not None else into + out
+    return _ref.pair_count_ref(src, dst, _weights(weights, src), num_src,
+                               num_dst, into)
 
 
 def pair_count_matmul(src, dst, num_src, num_dst=None, weights=None, *,

@@ -2,14 +2,16 @@
 
 The counterpart of the JAX package's ``pair_count_pallas``: the
 generalization of the DFG count to any rectangular (src, dst, weight)
-triple.  The kernel (``kernels/csrc/pair_count.cu``) is a privatized
-shared-memory histogram over the flat key ``src * D + dst`` with int32
-weights and int32 output, so it is exact at any count (integer atomics),
-unlike the TPU's float32 MXU accumulation, which is exact only below 2^24.
+triple.  The kernels (``kernels/csrc/pair_count.cu`` over
+``counting.cuh``) count the flat key ``src * D + dst`` with int32 or bool
+weights into int32 cells, onto an optional int32 ``into``, as
+``histogram_cuda`` counts ids; so they are exact at any count (integer
+sums, wrapping mod 2^32), unlike the TPU's float32 MXU accumulation, which
+is exact only below 2^24.
 
 On a CPU tensor the wrapper takes the plain version (``ref.pair_count_ref``);
-on CUDA tensors it launches the kernel on the current stream or raises.
-``pair_count_cuda.launches`` counts the launches.
+on CUDA tensors it launches the kernels on the current stream or raises.
+``pair_count_cuda.launches`` counts the calls that launched them.
 """
 from __future__ import annotations
 
@@ -18,9 +20,11 @@ import ctypes
 import torch
 
 from .. import _build
+from . import counting
 from .ref import pair_count_ref
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 2
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_int64] * 3
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _launcher():
@@ -32,44 +36,28 @@ def _launcher():
     return lib, fn
 
 
-def check_int32_vectors(what: str, tensors: dict) -> torch.device:
-    """Validate the kernels' inputs: 1-D contiguous int32 of one length on
-    one device.  Returns that device."""
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1:
-        raise ValueError(f"{what}: inputs on different devices {devices}")
-    lengths = {t.shape[0] if t.dim() == 1 else None for t in tensors.values()}
-    if None in lengths or len(lengths) != 1:
-        raise ValueError(f"{what}: inputs must be 1-D of one length, got "
-                         f"{ {k: tuple(t.shape) for k, t in tensors.items()} }")
-    for name, t in tensors.items():
-        if t.dtype != torch.int32:
-            raise TypeError(f"{what}: {name} must be int32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
-    return devices.pop()
-
-
 def pair_count_cuda(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
-                    num_src: int, num_dst: int) -> torch.Tensor:
-    """(num_src, num_dst) int32 weighted pair counts (out-of-range ids dropped).
+                    num_src: int, num_dst: int,
+                    into: torch.Tensor | None = None) -> torch.Tensor:
+    """(num_src, num_dst) int32 weighted pair counts (out-of-range ids
+    dropped), added onto ``into`` when given (``into`` is not modified).
 
-    ``src``, ``dst`` and ``w`` are 1-D contiguous int32 tensors of one length.
+    ``src`` and ``dst`` are 1-D contiguous int32 and ``w`` int32 or bool of
+    their length; ``into`` a contiguous (num_src, num_dst) int32 tensor on
+    their device.
     """
-    device = check_int32_vectors("pair_count", {"src": src, "dst": dst, "w": w})
+    shape = (num_src, num_dst)
+    device = counting.check_inputs("pair_count", {"src": src, "dst": dst}, w,
+                                   into, shape)
     if device.type == "cpu":
-        return pair_count_ref(src, dst, w, num_src, num_dst)
+        return pair_count_ref(src, dst, w.to(torch.int32), num_src, num_dst, into)
     if device.type != "cuda":
         raise ValueError(f"pair_count: unsupported device {device}")
-    out = torch.zeros((num_src, num_dst), dtype=torch.int32, device=device)
-    n = src.shape[0]
-    if n == 0 or out.numel() == 0:
-        return out
+    if src.shape[0] == 0 or num_src * num_dst == 0:
+        return (torch.zeros(shape, dtype=torch.int32, device=device)
+                if into is None else into.clone())
     lib, fn = _launcher()
-    with torch.cuda.device(device):
-        err = fn(src.data_ptr(), dst.data_ptr(), w.data_ptr(), n, num_src,
-                 num_dst, out.data_ptr(), _build.stream_of(out))
-    _build.check(lib, err, "pair_count")
+    out = counting.launch(lib, fn, "pair_count", (src, dst), w, shape, into)
     pair_count_cuda.launches += 1
     return out
 

@@ -50,33 +50,128 @@ def _weights(gen, n, device, signed):
                          dtype=torch.int32)
 
 
+def _count_inputs(gen, e, ids_hi, nbins, device):
+    """The counting kernels' input variants: (what, ids, weights, into) with
+    0/1, signed and bool weights, into absent and given, each with every
+    column sliced one row in (off a 16-byte boundary) or not."""
+    for kind in ("mask", "signed", "bool"):
+        for with_into in (False, True):
+            for offset in (0, 1):
+                ids = [_ids(gen, e + offset, hi, device)[offset:] for hi in ids_hi]
+                if kind == "bool":
+                    w = (torch.rand(e + offset, generator=gen, device=device)
+                         < 0.6)[offset:]
+                else:
+                    w = _weights(gen, e + offset, device, kind == "signed")[offset:]
+                into = (torch.randint(-2**31, 2**31 - 1, nbins, generator=gen,
+                                      device=device, dtype=torch.int32)
+                        if with_into else None)
+                yield f"{kind} into={with_into} offset={offset}", ids, w, into
+
+
+def _poison_counting(device, nbins, tensors):
+    """Fill freed blocks of the sizes of a counting call's output and
+    partials with 0x5A (both held at once, so each allocation finds one):
+    a bin the kernels leave unwritten then shows."""
+    from repro_torch.kernels.segment_ops import counting
+
+    sizes = [4 * nbins]
+    if counting.shared_route(nbins) and tensors[0].shape[0]:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = counting.count_plan(tensors[0].shape[0], nbins, sms,
+                                   counting.head_rows(*tensors))
+        sizes.append(4 * nbins * plan.grid)
+    blocks = [torch.empty(nb, dtype=torch.uint8, device=device).fill_(0x5A)
+              for nb in sizes]
+    del blocks
+
+
 @pytest.mark.parametrize("a", SIZES)
 @pytest.mark.parametrize("e", [0, 1, 511, 524_288])
 def test_pair_count_kernel_equals_plain(cuda, a, e):
+    """Bitwise the plain version with 0/1, signed and bool weights, into
+    absent and given, aligned and misaligned columns; the output and the
+    partials' blocks were filled with 0x5A first, so a cell the kernels
+    leave unwritten shows."""
     from repro_torch.kernels import segment_ops as so
 
     gen = torch.Generator(device=cuda).manual_seed(a * 7919 + e)
-    for signed in (False, True):
-        src, dst = _ids(gen, e, a, cuda), _ids(gen, e, a, cuda)
-        w = _weights(gen, e, cuda, signed)
+    for what, (src, dst), w, into in _count_inputs(gen, e, (a, a), (a, a), cuda):
+        _poison_counting(cuda, a * a, (src, dst, w))
         before = so.pair_count_cuda.launches
-        got = so.pair_count_cuda(src, dst, w, a, a)
+        got = so.pair_count_cuda(src, dst, w, a, a, into)
         torch.cuda.synchronize()
-        assert so.pair_count_cuda.launches == before + (1 if e else 0)
-        assert torch.equal(got, so.pair_count_ref(src, dst, w, a, a))
+        assert so.pair_count_cuda.launches == before + (1 if e else 0), what
+        want = so.pair_count_ref(src, dst, w.to(torch.int32), a, a, into)
+        assert torch.equal(got, want), what
 
 
 @pytest.mark.parametrize("b", SIZES + (676, 241 * 241, 242 * 242))
 @pytest.mark.parametrize("e", [0, 1, 511, 524_288])
 def test_histogram_kernel_equals_plain(cuda, b, e):
+    """As the pair-count test: weights, into, misaligned slices, poisoned
+    output and partials; 242^2 bins take the global route."""
     from repro_torch.kernels import segment_ops as so
 
     gen = torch.Generator(device=cuda).manual_seed(b * 104729 + e)
-    for signed in (False, True):
-        v, w = _ids(gen, e, b, cuda), _weights(gen, e, cuda, signed)
-        got = so.histogram_cuda(v, w, b)
+    for what, (v,), w, into in _count_inputs(gen, e, (b,), (b,), cuda):
+        _poison_counting(cuda, b, (v, w))
+        before = so.histogram_cuda.launches
+        got = so.histogram_cuda(v, w, b, into)
         torch.cuda.synchronize()
-        assert torch.equal(got, so.histogram_ref(v, b, w))
+        assert so.histogram_cuda.launches == before + (1 if e else 0), what
+        assert torch.equal(got, so.histogram_ref(v, b, w.to(torch.int32), into)), what
+
+
+def _device_events(fn):
+    """Device events (kernels, fills, copies) of one call of ``fn``, counted
+    by name, from a ``torch.profiler`` trace."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return Counter({e.key: e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA})
+
+
+def test_dfg_update_counts_in_six_kernel_nodes(cuda):
+    """One ``dfg_kernel`` update on a card makes one ``pair_count`` and two
+    ``histogram`` launches, and its counting is exactly 6 device events
+    (``count_rows`` and ``count_finish`` for each call) beyond those of
+    ``engine.adjacent`` and ``next_row_carry``: no cast of a mask, no zero
+    fill and no add of the counts (the parent's 12: cast, fill, kernel and
+    add per call).  The state it returns equals the plain update's."""
+    from repro_torch.core import ChunkedEventFrame, dfg_kernel, engine
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import segment_ops as so
+
+    frame, _ = synthetic.generate(num_cases=20_000, num_activities=26, seed=3,
+                                  device="cpu")
+    chunk = next(iter(ChunkedEventFrame.from_frame(frame, 100_000, device=cuda)))
+    kernel = dfg_kernel(26)
+    state, carry = kernel.init(cuda)
+    state, carry = kernel.update(state, carry, chunk)      # a non-zero state
+    kernel.update(state, carry, chunk)                     # warm-up
+    torch.cuda.synchronize()
+    before = (so.pair_count_cuda.launches, so.histogram_cuda.launches)
+    full = _device_events(lambda: kernel.update(state, carry, chunk))
+    assert (so.pair_count_cuda.launches - before[0],
+            so.histogram_cuda.launches - before[1]) == (1, 2)
+    rest = _device_events(lambda: (engine.adjacent(chunk, carry),
+                                   engine.next_row_carry(carry, chunk)))
+    extra = full - rest
+    assert sum(full.values()) - sum(rest.values()) == 6, (full, rest)
+    assert sum(extra.values()) == 6 and all(
+        "count_rows" in name or "count_finish" in name for name in extra), extra
+    assert sum(c for name, c in extra.items() if "count_rows" in name) == 3
+    got, _ = kernel.update(state, carry, chunk)
+    want, _ = dfg_kernel(26, "segment").update(state, carry, chunk)   # plain
+    for nm in ("counts", "starts", "ends"):
+        assert torch.equal(getattr(got, nm), getattr(want, nm))
 
 
 def test_dfg_count_on_card(cuda):

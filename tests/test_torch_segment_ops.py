@@ -200,6 +200,29 @@ def test_kernel_wrappers_check_inputs():
     with pytest.raises(ValueError):
         tso.histogram_cuda(T(np.arange(6, dtype=np.int32))[::2],
                            T(np.ones(3, np.int32)), 3)
+    # weights: int32 or bool only (float weights take the row-order fold in
+    # ops, wider integers a cast there)
+    for bad in (i32.float(), i32.long(), i32.to(torch.uint8)):
+        with pytest.raises(TypeError):
+            tso.histogram_cuda(i32, bad, 3)
+        with pytest.raises(TypeError):
+            tso.pair_count_cuda(i32, i32, bad, 3, 3)
+    # into: int32, the output's shape, contiguous, on the inputs' device
+    with pytest.raises(TypeError):
+        tso.histogram_cuda(i32, i32, 3, into=torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(TypeError):
+        tso.pair_count_cuda(i32, i32, i32, 3, 3, into=torch.zeros((3, 3)))
+    with pytest.raises(ValueError):
+        tso.histogram_cuda(i32, i32, 3, into=torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        tso.pair_count_cuda(i32, i32, i32, 3, 3,
+                            into=torch.zeros(9, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        tso.pair_count_cuda(i32, i32, i32, 3, 3,
+                            into=torch.zeros((3, 3), dtype=torch.int32).T)
+    with pytest.raises(ValueError):
+        tso.histogram_cuda(i32, i32, 3,
+                           into=torch.zeros(3, dtype=torch.int32, device="meta"))
 
 
 # ------------------------------------------------------ segment_reduce
@@ -594,3 +617,212 @@ def test_segment_reduce_float_sums_take_the_row_order_fold(monkeypatch, dtype):
     tso.segment_reduce(T(vals), T(srt), 40, "sum", impl="cuda")
     tso.segment_reduce(T(vals), T(srt), 40, "max")
     assert calls == ["segment_reduce_cuda"] * 3
+
+
+# ------------------------------- the counting kernels' plan, replayed
+def _replay_counting(keys, w, num_bins, into, plan):
+    """``count_rows`` then ``count_finish`` as the plan lays them out: block
+    g adds the rows of its ``per_block`` 4-row groups (and block 0 the head
+    and tail rows) into its bins, stored as ``partials[g, b]``; then each
+    bin is ``into[b] + sum_g partials[g, b]``, wrapped to int32.  Also
+    returns how many blocks read each row (every row exactly once)."""
+    n = keys.shape[0]
+    ok = (keys >= 0) & (keys < num_bins) & (w != 0)
+    partials = np.zeros((plan.grid, num_bins), np.int64)
+    reads = np.zeros(n, np.int64)
+    edge = np.r_[0:plan.head, plan.head + 4 * plan.groups:n]
+    for g in range(plan.grid):
+        g0 = g * plan.per_block
+        g1 = min(plan.groups, g0 + plan.per_block)
+        rows = np.arange(plan.head + 4 * g0, plan.head + 4 * max(g0, g1))
+        if g == 0:
+            rows = np.concatenate([rows, edge])
+        reads[rows] += 1
+        r = rows[ok[rows]]
+        np.add.at(partials[g], keys[r], w[r].astype(np.int64))
+    out = partials.sum(0) + (0 if into is None else into.astype(np.int64))
+    wrapped = ((out + 2**31) % 2**32 - 2**31).astype(np.int32)
+    return wrapped, reads
+
+
+COUNT_CASES = [  # (kind, bins or (S, D), n, sms)
+    ("histogram", 1, 5001, 3), ("histogram", 26, 20_003, 2),
+    ("histogram", 26, 1, 132), ("histogram", 26, 0, 132),
+    ("histogram", 676, 9_999, 4), ("pair_count", (3, 200), 7_777, 2),
+    ("pair_count", (26, 26), 20_001, 2), ("pair_count", (26, 26), 6, 132)]
+
+
+@pytest.mark.parametrize("case", COUNT_CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+@pytest.mark.parametrize("wkind", ["bool", "signed"])
+@pytest.mark.parametrize("with_into", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_counting_plan_replays_pallas_and_xla(case, wkind, with_into, offset):
+    """The counting kernels' plan (``counting.count_plan``), replayed on the
+    CPU at the wrapper's grid and head for a card of ``sms`` SMs:
+    every row is read by exactly one block, and the per-block partials plus
+    the finishing sum onto ``into`` give the JAX package's Pallas kernel
+    (interpret mode) and XLA reference bitwise; bool and signed int32
+    weights, ids of -1 and past the bound, sizes no multiple of 4 or of a
+    block's share, and a slice that starts off a 16-byte boundary."""
+    from repro_torch.kernels.segment_ops import counting
+
+    kind, bins, n, sms = case
+    s, d = (bins, 1) if kind == "histogram" else bins
+    nb = s * d
+    gen = np.random.default_rng(nb + n + offset)
+    src = gen.integers(-1, s + 2, n + offset).astype(np.int32)
+    dst = gen.integers(-1, d + 2, n + offset).astype(np.int32)
+    w = (gen.random(n + offset) < 0.6 if wkind == "bool"
+         else gen.integers(-3, 4, n + offset).astype(np.int32))
+    into = gen.integers(-2**31, 2**31 - 1, nb).astype(np.int32) if with_into else None
+    # the tensors the wrapper sees: slices starting ``offset`` rows in
+    ts, td, tw = (T(x)[offset:] for x in (src, dst, w))
+    src, dst, w = src[offset:], dst[offset:], w[offset:]
+    ids = (ts,) if kind == "histogram" else (ts, td)
+    head = counting.head_rows(*ids, tw)
+    assert head == (4 - offset) % 4 or n == 0        # an empty slice: no launch
+    plan = counting.count_plan(n, nb, sms, head)
+    assert counting.shared_route(nb) and plan.vec
+    assert plan.head == min(head, n) and plan.tail < 4 or n < 4
+    assert 1 <= plan.grid <= 2 * sms
+    keys = (src if kind == "histogram"
+            else np.where((src >= 0) & (src < s) & (dst >= 0) & (dst < d),
+                          src * d + dst, -1))
+    got, reads = _replay_counting(keys, w.astype(np.int32), nb, into, plan)
+    np.testing.assert_array_equal(reads, np.ones(n, np.int64))
+    jw = jnp.asarray(w)
+    jinto = None if into is None else jnp.asarray(into if kind == "histogram"
+                                                   else into.reshape(s, d))
+    wi = jnp.asarray(w.astype(np.int32))
+    if kind == "histogram":
+        pallas = _np(jso.histogram_pallas(jnp.asarray(src), wi, nb, block_e=256,
+                                          interpret=True))
+        xla = _np(jso.histogram(jnp.asarray(src), nb, jw, into=jinto, impl="xla"))
+    else:
+        pallas = _np(jso.pair_count_pallas(
+            jnp.asarray(src), jnp.asarray(dst), wi.astype(jnp.float32), s, d,
+            block_e=256, interpret=True)).astype(np.int32).reshape(-1)
+        xla = _np(jso.pair_count(jnp.asarray(src), jnp.asarray(dst), s, d, jw,
+                                 into=jinto, impl="xla")).reshape(-1)
+    if into is not None:
+        pallas = (pallas.astype(np.int64) + into).astype(np.int64)
+        pallas = ((pallas + 2**31) % 2**32 - 2**31).astype(np.int32)
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, xla)
+    # the wrapper on these CPU tensors (its plain version) agrees too
+    tinto = None if into is None else T(into).reshape((s,) if kind == "histogram" else (s, d))
+    if kind == "histogram":
+        wrapped = tso.histogram_cuda(ts, tw, nb, tinto)
+    else:
+        wrapped = tso.pair_count_cuda(ts, td, tw, s, d, tinto)
+    np.testing.assert_array_equal(wrapped.numpy().reshape(-1), xla)
+
+
+@pytest.mark.parametrize("n,sms", [(0, 132), (3, 132), (524_288, 132),
+                                   (7_003_349, 132), (10_000, 1)])
+@pytest.mark.parametrize("bins", [1, 26, 676, 241 * 241])
+def test_counting_plan_geometry(n, sms, bins):
+    """The grid covers the 4-row groups once at about one group a thread, at
+    most two blocks an SM while two blocks' bins fit an SM's shared memory;
+    misaligned inputs read every group as scalars; 242^2 bins take the
+    global route."""
+    from repro_torch.kernels.segment_ops import counting
+
+    for head in (0, 3, None):
+        p = counting.count_plan(n, bins, sms, head)
+        assert p.vec == (head is not None)
+        assert p.head + 4 * p.groups + p.tail == n and 0 <= p.tail < 4
+        assert p.grid * p.per_block >= p.groups > (p.grid - 1) * p.per_block or p.groups == 0
+        two = 4 * bins <= counting.SHARED_BYTES // 2 - 1024
+        assert p.grid <= (2 if two else 1) * sms
+        assert p.grid == max(1, min(-(-p.groups // counting.THREADS), (2 if two else 1) * sms))
+    assert counting.shared_route(241 * 241) and not counting.shared_route(242 * 242)
+
+
+def test_ops_pass_bool_masks_and_int32_into_to_the_kernels(monkeypatch):
+    """With the kernels chosen (``backend.resolve`` forced to ``"cuda"``),
+    ``ops.histogram`` / ``ops.pair_count`` hand a bool mask and an int32
+    ``into`` to the kernels' wrappers as they are (no cast, no add after),
+    while an int64 ``into`` still takes JAX's ``into + out`` (int64); the
+    wrappers run their plain versions on these CPU tensors, and every result
+    equals the JAX package's ``ops`` bitwise."""
+    monkeypatch.setattr(backend, "resolve", lambda device, impl=None: "cuda")
+    calls = []
+    for name in ("histogram_cuda", "pair_count_cuda"):
+        real = getattr(tso.ops, name)
+        monkeypatch.setattr(tso.ops, name,
+                            lambda *a, _real=real, _name=name: calls.append((_name, a))
+                            or _real(*a))
+    gen = np.random.default_rng(19)
+    n, a = 5000, 26
+    src = gen.integers(-1, a + 1, n).astype(np.int32)
+    dst = gen.integers(-1, a + 1, n).astype(np.int32)
+    mask = gen.random(n) < 0.6
+    h_into = gen.integers(0, 1000, a).astype(np.int32)
+    p_into = gen.integers(0, 1000, (a, a)).astype(np.int32)
+    tmask = T(mask)
+    for into_np, dtype in ((h_into, np.int32), (h_into, np.int64), (None, None)):
+        tinto = None if into_np is None else T(into_np.astype(dtype))
+        jinto = None if into_np is None else jnp.asarray(into_np.astype(dtype))
+        got = tso.histogram(T(src), a, tmask, into=tinto)
+        want = _np(jso.histogram(jnp.asarray(src), a, jnp.asarray(mask), into=jinto,
+                                 impl="xla"))
+        assert got.dtype == (torch.int64 if dtype == np.int64 else torch.int32)
+        np.testing.assert_array_equal(got.numpy(), want)
+        (name, args), = calls
+        calls.clear()
+        assert name == "histogram_cuda" and args[1] is tmask      # uncast
+        assert args[3] is (tinto if dtype == np.int32 else None)
+    for into_np, dtype in ((p_into, np.int32), (p_into, np.int64), (None, None)):
+        tinto = None if into_np is None else T(into_np.astype(dtype))
+        jinto = None if into_np is None else jnp.asarray(into_np.astype(dtype))
+        got = tso.pair_count(T(src), T(dst), a, weights=tmask, into=tinto)
+        want = _np(jso.pair_count(jnp.asarray(src), jnp.asarray(dst), a,
+                                  weights=jnp.asarray(mask), into=jinto, impl="xla"))
+        assert got.dtype == (torch.int64 if dtype == np.int64 else torch.int32)
+        np.testing.assert_array_equal(got.numpy(), want)
+        (name, args), = calls
+        calls.clear()
+        assert name == "pair_count_cuda" and args[2] is tmask
+        assert args[5] is (tinto if dtype == np.int32 else None)
+    # int8 weights still become int32 (JAX's astype), counts unchanged
+    w8 = gen.integers(-3, 4, n).astype(np.int8)
+    got = tso.histogram(T(src), a, T(w8), into=T(h_into))
+    (name, args), = calls
+    assert args[1].dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _np(jso.histogram(
+        jnp.asarray(src), a, jnp.asarray(w8), into=jnp.asarray(h_into), impl="xla")))
+
+
+def test_dfg_update_hands_the_state_to_the_kernels(monkeypatch):
+    """``dfg_kernel``'s update passes each bool mask and its int32 state to
+    the counting kernels as ``into`` (three calls, no add after them), and a
+    streamed DFG through that path equals the JAX package's bitwise."""
+    import importlib
+
+    from repro_torch.core import ChunkedEventFrame, run_streaming
+    from repro_torch.data import synthetic
+
+    dfg_mod = importlib.import_module("repro_torch.core.dfg")
+    monkeypatch.setattr(backend, "resolve", lambda device, impl=None: "cuda")
+    calls = []
+    for name in ("histogram_cuda", "pair_count_cuda"):
+        real = getattr(tso.ops, name)
+        monkeypatch.setattr(tso.ops, name,
+                            lambda *a, _real=real, _name=name: calls.append((_name, a))
+                            or _real(*a))
+    frame, _ = synthetic.generate(num_cases=300, num_activities=9, seed=4, device="cpu")
+    dfg_mod._dfg_kernel.cache_clear()
+    try:
+        got = run_streaming(dfg_mod.dfg_kernel(9), ChunkedEventFrame.from_frame(frame, 257))
+    finally:
+        dfg_mod._dfg_kernel.cache_clear()
+    chunks = -(-frame.nrows // 257)
+    assert [c[0] for c in calls] == ["pair_count_cuda", "histogram_cuda",
+                                     "histogram_cuda"] * chunks
+    for name, args in calls:
+        w, into = (args[2], args[5]) if name == "pair_count_cuda" else (args[1], args[3])
+        assert w.dtype == torch.bool and into is not None and into.dtype == torch.int32
+    want = dfg_mod.dfg(frame, 9)
+    for nm in ("counts", "starts", "ends"):
+        assert torch.equal(getattr(got, nm), getattr(want, nm))
