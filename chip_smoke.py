@@ -38,9 +38,10 @@ streamed from disk onto the card, and the EventLM serving path:
   EFG pairs counted by position offset over equal-length cases), plus the
   remaining-time targets against ``np.maximum.reduceat``.
 * ``graph_path`` — the timed process graph (``graph_kernel(26,
-  timed=True)``, 28 nodes) and its queries on the semiring kernel:
-  reachability (full and k = 3), bottleneck paths over frequency and
-  performance weights, node centrality; and the registered graph verbs
+  timed=True)``, 28 nodes) and its queries on the semiring kernels:
+  reachability (full and k = 3) and bottleneck paths over frequency and
+  performance weights, each closure one launch of the closure kernel, and
+  node centrality's 16 products; and the registered graph verbs
   streamed through ``kernel_spec(...).make``.  Reachability and the
   frequency-weighted paths equal numpy BFS / Floyd–Warshall oracles
   bitwise; the performance-weighted paths equal the CPU plain stream
@@ -68,8 +69,14 @@ after, and must show its kernels.
 ``python3 chip_smoke.py --counting`` builds only the two counting kernels,
 prints their times (``time_counting``: the int32 yardstick rows, the DFG
 update's own calls with a bool mask and ``into``, one whole update) and
-stops, without the ``ok`` line.  A copy of this script placed at the root of
-another checkout (a parent commit unpacked with ``git archive``) times that
+stops, without the ``ok`` line.  ``python3 chip_smoke.py --semiring`` builds
+only ``semiring``, holds the product and closure kernels against their
+plain versions (``check_semiring``), times the products, the closures at
+N = 28 (the L1 graph, from numpy) and the JAX graph benchmark's 48 and 128,
+the closure kernel against the loop of products up to its capacity, and
+the L1 graph's five queries (``time_semiring_kernels``), and stops, without
+the ``ok`` line.  A copy of this script placed at the root of another
+checkout (a parent commit unpacked with ``git archive``) times that
 checkout's kernels with the same code.
 
 Every line of standard output is one JSON object; the last one is
@@ -95,6 +102,17 @@ SEED = 1
 # 32-bit rate (the counting kernels do one integer add per event)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# SIMT issue on the whole card, in slots of a 32-bit float add / multiply /
+# multiply-add, 128 results a clock an SM (CUDA C++ Programming Guide, the
+# throughput table of native arithmetic instructions, compute capability
+# 9.0) x 132 SMs x 1.98 GHz: the rate at which 67e12 counts an FFMA as two
+# operations. The same table gives compare / minimum / maximum and 32-bit
+# bitwise AND / OR 64 results a clock an SM, two slots each. So a semiring
+# candidate costs: plus_times one FFMA (1 slot), min_plus an FADD and an
+# FMNMX (1 + 2), max_min two FMNMX (2 + 2).
+SIMT_SLOTS_PER_S = SCALAR_OPS_PER_S / 2
+CANDIDATE_SLOTS = {"plus_times": 1, "min_plus": 3, "max_min": 4}
+OR_SLOTS = 2
 # the same data sheet: dense bf16 and TF32 tensor-core rates (attention's
 # products; the float32 route runs each as three TF32 products)
 BF16_TENSOR_OPS_PER_S = 989e12
@@ -112,13 +130,24 @@ SCAN_TPU = "src/repro/kernels/segment_ops/segmented_scan.py:"
 POLYHASH_TPU, AFFINE_TPU, SUM_SCAN_TPU = (SCAN_TPU + "135", SCAN_TPU + "172",
                                           SCAN_TPU + "213")
 SEMIRING_TPU = "src/repro/kernels/graph_ops/semiring.py:103"
+# no Pallas kernel: the JAX package's closure loops over semiring_matmul_pallas
+CLOSURE_TPU = ("none: the closure loops over semiring_matmul_pallas, "
+               "src/repro/kernels/graph_ops/ops.py:78-124")
 FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:121"
 # no Pallas kernel: the JAX package's row-order XLA scatter
 ORDERED_FOLD_TPU = "none: XLA scatter, src/repro/kernels/segment_ops/ref.py:58"
 KERNELS = ("pair_count", "histogram", "segment_reduce", "ordered_histogram",
            "segmented_polyhash", "segmented_affine", "segmented_sum_scan",
-           "semiring_matmul", "flash_attention")
+           "semiring_matmul", "semiring_closure", "flash_attention")
 SEMIRINGS = ("plus_times", "min_plus", "max_min")
+# the closures: the L1 graph's 28 nodes, the JAX graph benchmark's sweep
+# (benchmarks/bench_graph.py:93, density 0.25), and more sizes up to the
+# closure kernel's capacity to place the crossover with the loop
+CLOSURE_SIZES = (28, 48, 128)
+CLOSURE_SWEEP = (28, 48, 64, 80, 96, 112, 128, 168)
+# (kind, k) of the closures the graph queries run: reachability's k = N - 1
+# and k = 3, the full boolean closure, shortest and widest paths
+CLOSURE_CASES = (("bool", None), ("bool", 3), ("min_plus", None), ("max_min", None))
 # (M, K, N) of the semiring sweep: centrality's matvec and a squaring of
 # the 28-node L1 graph, ragged tiles, and the 384-node graph of the JAX
 # package's graph benchmark
@@ -157,7 +186,7 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: int, ops: int, ops_per_s: float = SCALAR_OPS_PER_S) -> dict:
+def bound(nbytes: int, ops: float, ops_per_s: float = SCALAR_OPS_PER_S) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -195,7 +224,8 @@ def wrappers() -> dict:
     """Each kernel's wrapper, the function that counts its launches."""
     from repro_torch.kernels import flash_attention, graph_ops, segment_ops
 
-    home = {"semiring_matmul": graph_ops, "flash_attention": flash_attention}
+    home = {"semiring_matmul": graph_ops, "semiring_closure": graph_ops,
+            "flash_attention": flash_attention}
     return {name: getattr(home.get(name, segment_ops), name + "_cuda")
             for name in KERNELS}
 
@@ -260,6 +290,30 @@ def graph_ms(torch, fn, launches: int, replays: int = 50) -> float:
     return start.elapsed_time(end) / replays / launches
 
 
+def recorder(torch, out: dict):
+    """``record(name, got, want, what)``: hold a kernel's result against its
+    plain version, raw with ``torch.equal`` (equal infinities are equal, a
+    NaN is not; ``equal_nan=True`` compares NaN positions instead), and keep
+    the largest error where both sides are finite in ``out[name]``."""
+    def record(name, got, want, what, equal_nan=False):
+        got, want = got.cpu(), want.cpu()
+        diff = (got.double() - want.double()).abs()
+        if got.is_floating_point() and want.is_floating_point():
+            diff = diff[torch.isfinite(got) & torch.isfinite(want)]
+        err = float(diff.max()) if diff.numel() else 0.0
+        out[name]["cases"] += 1
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        same = got.dtype == want.dtype and torch.equal(got, want)
+        if equal_nan and not same and got.dtype == want.dtype:
+            nan = torch.isnan(got)
+            same = (torch.equal(nan, torch.isnan(want))
+                    and torch.equal(got[~nan], want[~nan]))
+        if not same:
+            raise AssertionError(f"{name} kernel != plain version at {what}: "
+                                 f"max abs err {err}")
+    return record
+
+
 def check_kernels(torch, so) -> dict:
     """Each kernel against its plain version, bitwise, over the shape sweep.
 
@@ -307,20 +361,7 @@ def check_kernels(torch, so) -> dict:
 
     sizes_e = (0, 1, 511, 524_288, 7_000_000)
     out = {name: {"cases": 0, "max_abs_err": 0.0} for name in KERNELS}
-
-    def record(name, got, want, what):
-        # held raw with torch.equal (equal infinities are equal, a NaN is
-        # not); the printed error is taken where both sides are finite
-        got, want = got.cpu(), want.cpu()
-        diff = (got.double() - want.double()).abs()
-        if got.is_floating_point() and want.is_floating_point():
-            diff = diff[torch.isfinite(got) & torch.isfinite(want)]
-        err = float(diff.max()) if diff.numel() else 0.0
-        out[name]["cases"] += 1
-        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
-        if got.dtype != want.dtype or not torch.equal(got, want):
-            raise AssertionError(f"{name} kernel != plain version at {what}: "
-                                 f"max abs err {err}")
+    record = recorder(torch, out)
 
     from repro_torch.kernels.segment_ops import counting
 
@@ -489,14 +530,42 @@ def check_flash(torch, out) -> None:
                      f"CUDA-graph replay D={d} kv_len={n} {dtype}")
 
 
+def bench_graph(n: int, density: float = 0.25, seed: int | None = None):
+    """The JAX graph benchmark's random graph (``benchmarks/bench_graph.py:
+    81``): 0/1 adjacency without self-loops, integer frequencies 1..999 as
+    capacities (-inf elsewhere) and costs (+inf elsewhere), float32 numpy."""
+    rng = np.random.default_rng(n if seed is None else seed)
+    adj = rng.random((n, n)) < density
+    np.fill_diagonal(adj, False)
+    freq = np.where(adj, rng.integers(1, 1000, (n, n)), 0).astype(np.float32)
+    return (adj, np.where(adj, freq, -np.inf).astype(np.float32),
+            np.where(adj, freq, np.inf).astype(np.float32))
+
+
+def closure(go, kind: str, x, k=None, impl=None):
+    """The public closure of ``kind`` (``impl`` passed only when given, so a
+    parent tree without it runs the same code)."""
+    kw = {} if impl is None else {"impl": impl}
+    if kind == "bool":
+        return go.bool_closure(x, k, **kw)
+    fn = go.minplus_closure if kind == "min_plus" else go.maxmin_closure
+    return fn(x, **kw)
+
+
 def check_semiring(torch, gen, record, out) -> None:
-    """The semiring kernel against its plain version on the card, for the
-    three semirings at ``SEMIRING_SHAPES``.  Integer-valued operands with
-    the graph queries' holes (+inf for min_plus, -inf for max_min) must
-    match bitwise: tropical candidates are single operations reduced by
-    min / max, and integer sums below 2^24 are exact in any order.  Random
-    float ``plus_times`` operands are held within the rounding bound of two
-    float32 dot products, 2 * K * 2^-24 * (|A| @ |B|)."""
+    """The semiring kernels against their plain versions on the card.
+
+    Products, for the three semirings at ``SEMIRING_SHAPES``: integer-valued
+    operands with the graph queries' holes (+inf for min_plus, -inf for
+    max_min) must match bitwise (tropical candidates are single operations
+    reduced by min / max, integer sums below 2^24 are exact in any order);
+    random float ``plus_times`` operands within the rounding bound of two
+    float32 dot products, 2 * K * 2^-24 * (|A| @ |B|).  Closures, against
+    the loop of plain products (``impl="ref"``), bitwise: the JAX graph
+    benchmark's graphs at N = 28, 48, 128, ``CLOSURE_MAX_N`` and the
+    kernel's capacity, with integer weights, with non-integer weights, and
+    with NaN in two places (NaN positions equal); boolean at k = None, 3 and
+    N - 1."""
     from repro_torch.kernels import graph_ops as go
 
     if torch.backends.cuda.matmul.allow_tf32:
@@ -528,6 +597,23 @@ def check_semiring(torch, gen, record, out) -> None:
         if not bool((diff <= limit).all()):
             raise AssertionError(f"semiring_matmul plus_times at M={m} K={k} "
                                  f"N={n}: beyond the rounding bound")
+    sizes = sorted({28, 48, 128, go.CLOSURE_MAX_N, go.CLOSURE_CAPACITY})
+    for n in sizes:
+        adj_np, cap_np, cost_np = bench_graph(n)
+        adj = torch.from_numpy(adj_np).to(dev)
+        for k in (None, 3, n - 1):
+            record("semiring_closure", go.semiring_closure_cuda(adj, "bool", k),
+                   closure(go, "bool", adj, k, impl="ref"), f"N={n} bool k={k}")
+        for kind, w_np in (("min_plus", cost_np), ("max_min", cap_np)):
+            w = torch.from_numpy(w_np).to(dev)
+            frac = torch.where(torch.isfinite(w), w / 7.0, w)      # non-integer
+            nan = frac.clone()
+            nan[torch.randint(0, n, (2,), generator=gen, device=dev),
+                torch.randint(0, n, (2,), generator=gen, device=dev)] = float("nan")
+            for label, x in (("integer", w), ("non-integer", frac), ("nan", nan)):
+                record("semiring_closure", go.semiring_closure_cuda(x, kind),
+                       closure(go, kind, x, impl="ref"), f"N={n} {kind} {label}",
+                       equal_nan=label == "nan")
 
 
 def scan_starts(torch, gen, n: int, runs: str, flag0: bool):
@@ -1277,8 +1363,37 @@ def graph_queries(tgraph, g) -> dict:
             "node_centrality": lambda: tgraph.node_centrality(g)}
 
 
+def closure_bound(torch, go, kind: str, x, k=None) -> dict:
+    """The least time of one closure on the whole card: its input read and
+    its result written once, against the SIMT issue slots the closure loop's
+    schedule needs on these inputs (``closure_plan``, replayed with plain
+    products): N^3 tropical candidates a squaring; a boolean product one OR
+    of a row of words for each set bit of the other operand's rows."""
+    n = x.shape[0]
+    if kind != "bool":
+        squarings = len(go.closure_plan(n)[1])
+        return bound(8 * n * n, CANDIDATE_SLOTS[kind] * squarings * float(n) ** 3,
+                     SIMT_SLOTS_PER_S)
+    from_seed, steps = go.closure_plan(n, k)
+    seed = torch.eye(n, dtype=torch.bool, device=x.device) | x.to(torch.bool)
+    acc = seed if from_seed else torch.eye(n, dtype=torch.bool, device=x.device)
+    sq, words, ors = seed, -(-n // 32), 0
+
+    def times(p, q):
+        return go.semiring_matmul_ref(p.float(), q.float(), "plus_times") > 0
+
+    for op in steps:
+        lhs = sq if op == 2 else acc
+        ors += int(lhs.sum()) * words
+        if op == 2:
+            sq = times(sq, sq)
+        else:
+            acc = times(acc, acc if op == 0 else sq)
+    return bound(2 * n * n, OR_SLOTS * float(ors), SIMT_SLOTS_PER_S)
+
+
 def time_semiring_kernels(torch, g) -> dict:
-    """The semiring kernel at the graph path's shapes, on the L1 graph's own
+    """The semiring kernels at the graph path's shapes, on the L1 graph's own
     operands: a squaring of the 28-node closures' seeds (the reflexive 0/1
     adjacency for plus_times, hop costs for min_plus, frequency capacities
     for max_min) and the (1, 28) row by (28, 28) product (centrality's
@@ -1287,7 +1402,18 @@ def time_semiring_kernels(torch, g) -> dict:
     benchmark's 384 nodes (density 0.5).  ``library_ms`` (and
     ``library_graph_ms``, replayed from a CUDA graph) is one
     ``torch.matmul`` (cuBLAS, full float32) for plus_times; no PyTorch call
-    computes a tropical product."""
+    computes a tropical product.  Operation bounds count SIMT issue slots
+    (``CANDIDATE_SLOTS``).
+
+    Closures, through the public functions (``CLOSURE_CASES``): the L1
+    graph's (28 nodes, plus shortest paths over its performance weights)
+    and the JAX graph benchmark's at 48 and 128 nodes, host-included
+    (``ms``) and graph-replayed (``graph_ms``), with the launches and device
+    nodes one call makes, beside the loop of plain products (``plain_ms``;
+    trees with ``impl=``); no PyTorch call computes a closure.  Then
+    (trees with the closure kernel) the kernel against the loop of tiled
+    products at ``CLOSURE_SWEEP``, host-included, and the largest N at
+    which the kernel is no slower for every kind."""
     from repro_torch.kernels import graph_ops as go
 
     if torch.backends.cuda.matmul.allow_tf32:
@@ -1326,15 +1452,115 @@ def time_semiring_kernels(torch, g) -> dict:
                    "plain_ms": time_ms(torch, lambda i, a=a, b=b, s=semiring:
                                        go.semiring_matmul_ref(a, b, s), 1, iters=50),
                    "library_ms": None,
-                   **bound(4 * (m * k + k * nn + m * nn), 2 * m * nn * k)}
+                   **bound(4 * (m * k + k * nn + m * nn),
+                           CANDIDATE_SLOTS[semiring] * m * nn * k, SIMT_SLOTS_PER_S)}
             if semiring == "plus_times":
                 lib = (lambda a=a, b=b: torch.matmul(a, b))
                 row["library_ms"] = time_ms(torch, lambda i: lib(), 1)
                 row["library_graph_ms"] = graph_ms(
                     torch, lambda: [lib() for _ in range(20)], 20)
             out[f"semiring_matmul/{semiring}/{shape}"] = row
+
+    kern = getattr(go, "semiring_closure_cuda", None)
+    has_kernel = kern is not None
+
+    def counts():
+        return (kern.launches if has_kernel else 0, go.semiring_matmul_cuda.launches)
+
+    graphs = {n: {"bool": adj, "min_plus": torch.where(adj, 1.0, float("inf")),
+                  "max_min": torch.where(adj, f, float("-inf")),
+                  "min_plus_perf": torch.where(adj, g.perf, float("inf"))}}
+    for size in CLOSURE_SIZES[1:]:
+        a_np, cap_np, cost_np = bench_graph(size)
+        graphs[size] = {"bool": torch.from_numpy(a_np).cuda(),
+                        "min_plus": torch.from_numpy(cost_np).cuda(),
+                        "max_min": torch.from_numpy(cap_np).cuda()}
+    for size, xs in graphs.items():
+        cases = [(kind, k, kind) for kind, k in CLOSURE_CASES]
+        if size == n:
+            cases += [("bool", n - 1, "bool"), ("min_plus", None, "min_plus_perf")]
+        for kind, k, label in cases:
+            x = xs[label]
+            fn = (lambda kind=kind, x=x, k=k: closure(go, kind, x, k))
+            c0 = counts()
+            fn()
+            c1 = counts()
+            name = label if kind != "bool" else f"bool_k{'None' if k is None else k}"
+            row = {"N": size, "k": k,
+                   "launches": {"closure": c1[0] - c0[0], "products": c1[1] - c0[1]},
+                   "ms": time_ms(torch, lambda i: fn(), 1),
+                   "graph_ms": graph_ms(torch, lambda fn=fn: [fn() for _ in range(20)], 20),
+                   **graph_nodes(torch, fn), "library_ms": None}
+            if has_kernel:
+                row["plain_ms"] = time_ms(torch, lambda i: closure(go, kind, x, k, "ref"),
+                                          1, iters=20)
+                row.update(closure_bound(torch, go, kind, x, k))
+            out[f"semiring_closure/{name}/N{size}"] = row
+    if has_kernel:
+        loop_wins = {}
+        swept = [size for size in CLOSURE_SWEEP if size <= go.CLOSURE_CAPACITY]
+        for size in swept:
+            a_np, cap_np, cost_np = bench_graph(size)
+            for kind, x_np in (("bool", a_np), ("min_plus", cost_np), ("max_min", cap_np)):
+                x = torch.from_numpy(x_np).cuda()
+                k = size - 1 if kind == "bool" else None
+                kern_ms = time_ms(torch, lambda i: go.semiring_closure_cuda(x, kind, k), 1,
+                                  iters=50)
+                loop_ms = time_ms(torch, lambda i: go.ref.closure_loop(
+                    x, kind, k, go.semiring_matmul_cuda), 1, iters=50)
+                out[f"semiring_closure/sweep/{kind}/N{size}"] = {
+                    "N": size, "k": k, "kernel_ms": kern_ms, "loop_ms": loop_ms}
+                if loop_ms < kern_ms:
+                    loop_wins.setdefault(kind, size)
+        smallest = min(loop_wins.values(), default=None)
+        out["semiring_closure/crossover"] = {
+            "CLOSURE_MAX_N": go.CLOSURE_MAX_N,
+            "first_swept_N_where_the_loop_wins": loop_wins,
+            "largest_swept_N_where_the_kernel_wins_every_kind": max(
+                [sz for sz in swept if smallest is None or sz < smallest],
+                default=None)}
     torch.cuda.synchronize()
     return out
+
+
+def time_graph_queries(torch, tgraph, g) -> dict:
+    """Each of the graph path's queries on ``g``: the closure and product
+    launches one call makes, and its finalize time on the host clock,
+    synchronized (the median of 9 calls)."""
+    from repro_torch.kernels import graph_ops as go
+
+    kern = getattr(go, "semiring_closure_cuda", None)
+    out = {}
+    for name, q in graph_queries(tgraph, g).items():
+        q()
+        torch.cuda.synchronize()
+        c0 = (kern.launches if kern else 0, go.semiring_matmul_cuda.launches)
+        q()
+        torch.cuda.synchronize()
+        out[name] = {"closure_launches": (kern.launches if kern else 0) - c0[0],
+                     "product_launches": go.semiring_matmul_cuda.launches - c0[1],
+                     "query_ms": 1e3 * float(np.median([host_s(torch, q)
+                                                        for _ in range(9)]))}
+    return out
+
+
+def l1_graph(torch, tgraph, synthetic, cols_names):
+    """The L1 log's timed process graph from numpy (the DFG and its mean
+    waits, float32 totals folded in row order), on the card: the graph
+    path's graph, without the mining kernels."""
+    case_c, act_c, ts_c = cols_names
+    cols, _ = synthetic.generate_numpy(**synthetic.paper_table6_config(1))
+    case, act, ts = cols[case_c], cols[act_c], cols[ts_c]
+    a = NUM_ACTIVITIES
+    freq = numpy_graph(numpy_dfg(case, act, a), a)
+    same = case[1:] == case[:-1]
+    key = (act[:-1].astype(np.int64) * a + act[1:])[same]
+    total = np.zeros(a * a, np.float32)
+    np.add.at(total, key, (ts[1:] - ts[:-1])[same].astype(np.float32))
+    counts = np.bincount(key, minlength=a * a).astype(np.float32)
+    perf = np.zeros((a + 2, a + 2), np.float32)
+    perf[:a, :a] = (total / np.maximum(counts, 1)).reshape(a, a)
+    return tgraph.ProcessGraph.from_numpy(freq, a, perf, device="cuda")
 
 
 def time_flash_attention(torch) -> dict:
@@ -1560,8 +1786,10 @@ def main() -> int:
 
     # ----------------------------------------------------------------- build
     counting_only = "--counting" in sys.argv[1:]
+    semiring_only = "--semiring" in sys.argv[1:]
     t0 = time.perf_counter()
-    log = _build.build(("pair_count", "histogram") if counting_only else _build.SOURCES)
+    log = _build.build(("pair_count", "histogram") if counting_only
+                       else ("semiring",) if semiring_only else _build.SOURCES)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {name: {"seconds": v["seconds"], "cached": v["cached"],
                              "ptxas": [ln.strip() for ln in v["ptxas"].splitlines()
@@ -1577,6 +1805,27 @@ def main() -> int:
             {c: cols[c] for c in (CASE, ACTIVITY, TIMESTAMP)}, device="cuda")
         emit({"phase": "counting_times", "root": str(ROOT), "nvidia_smi": smi,
               "rows": time_counting(torch, so, engine, frame_gpu)})
+        return 0
+
+    if semiring_only:
+        # the semiring kernels alone; a copy of this script placed in another
+        # checkout (a parent commit) times that tree's kernels
+        from repro_torch.kernels import graph_ops as go
+
+        if hasattr(go, "semiring_closure_cuda"):
+            t0 = time.perf_counter()
+            out = {name: {"cases": 0, "max_abs_err": 0.0}
+                   for name in ("semiring_matmul", "semiring_closure")}
+            check_semiring(torch, torch.Generator(device="cuda").manual_seed(SEED),
+                           recorder(torch, out), out)
+            torch.cuda.synchronize()
+            emit({"phase": "semiring_check", "seconds": time.perf_counter() - t0,
+                  "tolerance": "bitwise (closures: NaN positions equal); float "
+                               "plus_times within 2 K 2^-24 (|A| @ |B|)", **out})
+        g = l1_graph(torch, tgraph, synthetic, (CASE, ACTIVITY, TIMESTAMP))
+        emit({"phase": "semiring_times", "root": str(ROOT), "nvidia_smi": smi,
+              "nodes": g.num_nodes, "queries": time_graph_queries(torch, tgraph, g),
+              "rows": time_semiring_kernels(torch, g)})
         return 0
 
     # --------------------------------------------------- kernels vs plain
@@ -1919,11 +2168,16 @@ def main() -> int:
         stream_l = read_launches()
         q_gpu, q_l = {}, {}
         queries = graph_queries(tgraph, g_gpu)
+
+        def semiring_launches():
+            by = read_launches()
+            return {"closure": by["semiring_closure"], "products": by["semiring_matmul"]}
+
         for name, q in queries.items():
-            before = read_launches()["semiring_matmul"]
+            before = semiring_launches()
             q_gpu[name] = q()
             torch.cuda.synchronize()
-            q_l[name] = read_launches()["semiring_matmul"] - before
+            q_l[name] = {key: v - before[key] for key, v in semiring_launches().items()}
         launches["graph_path"] = read_launches()
         g_peak = torch.cuda.max_memory_allocated()
         # finalize time of each query on the host clock, synchronized: the
@@ -1968,9 +2222,14 @@ def main() -> int:
         if not (np.isfinite(sp[src, snk]) and sp[src, snk] >= 0):
             raise AssertionError(f"performance distance source->sink {sp[src, snk]}")
         g_l = launches["graph_path"]
-        need = {"reachability": 5, "reachability_k3": 3, "bottleneck_paths": 10,
-                "bottleneck_paths_performance": 10, "node_centrality": 16}
-        if (any(q_l[k] < v for k, v in need.items())
+        # each closure of the 28-node graph is one closure launch and no
+        # product; centrality's 16 matvecs are products
+        need = {"reachability": {"closure": 1, "products": 0},
+                "reachability_k3": {"closure": 1, "products": 0},
+                "bottleneck_paths": {"closure": 2, "products": 0},
+                "bottleneck_paths_performance": {"closure": 2, "products": 0},
+                "node_centrality": {"closure": 0, "products": 16}}
+        if (q_l != need
                 or stream_l["pair_count"] < chunks or stream_l["histogram"] < 2 * chunks
                 or stream_l["ordered_histogram"] < chunks):
             raise AssertionError(f"graph path did not go through the kernels: "
@@ -1997,21 +2256,24 @@ def main() -> int:
                      "bottleneck_paths", {"weights": "performance"}, s_source),
                  "node_centrality": ("node_centrality", {}, source)}
         reset_launches()
-        v_s = {}
+        v_s, v_l = {}, {}
         for name, (verb, kw, src_) in verbs.items():
+            before = semiring_launches()
             t0 = time.perf_counter()
             res = run_streaming(engine.kernel_spec(verb).make(dims, **kw), src_)
             torch.cuda.synchronize()
             v_s[name] = time.perf_counter() - t0
+            v_l[name] = {key: v - before[key] for key, v in semiring_launches().items()}
             same_result(torch, f"verb {name} vs graph path", res, q_gpu[name])
         launches["graph_verbs"] = read_launches()
         gv_l = launches["graph_verbs"]
-        if (gv_l["semiring_matmul"] < sum(need.values())
-                or gv_l["pair_count"] < len(verbs) * chunks):
-            raise AssertionError(f"graph verbs did not go through the kernels: {gv_l}")
+        if v_l != need or gv_l["pair_count"] < len(verbs) * chunks:
+            raise AssertionError(f"graph verbs did not go through the kernels: "
+                                 f"{gv_l}, per verb {v_l}")
         emit({"phase": "graph_verbs", "seconds": v_s,
               "events_per_s": {k: events / v for k, v in v_s.items()},
-              "launches": gv_l, "bitwise_equal_to": ["graph_path"],
+              "launches": gv_l, "semiring_launches": v_l,
+              "bitwise_equal_to": ["graph_path"],
               "nvidia_smi": smi})
 
         # ------ discovery path: heuristics + alpha miners over the stream
@@ -2132,8 +2394,16 @@ def main() -> int:
         {**entry("segmented_sum_scan", csrc + "segmented_scan.cu", SUM_SCAN_TPU,
                  times["segmented_sum_scan/chunk"]),
          "single_run_ms": times["segmented_sum_scan/chunk"]["single_run_ms"]},
-        entry("semiring_matmul", csrc + "semiring.cu", SEMIRING_TPU,
-              times["semiring_matmul/plus_times/28x28x28"]),
+        {**entry("semiring_matmul", csrc + "semiring.cu", SEMIRING_TPU,
+                 times["semiring_matmul/plus_times/28x28x28"]),
+         "rows": {key.split("/", 1)[1]: {f: times[key][f] for f in (
+             "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "library_graph_ms") if f in times[key]}
+             for key in times if key.startswith("semiring_matmul/")}},
+        {**entry("semiring_closure", csrc + "semiring.cu", CLOSURE_TPU,
+                 times["semiring_closure/min_plus/N28"]),
+         "rows": {key.split("/", 1)[1]: times[key]
+                  for key in times if key.startswith("semiring_closure/")}},
         {**entry("flash_attention", csrc + "flash_attention.cu", FLASH_TPU,
                  times[f"flash_attention/prefill_{FLASH_TIMED[2]}"]),
          "float32_route": {key: times[f"flash_attention/prefill_{FLASH_TIMED[2]}_float32"][key]

@@ -2,9 +2,11 @@
 
 All three verbs are *finalize-over-state* computations: the heavy part of
 a collect is still the one mergeable DFG fold, and the query itself is a
-handful of dense (N, N) semiring products on the
-``repro_torch.kernels.graph_ops`` primitive (N = alphabet + 2; the
-hand-written CUDA kernel on a card, the plain version on the CPU).
+handful of dense (N, N) semiring closures and products on the
+``repro_torch.kernels.graph_ops`` primitives (N = alphabet + 2; on a card
+each closure is one launch of the closure kernel up to ``CLOSURE_MAX_N``
+nodes, the plain versions on the CPU; ``impl="ref"`` forces the plain
+versions on either device, as ``impl`` picks the JAX package's lowering).
 
 Exactness contract (what the parity tests assert):
 
@@ -44,7 +46,8 @@ class Reachability:
     mask: torch.Tensor           # (N, N) bool
 
 
-def reachability(g: ProcessGraph, k: int | None = None) -> Reachability:
+def reachability(g: ProcessGraph, k: int | None = None, *,
+                 impl: str | None = None) -> Reachability:
     """k-step boolean closure of the observed adjacency (``k=None`` =
     full closure).  Artificial source/sink rows answer "reachable from
     process start" / "can still reach process end"."""
@@ -52,7 +55,7 @@ def reachability(g: ProcessGraph, k: int | None = None) -> Reachability:
     k_eff = max(n - 1, 1) if k is None else max(int(k), 0)
     k_eff = min(k_eff, max(n - 1, 1))
     return Reachability(k=k_eff,
-                        mask=bool_closure(g.adjacency, k_eff))
+                        mask=bool_closure(g.adjacency, k_eff, impl=impl))
 
 
 # ------------------------------------------------------- bottleneck paths
@@ -124,13 +127,13 @@ def _widest_path(freq: np.ndarray, widest: np.ndarray, src: int,
     return tuple(reversed(path))
 
 
-def bottleneck_paths(g: ProcessGraph,
-                     weights: str = "frequency") -> BottleneckPaths:
+def bottleneck_paths(g: ProcessGraph, weights: str = "frequency", *,
+                     impl: str | None = None) -> BottleneckPaths:
     """Min-plus shortest + max-min widest all-pairs paths (module doc)."""
     costs = _edge_costs(g, weights)
     cap = torch.where(g.adjacency, g.freq.to(torch.float32), -math.inf)
-    shortest = minplus_closure(costs)
-    widest = maxmin_closure(cap)
+    shortest = minplus_closure(costs, impl=impl)
+    widest = maxmin_closure(cap, impl=impl)
     w_host = widest.cpu().numpy()
     path = _widest_path(g.freq.cpu().numpy(), w_host, g.source, g.sink)
     bott = float(w_host[g.source, g.sink]) if path else 0.0
@@ -157,7 +160,8 @@ class Centrality:
     iters: int
 
 
-def node_centrality(g: ProcessGraph, iters: int = 16) -> Centrality:
+def node_centrality(g: ProcessGraph, iters: int = 16, *,
+                    impl: str | None = None) -> Centrality:
     f = g.freq.to(torch.float32)
     n = g.num_nodes
     in_deg = torch.sum(g.freq, dim=0).to(torch.int32)
@@ -172,7 +176,7 @@ def node_centrality(g: ProcessGraph, iters: int = 16) -> Centrality:
     p = torch.where(rowsum > 0, p, restart[None, :])
     x = torch.full((1, n), 1.0 / n, dtype=torch.float32, device=f.device)
     for _ in range(max(int(iters), 0)):
-        x = semiring_matmul(x, p, "plus_times")
+        x = semiring_matmul(x, p, "plus_times", impl=impl)
         x = x / torch.clamp(torch.sum(x), min=1e-30)
     return Centrality(in_degree=in_deg, out_degree=out_deg,
                       flow=x[0], iters=max(int(iters), 0))

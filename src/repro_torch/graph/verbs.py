@@ -7,6 +7,8 @@ is a new ``finalize`` that compiles the merged state into a
 the semiring closure over it.  State, update and merge are shared verbatim
 with the DFG kernel, so every graph verb streams as the DFG does.
 
+``impl`` (the query verbs) is handed down to the closures and products:
+``"ref"`` runs the loop of plain products on either device.
 ``timed=True`` (the performance overlay) composes the DFG kernel with
 ``performance_dfg_kernel``; its float32 wait totals are folded in row
 order, so the timed graph is bitwise the JAX package's too.
@@ -53,16 +55,18 @@ def graph_kernel(num_activities: int, timed: bool = False,
 
 
 def reachability_kernel(num_activities: int, k: int | None = None,
-                        method: str = "auto") -> engine.ChunkKernel:
+                        method: str = "auto",
+                        impl: str | None = None) -> engine.ChunkKernel:
     """k-step reachability closure of the compiled graph."""
     dk = dfg_kernel(num_activities, method)
     return _wrap(dk, "reachability",
                  lambda s, c: reachability(compile_graph(dk.finalize(s, c)),
-                                           k))
+                                           k, impl=impl))
 
 
 def bottleneck_paths_kernel(num_activities: int, weights: str = "frequency",
-                            method: str = "auto") -> engine.ChunkKernel:
+                            method: str = "auto",
+                            impl: str | None = None) -> engine.ChunkKernel:
     """All-pairs shortest/widest paths + the source→sink bottleneck."""
     if weights == "performance":
         base = _timed_base(num_activities, method)
@@ -70,22 +74,23 @@ def bottleneck_paths_kernel(num_activities: int, weights: str = "frequency",
         def finalize(state, carry):
             out = base.finalize(state, carry)
             g = compile_graph(out["dfg"], perf=out["perf"][1])
-            return bottleneck_paths(g, weights)
+            return bottleneck_paths(g, weights, impl=impl)
 
         return _wrap(base, "bottleneck_paths+perf", finalize)
     dk = dfg_kernel(num_activities, method)
     return _wrap(dk, "bottleneck_paths",
                  lambda s, c: bottleneck_paths(
-                     compile_graph(dk.finalize(s, c)), weights))
+                     compile_graph(dk.finalize(s, c)), weights, impl=impl))
 
 
 def node_centrality_kernel(num_activities: int, iters: int = 16,
-                           method: str = "auto") -> engine.ChunkKernel:
+                           method: str = "auto",
+                           impl: str | None = None) -> engine.ChunkKernel:
     """Degree + power-method flow centrality of the compiled graph."""
     dk = dfg_kernel(num_activities, method)
     return _wrap(dk, "node_centrality",
                  lambda s, c: node_centrality(compile_graph(dk.finalize(s, c)),
-                                              iters))
+                                              iters, impl=impl))
 
 
 # --------------------------------------------------------- registration
@@ -99,19 +104,21 @@ engine.register_kernel(engine.KernelSpec(
         "(artificial start/end nodes; timed=True adds mean waits)"))
 engine.register_kernel(engine.KernelSpec(
     "reachability",
-    make=lambda dims, k=None, method="auto": reachability_kernel(
-        dims.num_activities, k, method),
+    make=lambda dims, k=None, method="auto", impl=None: reachability_kernel(
+        dims.num_activities, k, method, impl),
     columns=(ACTIVITY, CASE),
     doc="k-step boolean reachability closure of the process graph"))
 engine.register_kernel(engine.KernelSpec(
     "bottleneck_paths",
-    make=lambda dims, weights="frequency", method="auto":
-    bottleneck_paths_kernel(dims.num_activities, weights, method),
+    make=lambda dims, weights="frequency", method="auto",
+    impl=None: bottleneck_paths_kernel(dims.num_activities, weights,
+                                       method, impl),
     columns=(ACTIVITY, CASE, TIMESTAMP),
     doc="min-plus shortest / max-min widest paths + source→sink bottleneck"))
 engine.register_kernel(engine.KernelSpec(
     "node_centrality",
-    make=lambda dims, iters=16, method="auto": node_centrality_kernel(
-        dims.num_activities, iters, method),
+    make=lambda dims, iters=16, method="auto",
+    impl=None: node_centrality_kernel(dims.num_activities, iters,
+                                      method, impl),
     columns=(ACTIVITY, CASE),
     doc="in/out degree + power-method flow centrality per node"))

@@ -4,7 +4,11 @@
 a card, the plain PyTorch version on the CPU, chosen by
 ``core.backend.resolve`` like the segmented primitives); the closure
 helpers below iterate it by repeated squaring — ``ceil(log2(n))`` products
-instead of the n relaxation sweeps of Floyd–Warshall:
+instead of the n relaxation sweeps of Floyd–Warshall.  On a CUDA tensor of
+at most ``CLOSURE_MAX_N`` nodes a whole closure is one launch of the
+closure kernel (``semiring_closure_cuda``); above it, and with
+``impl="ref"`` on either device, the loop of products
+(``ref.closure_loop``) runs on the chosen lowering:
 
 * :func:`bool_closure` — k-step boolean reachability.  The 0/1 operands
   ride the ``plus_times`` product and are re-thresholded after every
@@ -23,12 +27,10 @@ Floyd–Warshall result (every candidate sum is exact below 2^24).
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
-from .ref import SEMIRINGS, semiring_matmul_ref
-from .semiring import semiring_matmul_cuda
+from .ref import SEMIRINGS, closure_loop, semiring_matmul_ref
+from .semiring import CLOSURE_MAX_N, semiring_closure_cuda, semiring_matmul_cuda
 
 
 def _resolve(device, impl):
@@ -54,24 +56,20 @@ def semiring_matmul(a: torch.Tensor, b: torch.Tensor,
     return semiring_matmul_ref(a, b, semiring)
 
 
-def _steps(n: int, k: int) -> int:
-    # squarings needed for a horizon of k edges on an n-node graph
-    k = max(1, min(int(k), max(n - 1, 1)))
-    return max(0, math.ceil(math.log2(k)))
+def _loop_product(impl):
+    # the loop's product on the chosen lowering
+    return lambda a, b, semiring: semiring_matmul(a, b, semiring, impl=impl)
 
 
-def _or_and(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    # boolean AND-OR product as a thresholded 0/1 product: path counts are
-    # exact integers below 2^24, so ``> 0`` recovers the exact OR
-    return semiring_matmul(x.to(torch.float32), y.to(torch.float32),
-                           "plus_times") > 0
+def _closure(x: torch.Tensor, kind: str, k, impl) -> torch.Tensor:
+    if (_resolve(x.device, impl) == "cuda"
+            and x.shape[0] <= CLOSURE_MAX_N):
+        return semiring_closure_cuda(x, kind, k)
+    return closure_loop(x, kind, k, _loop_product(impl))
 
 
-def _eye(n: int, device) -> torch.Tensor:
-    return torch.eye(n, dtype=torch.bool, device=device)
-
-
-def bool_closure(adj: torch.Tensor, k: int | None = None) -> torch.Tensor:
+def bool_closure(adj: torch.Tensor, k: int | None = None, *,
+                 impl: str | None = None) -> torch.Tensor:
     """(N, N) bool: can j be reached from i in **at most** k steps?
 
     ``k=None`` (or k >= N-1) is the full transitive-reflexive closure —
@@ -79,40 +77,16 @@ def bool_closure(adj: torch.Tensor, k: int | None = None) -> torch.Tensor:
     binary exponentiation of ``(I | A)^k`` instead, which never overshoots
     a non-power-of-two horizon.
     """
-    n = adj.shape[0]
-    base = _eye(n, adj.device) | adj.to(torch.bool)
-    if k is None:
-        reach = base
-        for _ in range(_steps(n, n - 1)):
-            reach = _or_and(reach, reach)
-        return reach
-    e = min(max(int(k), 0), max(n - 1, 1))
-    acc = _eye(n, adj.device)
-    sq = base
-    while e:
-        if e & 1:
-            acc = _or_and(acc, sq)
-        e >>= 1
-        if e:
-            sq = _or_and(sq, sq)
-    return acc
+    return _closure(adj, "bool", k, impl)
 
 
-def minplus_closure(w: torch.Tensor) -> torch.Tensor:
+def minplus_closure(w: torch.Tensor, *, impl: str | None = None) -> torch.Tensor:
     """All-pairs shortest distances of a weight matrix (``+inf`` = no edge,
     diagonal forced to 0).  ``ceil(log2(n-1))`` min-plus squarings."""
-    n = w.shape[0]
-    d = torch.where(_eye(n, w.device), 0.0, w.to(torch.float32))
-    for _ in range(_steps(n, n - 1)):
-        d = semiring_matmul(d, d, "min_plus")
-    return d
+    return _closure(w, "min_plus", None, impl)
 
 
-def maxmin_closure(cap: torch.Tensor) -> torch.Tensor:
+def maxmin_closure(cap: torch.Tensor, *, impl: str | None = None) -> torch.Tensor:
     """All-pairs widest-path capacities (``-inf`` = no edge, diagonal
     forced to ``+inf`` — the max-min identity)."""
-    n = cap.shape[0]
-    d = torch.where(_eye(n, cap.device), math.inf, cap.to(torch.float32))
-    for _ in range(_steps(n, n - 1)):
-        d = semiring_matmul(d, d, "max_min")
-    return d
+    return _closure(cap, "max_min", None, impl)

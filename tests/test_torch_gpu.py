@@ -1,7 +1,9 @@
 """PyTorch port on a CUDA card: each hand-written kernel against its plain
 PyTorch version, bitwise (integer counts, float32 min/max, row-order
 float32 sums, uint32 hashes, tropical and integer-valued semiring
-products; random-float ``plus_times`` within its rounding bound; flash
+products and whole closures; random-float ``plus_times`` within its
+rounding bound of ``torch.matmul`` and bitwise the k-order ``fmaf`` chain
+(an exact-rounding oracle, itself checked on the CPU); flash
 attention within 2e-5 in float32, 2e-2 in bf16), and the DFG, statistics,
 filter, variants, performance, graph and discovery paths and the reduced
 EventLM served through the kernels (graph centrality ``flow`` within 1e-6
@@ -689,7 +691,8 @@ def test_streamed_performance_on_card_equal_cpu(cuda, chunk_rows):
 
 
 SEMIRING_SHAPES = [(1, 28, 28), (28, 28, 28), (17, 9, 23), (130, 7, 131),
-                   (384, 384, 384), (1, 384, 384), (33, 0, 5), (0, 4, 4)]
+                   (384, 384, 384), (1, 384, 384), (33, 0, 5), (0, 4, 4),
+                   (129, 384, 257), (384, 1, 384)]
 
 
 def _semiring_operands(gen, shape, semiring, device):
@@ -744,6 +747,114 @@ def test_semiring_float_plus_times_within_rounding(cuda, shape):
     assert bool(((got - want).abs() <= bound).all())
 
 
+def _fma32(p, c):
+    """float32 ``fmaf`` of an exact float64 product ``p`` onto float32 ``c``,
+    rounded once: the float64 sum ``s`` plus its exact error ``e`` (TwoSum)
+    decides the one case where rounding ``s`` to float32 would round twice,
+    ``s`` on a float32 midpoint with ``e != 0``."""
+    inf = torch.full_like(c, float("inf"))
+    c64 = c.double()
+    s = p + c64
+    bb = s - p
+    e = (p - (s - bb)) + (c64 - bb)
+    r = s.float()
+    up, down = torch.nextafter(r, inf), torch.nextafter(r, -inf)
+    r64 = r.double()
+    d = s - r64
+    on_mid_up = (d > 0) & (s == (r64 + up.double()) * 0.5)
+    on_mid_down = (d < 0) & (s == (r64 + down.double()) * 0.5)
+    r = torch.where(on_mid_up & (e > 0), up, r)
+    return torch.where(on_mid_down & (e < 0), down, r)
+
+
+def _fma_chain(a, b):
+    """C[i, j] = fmaf(A[i, K-1], B[K-1, j], ... fmaf(A[i, 0], B[0, j], 0.0)):
+    the k-order float32 fma chain, each product exact in float64."""
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32, device=a.device)
+    for kk in range(a.shape[1]):
+        acc = _fma32(a[:, kk:kk + 1].double() * b[kk:kk + 1, :].double(), acc)
+    return acc
+
+
+def test_fma_chain_oracle_rounds_once():
+    """The oracle against exact rationals on the CPU: random floats over
+    seven decades, and operands whose float64 sum lands on a float32
+    midpoint that the exact sum misses (rounding twice would go wrong)."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(4)
+    a = (rng.standard_normal((5, 40)) * 10.0 ** rng.integers(-3, 4, (5, 40))).astype(np.float32)
+    b = (rng.standard_normal((40, 6)) * 10.0 ** rng.integers(-3, 4, (40, 6))).astype(np.float32)
+    # C = 1 + 2^-23, then A*B = 2^-24 (1 - 2^-36): the float64 sum is the
+    # midpoint 1 + 3 * 2^-24, the exact sum lies below it
+    a[0, :2] = [1.0, 1.0 + 2.0 ** -18]
+    b[:2, 0] = [1.0 + 2.0 ** -23, 2.0 ** -24 * (1 - 2.0 ** -18)]
+    a[0, 2:], b[2:, 0] = 0.0, 0.0
+    got = _fma_chain(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    for i in range(a.shape[0]):
+        for j in range(b.shape[1]):
+            acc = np.float32(0.0)
+            for kk in range(a.shape[1]):
+                exact = Fraction(float(a[i, kk])) * Fraction(float(b[kk, j])) + Fraction(float(acc))
+                acc = _round_f32(exact)
+            assert got[i, j] == acc, (i, j)
+    assert got[0, 0] == np.float32(1.0 + 2.0 ** -23)
+
+
+def _round_f32(x):
+    """Fraction -> nearest float32, ties to even (exact)."""
+    from fractions import Fraction
+
+    lo = np.float32(float(x))              # within an ulp of x
+    for _ in range(2):
+        if Fraction(float(lo)) > x:
+            lo = np.nextafter(lo, np.float32(-np.inf))
+    while Fraction(float(np.nextafter(lo, np.float32(np.inf)))) <= x:
+        lo = np.nextafter(lo, np.float32(np.inf))
+    hi = np.nextafter(lo, np.float32(np.inf))
+    dl, dh = x - Fraction(float(lo)), Fraction(float(hi)) - x
+    if dl < dh or (dl == dh and int(lo.view(np.int32)) % 2 == 0):
+        return lo
+    return hi
+
+
+@pytest.mark.parametrize("shape", [(28, 28, 28), (1, 28, 28), (384, 384, 384),
+                                   (1, 384, 384), (129, 384, 257), (17, 9, 23)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_semiring_plus_times_is_the_k_order_fma_chain(cuda, shape):
+    """Random floats over seven decades: plus_times is one fmaf per k in
+    ascending k from 0.0, bitwise (no split, no TF32)."""
+    from repro_torch.kernels import graph_ops as go
+
+    m, k, n = shape
+    gen = torch.Generator(device=cuda).manual_seed(m + 3 * k + 7 * n)
+    a = torch.randn((m, k), generator=gen, device=cuda) * 10.0 ** torch.randint(
+        -3, 4, (m, k), generator=gen, device=cuda)
+    b = torch.randn((k, n), generator=gen, device=cuda) * 10.0 ** torch.randint(
+        -3, 4, (k, n), generator=gen, device=cuda)
+    got = go.semiring_matmul_cuda(a, b, "plus_times")
+    assert torch.equal(got, _fma_chain(a, b))
+
+
+@pytest.mark.parametrize("semiring", ["min_plus", "max_min"])
+@pytest.mark.parametrize("shape", [(384, 384, 384), (1, 384, 384), (129, 384, 257),
+                                   (64, 1000, 70)], ids=lambda s: "x".join(map(str, s)))
+def test_semiring_tropical_split_k_is_bitwise_for_any_floats(cuda, semiring, shape):
+    """Non-integer weights with holes where the tropical products split K
+    across a cluster: still bitwise the plain version."""
+    from repro_torch.kernels import graph_ops as go
+
+    m, k, n = shape
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    a = torch.randn((m, k), generator=gen, device=cuda) * 100
+    b = torch.randn((k, n), generator=gen, device=cuda) * 100
+    hole = float("inf") if semiring == "min_plus" else float("-inf")
+    a[torch.rand((m, k), generator=gen, device=cuda) < 0.3] = hole
+    b[torch.rand((k, n), generator=gen, device=cuda) < 0.3] = hole
+    assert torch.equal(go.semiring_matmul_cuda(a, b, semiring),
+                       go.semiring_matmul_ref(a, b, semiring))
+
+
 def test_semiring_nan_propagates_as_plain(cuda):
     from repro_torch.kernels import graph_ops as go
 
@@ -757,7 +868,53 @@ def test_semiring_nan_propagates_as_plain(cuda):
         torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
+def _closure_inputs(gen, kind, n, device, variant):
+    """A graph of n nodes for a closure: integer weights with holes,
+    non-integer weights with holes, or those with NaN in a few places."""
+    if kind == "bool":
+        return torch.rand((n, n), generator=gen, device=device) < min(1.0, 3.0 / max(n, 1))
+    if variant == "integer":
+        w = torch.randint(1, 9, (n, n), generator=gen, device=device).float()
+    else:
+        w = torch.rand((n, n), generator=gen, device=device) * 7.3 + 0.01
+    hole = float("inf") if kind == "min_plus" else float("-inf")
+    w[torch.rand((n, n), generator=gen, device=device) < 0.8] = hole
+    if variant == "nan" and n > 1:
+        w[torch.randint(0, n, (2,), generator=gen, device=device),
+          torch.randint(0, n, (2,), generator=gen, device=device)] = float("nan")
+    return w
+
+
+@pytest.mark.parametrize("kind", ["bool", "min_plus", "max_min"])
+@pytest.mark.parametrize("n", [1, 2, 11, 28, 40, 48, 80, "max", "capacity"])
+def test_semiring_closure_kernel_equals_plain(cuda, kind, n):
+    """One launch a closure, bitwise the loop of plain products on the
+    card: tropical with integer and non-integer weights, holes and NaN;
+    boolean at k = 0, 1, 3, 5, N - 1 and None."""
+    from repro_torch.kernels import graph_ops as go
+
+    n = {"max": go.CLOSURE_MAX_N, "capacity": go.CLOSURE_CAPACITY}.get(n, n)
+    gen = torch.Generator(device=cuda).manual_seed(31 * n + len(kind))
+    cases = ([("integer", None), ("float", None), ("nan", None)] if kind != "bool"
+             else [("0/1", k) for k in (0, 1, 3, 5, n - 1, None)])
+    for variant, k in cases:
+        x = _closure_inputs(gen, kind, n, cuda, variant)
+        before = go.semiring_closure_cuda.launches
+        got = go.semiring_closure_cuda(x, kind, k)
+        torch.cuda.synchronize()
+        assert go.semiring_closure_cuda.launches == before + 1
+        want = go.semiring_closure_ref(x, kind, k)
+        assert got.dtype == want.dtype and got.shape == (n, n)
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True,
+                                   msg=f"{kind} n={n} {variant} k={k}")
+        assert torch.equal(got.cpu(), go.semiring_closure_ref(x.cpu(), kind, k)) \
+            or variant == "nan"
+
+
 def test_semiring_dispatch_and_closures_on_card(cuda):
+    """A closure of at most CLOSURE_MAX_N nodes is one closure launch and no
+    product; above it the loop of tiled products; impl="ref" launches
+    nothing."""
     from repro_torch.kernels import graph_ops as go
 
     gen = torch.Generator(device=cuda).manual_seed(11)
@@ -765,16 +922,37 @@ def test_semiring_dispatch_and_closures_on_card(cuda):
     w[torch.rand((28, 28), generator=gen, device=cuda) < 0.8] = float("inf")
     adj = torch.isfinite(w)
     cap = torch.where(adj, w, float("-inf"))
-    before = go.semiring_matmul_cuda.launches
+
+    def counts():
+        return go.semiring_closure_cuda.launches, go.semiring_matmul_cuda.launches
+
+    before = counts()
     go.semiring_matmul(w, w, "min_plus", impl="ref")
-    assert go.semiring_matmul_cuda.launches == before
+    ref = (go.minplus_closure(w, impl="ref"), go.maxmin_closure(cap, impl="ref"),
+           go.bool_closure(adj, impl="ref"), go.bool_closure(adj, 3, impl="ref"))
+    assert counts() == before
     got = (go.minplus_closure(w), go.maxmin_closure(cap), go.bool_closure(adj),
            go.bool_closure(adj, 3))
-    assert go.semiring_matmul_cuda.launches == before + 5 + 5 + 5 + 3
+    assert counts() == (before[0] + 4, before[1])
     want = (go.minplus_closure(w.cpu()), go.maxmin_closure(cap.cpu()),
             go.bool_closure(adj.cpu()), go.bool_closure(adj.cpu(), 3))
-    for g, h in zip(got, want):
-        assert g.device.type == "cuda" and torch.equal(g.cpu(), h)
+    for g, r, h in zip(got, ref, want):
+        assert g.device.type == "cuda" and torch.equal(g, r) and torch.equal(g.cpu(), h)
+    # one node past the kernel's limit: the loop of tiled products
+    n = go.CLOSURE_MAX_N + 1
+    big = _closure_inputs(gen, "min_plus", n, cuda, "float")
+    before = counts()
+    got = go.minplus_closure(big)
+    steps = len(go.closure_plan(n)[1])
+    assert counts() == (before[0], before[1] + steps)
+    assert torch.equal(got, go.minplus_closure(big, impl="ref"))
+    badj = _closure_inputs(gen, "bool", n, cuda, "0/1")
+    before = counts()
+    got = go.bool_closure(badj, 5)
+    assert counts() == (before[0], before[1] + len(go.closure_plan(n, 5)[1]))
+    assert torch.equal(got, go.bool_closure(badj, 5, impl="ref"))
+    with pytest.raises(ValueError, match="CLOSURE_CAPACITY"):
+        go.semiring_closure_cuda(torch.zeros((go.CLOSURE_CAPACITY + 1,) * 2, device=cuda))
 
 
 def _same_result(got, want, flow_atol=1e-6):
@@ -806,20 +984,23 @@ def test_streamed_graph_verbs_on_card_equal_cpu(cuda, chunk_rows):
     n_cases = 150 if chunk_rows == 1 else 20_000
     frame, _ = synthetic.generate(num_cases=n_cases, num_activities=26, seed=8,
                                   device="cpu")
-    kernels = {"graph": (graph.graph_kernel(26, timed=True), 0),
-               # k = 27 by binary exponentiation: 4 products + 4 squarings
-               "reach": (graph.reachability_kernel(26), 8),
-               "reach3": (graph.reachability_kernel(26, 3), 3),
-               "paths": (graph.bottleneck_paths_kernel(26), 10),
-               "paths_perf": (graph.bottleneck_paths_kernel(26, "performance"), 10),
-               "centrality": (graph.node_centrality_kernel(26), 16)}
+    # (kernel, closure launches, product launches): each closure of the
+    # 28-node graph is one launch; centrality's 16 matvecs are products
+    kernels = {"graph": (graph.graph_kernel(26, timed=True), 0, 0),
+               "reach": (graph.reachability_kernel(26), 1, 0),
+               "reach3": (graph.reachability_kernel(26, 3), 1, 0),
+               "paths": (graph.bottleneck_paths_kernel(26), 2, 0),
+               "paths_perf": (graph.bottleneck_paths_kernel(26, "performance"), 2, 0),
+               "centrality": (graph.node_centrality_kernel(26), 0, 16)}
     chunks = -(-frame.nrows // chunk_rows)
-    for name, (kernel, products) in kernels.items():
-        before = (go.semiring_matmul_cuda.launches, so.pair_count_cuda.launches)
+    for name, (kernel, closures, products) in kernels.items():
+        before = (go.semiring_closure_cuda.launches, go.semiring_matmul_cuda.launches,
+                  so.pair_count_cuda.launches)
         got = run_streaming(kernel, ChunkedEventFrame.from_frame(
             frame, chunk_rows, device=cuda))
-        assert go.semiring_matmul_cuda.launches - before[0] == products, name
-        assert so.pair_count_cuda.launches - before[1] >= chunks, name
+        assert go.semiring_closure_cuda.launches - before[0] == closures, name
+        assert go.semiring_matmul_cuda.launches - before[1] == products, name
+        assert so.pair_count_cuda.launches - before[2] >= chunks, name
         want = run_streaming(kernel, ChunkedEventFrame.from_frame(frame, chunk_rows))
         _same_result(got, want)
 

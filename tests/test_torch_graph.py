@@ -215,6 +215,65 @@ def test_registry_lookups():
     assert "did you mean" in str(ei.value) and "'reachability'" in str(ei.value)
 
 
+@pytest.mark.parametrize("impl", [None, "ref"])
+def test_queries_and_verbs_pass_impl_down(monkeypatch, impl):
+    """``impl=`` through the queries, the verb factories and the registry's
+    ``make``, as JAX passes it: with the kernels chosen (``backend.resolve``
+    forced to ``"cuda"`` unless ``impl="ref"``) each closure of the 8-node
+    graph is one call of the closure kernel's wrapper and centrality's
+    matvecs are products, while ``impl="ref"`` calls no wrapper; every
+    result equals JAX's under ``impl="xla"`` and ``"pallas"`` (the wrappers
+    run their plain versions on these CPU tensors)."""
+    from repro_torch.core import backend
+    from repro_torch.kernels.graph_ops import ops
+
+    monkeypatch.setattr(backend, "resolve",
+                        lambda device, impl=None: "ref" if impl == "ref" else "cuda")
+    calls = []
+    for name in ("semiring_closure_cuda", "semiring_matmul_cuda"):
+        real = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _real=real, _name=name:
+                            calls.append(_name) or _real(*a))
+    cols, _ = _log(6)
+    jf, tf = _frames(cols, None)
+    jgr = jcore.engine.run_single(jgraph.verbs.graph_kernel(A, True, "segment"), jf)
+    g = tgraph.ProcessGraph.from_numpy(np.asarray(jgr.freq), A,
+                                       np.asarray(jgr.perf), device="cpu")
+    closure = [] if impl == "ref" else ["semiring_closure_cuda"]
+    product = [] if impl == "ref" else ["semiring_matmul_cuda"]
+    dims, jdims = tengine.Dims(A, 30), jcore.engine.Dims(A, 30)
+    cases = (("reachability", {"k": 3}, tgraph.reachability, jgraph.reachability,
+              (3,), closure),
+             ("bottleneck_paths", {"weights": "performance"}, tgraph.bottleneck_paths,
+              jgraph.bottleneck_paths, ("performance",), 2 * closure),
+             ("node_centrality", {"iters": 4}, tgraph.node_centrality,
+              jgraph.node_centrality, (4,), 4 * product))
+    for name, kw, query, jquery, args, want_calls in cases:
+        calls.clear()
+        got = query(g, *args, impl=impl)
+        assert calls == want_calls, name
+        calls.clear()
+        streamed = tengine.run_single(tengine.kernel_spec(name).make(
+            dims, impl=impl, **kw), tf)
+        assert calls == want_calls, name
+        for jimpl in ("xla", "pallas"):
+            _same(got, jquery(jgr, *args, impl=jimpl), f"{name} {jimpl}")
+            _same(streamed, jcore.engine.run_single(jcore.engine.kernel_spec(name).make(
+                jdims, impl=jimpl, **kw), jf), f"{name} verb {jimpl}")
+    factories = (tgraph.reachability_kernel(A, None, "auto", impl),
+                 tgraph.bottleneck_paths_kernel(A, "frequency", "auto", impl),
+                 tgraph.node_centrality_kernel(A, 16, "auto", impl))
+    jfactories = (jgraph.verbs.reachability_kernel(A, None, "segment", "xla"),
+                  jgraph.verbs.bottleneck_paths_kernel(A, "frequency", "segment", "xla"),
+                  jgraph.verbs.node_centrality_kernel(A, 16, "segment", "xla"))
+    for kernel, jkernel, want_calls in zip(factories, jfactories,
+                                           (closure, 2 * closure, 16 * product)):
+        calls.clear()
+        got = tengine.run_single(kernel, tf)
+        assert calls == want_calls, kernel.name
+        _same(got, jcore.engine.run_single(jkernel, jf), kernel.name)
+
+
 # ------------------------------------------------------------- exports
 def _classic(traces):
     from repro_torch.core.classic_log import make_classic_log
