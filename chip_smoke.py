@@ -12,7 +12,8 @@ products, held within their rounding bound, and flash attention, within
 2e-5 in float32 and 2e-2 in bf16), times it, and then drives seven paths
 over the paper's Table-6 level-L1 log (10^6 cases, ~7x10^6 events, 26
 activities, timestamps) written as an EDF file with 524,288-row groups and
-streamed from disk onto the card, and the EventLM serving path:
+streamed from disk onto the card, the query layer over that file, and the
+EventLM serving path:
 
 * ``main_path`` — the out-of-core DFG.  It must equal, bitwise, the same
   stream through the plain versions on the CPU, the whole-log DFG on the
@@ -52,6 +53,17 @@ streamed from disk onto the card, and the EventLM serving path:
   CPU plain stream and a numpy triple-count oracle; the log scores 1.0
   alpha fitness against its own model and its heuristics fitness equals a
   numpy oracle.
+* ``query_path`` — the pruned query layer (``repro_torch.query``) over
+  the L1 file: four plans (a case band the zone maps refute for ten of the
+  fourteen row groups, a time range, ``variant_in`` decided from header
+  sketches, ``cases_containing`` on the single-pass schedule), each mined
+  with the DFG and variants kernels and held bitwise against the port's
+  eager filter-then-mine on the card, the plain lowerings on the card and
+  numpy oracles, the ghost chunks of skipped groups folded by the affine
+  scan (two launches a ghost chunk); ``merge_tree`` over per-group folds
+  for every mergeable verb against ``run_streaming``; ``execute_grouped``
+  twice, the second call from the state cache; and a full scan at
+  prefetch depth 0 and 1 with its read + decode seconds.
 * ``serve_path`` — ``eventlm-100m`` at full width (12 layers, d_model 768,
   random weights from seed 0) served by ``serve.engine.Engine`` on prompts
   from the tokenized synthetic log, as ``launch/serve.py`` builds them: (a)
@@ -1349,6 +1361,16 @@ def same_result(torch, label: str, got, want, flow_atol: float = 0.0) -> None:
                 raise AssertionError(f"{label}: beyond atol {flow_atol}")
         else:
             check_equal(label, g, w)
+    elif isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{label}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            same_result(torch, f"{label}[{k}]", got[k], want[k], flow_atol)
+    elif isinstance(want, tuple) and any(isinstance(w, torch.Tensor) for w in want):
+        if len(got) != len(want):
+            raise AssertionError(f"{label}: {len(got)} != {len(want)} parts")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_result(torch, f"{label}[{i}]", g, w, flow_atol)
     elif got != want:
         raise AssertionError(f"{label}: {got!r} != {want!r}")
 
@@ -1748,6 +1770,303 @@ def serve_path(torch, smi: str) -> tuple[dict, dict]:
              "reference": "same engine and weights, attn_impl='ref'",
              "nvidia_smi": smi}
     return phase, total
+
+
+def numpy_dfg_masked(case: np.ndarray, act: np.ndarray, rv: np.ndarray, a: int):
+    """Independent host oracle of the DFG of a sorted log under a row mask,
+    with the engine's semantics: a pair is two adjacent rows of one case,
+    both kept; a start (end) is a kept row that opens (closes) its case."""
+    same = case[1:] == case[:-1]
+    pair = same & rv[1:] & rv[:-1]
+    key = act[:-1].astype(np.int64) * a + act[1:]
+    counts = np.bincount(key[pair], minlength=a * a).reshape(a, a)
+    start = np.concatenate([[True], ~same]) & rv
+    end = np.concatenate([~same, [True]]) & rv
+    return (counts.astype(np.int32),
+            np.bincount(act[start], minlength=a).astype(np.int32),
+            np.bincount(act[end], minlength=a).astype(np.int32))
+
+
+QUERY_PLANS = ("case_band", "time_range", "variant_in", "cases_containing")
+
+
+def query_plans(query, path: str, case_np, act_np, ts_np, sk) -> dict:
+    """The query path's four plans over the L1 file, each with its row mask
+    (a numpy oracle of the filter):
+
+    * ``case_band`` — a case-id range the zone maps refute for about three
+      quarters of the row groups (interior groups proved, edges residual);
+    * ``time_range`` — a timestamp range; L1's case start times are
+      uniform, so every group's zone spans it and every group is read with
+      a residual mask;
+    * ``variant_in`` — the three most frequent variants, resolved from the
+      header sketches with no phase-one I/O;
+    * ``cases_containing`` — cases containing the rarest activity, the
+      fused single-pass schedule.
+    """
+    from repro_torch.core import CASE, TIMESTAMP
+
+    cases = int(case_np[-1]) + 1
+    lo, hi = int(0.40 * cases), int(0.62 * cases)
+    t_lo, t_hi = 250_000.0, 750_000.0
+    seg = np.cumsum(np.concatenate([[True], case_np[1:] != case_np[:-1]])) - 1
+    pairs = np.stack([sk["add1"], sk["add2"]], axis=1).astype(np.int64)
+    uniq, inv, n_per = np.unique(pairs, axis=0, return_inverse=True,
+                                 return_counts=True)
+    top = np.argsort(-n_per, kind="stable")[:3]
+    keep_var = np.isin(inv.reshape(-1), top)
+    counts = np.bincount(act_np, minlength=NUM_ACTIVITIES)
+    rare = int(np.flatnonzero(counts == counts[counts > 0].min())[0])
+    keep_rare = np.zeros(seg[-1] + 1, bool)
+    keep_rare[seg[act_np == rare]] = True
+    col = query.col
+    return {
+        "case_band": (query.Plan(path).filter(col(CASE).between(lo, hi)),
+                      (case_np >= lo) & (case_np <= hi),
+                      {"cases": [lo, hi]}),
+        "time_range": (query.Plan(path).filter(col(TIMESTAMP).between(t_lo, t_hi)),
+                       (ts_np >= np.float32(t_lo)) & (ts_np <= np.float32(t_hi)),
+                       {"timestamps": [t_lo, t_hi]}),
+        "variant_in": (query.Plan(path).filter(query.variant_in(
+                           [tuple(int(x) for x in uniq[t]) for t in top])),
+                       keep_var[seg], {"variants": 3,
+                                       "cases": int(n_per[top].sum())}),
+        "cases_containing": (query.Plan(path).filter(query.cases_containing(rare)),
+                             keep_rare[seg], {"activity": rare,
+                                              "cases": int(keep_rare.sum())}),
+    }
+
+
+def query_path(torch, smi: str, path: str, case_np, act_np, ts_np, sk,
+               frame_gpu, chunks: int) -> tuple[dict, dict]:
+    """The pruned query layer on the card (``repro_torch.query``): four
+    plans over the L1 file, each mined with the DFG and the variants
+    kernels, held against the port's eager filter-then-mine on the card,
+    the same plan through the plain lowerings on the card, and numpy
+    oracles; the group-state algebra over L1's row groups for every
+    mergeable verb; ``execute_grouped`` served from the state cache; and
+    the prefetch thread at depth 0 and 1.  Returns the phase's line and the
+    launch counts of its main drive (the eight plan executions)."""
+    import warnings
+
+    from repro_torch import query
+    from repro_torch.core import (ACTIVITY, CASE, TIMESTAMP, ChunkedEventFrame,
+                                  dfg_kernel, engine, filtering, ops, polyhash,
+                                  run_streaming, variants)
+    from repro_torch.kernels import segment_ops as so
+    from repro_torch.query import exec as qexec
+    from repro_torch.query import statecache
+    from repro_torch.storage import edf
+
+    t_phase = time.perf_counter()
+    ncases = query.count_cases(query.Plan(path))
+    if ncases != int(sk["add1"].shape[0]):
+        raise AssertionError(f"count_cases {ncases} != {sk['add1'].shape[0]}")
+    total_bytes = edf.file_sizes(path)["total"]
+    plans = query_plans(query, path, case_np, act_np, ts_np, sk)
+    kernels = {"dfg": dfg_kernel(NUM_ACTIVITIES),
+               "variants": variants.variants_kernel(NUM_CASES)}
+    plain = {"dfg": dfg_kernel(NUM_ACTIVITIES, "segment"),
+             "variants": variants.variants_kernel(NUM_CASES, "ref")}
+    for plan, _, _ in plans.values():            # warm-up: first-use costs
+        for k in kernels.values():
+            query.execute(plan, k)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    got, reports, seconds, affine = {}, {}, {}, {}
+    for name, (plan, _, _) in plans.items():
+        for kname, k in kernels.items():
+            before = so.segmented_affine_cuda.launches
+            t0 = time.perf_counter()
+            got[name, kname], reports[name, kname] = query.execute(plan, k)
+            torch.cuda.synchronize()
+            seconds[name, kname] = time.perf_counter() - t0
+            affine[name, kname] = so.segmented_affine_cuda.launches - before
+    launches = read_launches()
+
+    def fp_host(res):
+        return tuple(x.cpu().numpy() for x in res)
+
+    def dfg_host(d):
+        return tuple(getattr(d, f).cpu().numpy() for f in ("counts", "starts", "ends"))
+
+    v_oracle = []
+    for key in ("add1", "add2"):
+        fp = np.zeros(NUM_CASES, np.int64)
+        fp[:ncases] = sk[key]
+        v_oracle.append(fp)
+    v_oracle.append(np.asarray(ncases, np.int32))
+    plans_out, plain_s = {}, {}
+    c_gpu = frame_gpu[CASE]
+    for name, (plan, rows, what) in plans.items():
+        # the port's eager filter on the card, its row mask held against
+        # the numpy one
+        if name == "case_band":
+            lo, hi = what["cases"]
+            eager = ops.proj(frame_gpu, (c_gpu >= lo) & (c_gpu <= hi))
+        elif name == "time_range":
+            eager = ops.proj(frame_gpu, filtering.time_range_mask(
+                frame_gpu, TIMESTAMP, *what["timestamps"]))
+        elif name == "variant_in":
+            fp1, fp2, seg = variants.variant_fingerprints(frame_gpu)
+            keep = torch.zeros_like(fp1, dtype=torch.bool)
+            for a, b in plan.steps[0].pairs:
+                keep |= (fp1 == a) & (fp2 == b)
+            eager = ops.proj(frame_gpu, keep[seg.long()])
+        else:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                eager = filtering.filter_cases_containing(
+                    frame_gpu, what["activity"], NUM_CASES)
+        check_equal(f"query {name} eager row mask vs numpy",
+                    eager.rows_valid().cpu().numpy(), rows)
+        ghosts = sum(polyhash.SK_MUL1 in ch for ch in
+                     query.pruned_source(plan, sketch=True)[0])
+        for kname in kernels:
+            res = got[name, kname]
+            host = dfg_host if kname == "dfg" else fp_host
+            t0 = time.perf_counter()
+            ref_res, _ = query.execute(plan, plain[kname])
+            torch.cuda.synchronize()
+            plain_s[name, kname] = time.perf_counter() - t0
+            eager_res = engine.run_single(kernels[kname], eager)
+            for label, other in (("plain_lowering", host(ref_res)),
+                                 ("eager_filter_then_mine", host(eager_res))):
+                for i, (x, y) in enumerate(zip(host(res), other)):
+                    check_equal(f"query {name}/{kname}[{i}] vs {label}", x, y)
+            oracle = (numpy_dfg_masked(case_np, act_np, rows, NUM_ACTIVITIES)
+                      if kname == "dfg" else tuple(v_oracle))
+            for i, (x, y) in enumerate(zip(host(res), oracle)):
+                check_equal(f"query {name}/{kname}[{i}] vs numpy oracle", x, y)
+        rep = reports[name, "variants"]
+        if affine[name, "variants"] < 2 * ghosts:
+            raise AssertionError(f"query {name}: {affine[name, 'variants']} "
+                                 f"affine launches for {ghosts} ghost chunks")
+        plans_out[name] = {
+            **what, "rows_kept": int(rows.sum()), "ghost_chunks": ghosts,
+            "affine_launches": affine[name, "variants"],
+            "groups_total": rep.groups_total, "groups_read": rep.groups_read,
+            "groups_skipped": rep.groups_skipped,
+            "groups_proved": rep.groups_proved,
+            "phase1_groups_read": rep.phase1_groups_read,
+            "bytes_read": rep.bytes_read, "bytes_total": rep.bytes_total,
+            "file_bytes": total_bytes,
+            "seconds": {k: seconds[name, k] for k in kernels},
+            "plain_lowering_s": {k: plain_s[name, k] for k in kernels},
+            "events_per_s": {k: len(case_np) / seconds[name, k] for k in kernels},
+            "rows_read_per_s": {k: reports[name, k].rows_read / seconds[name, k]
+                                for k in kernels}}
+    band = plans_out["case_band"]
+    if not (band["groups_skipped"] >= band["groups_total"] // 2
+            and band["ghost_chunks"] >= 2 and band["groups_proved"] >= 1):
+        raise AssertionError(f"case band did not prune: {band}")
+    if plans_out["variant_in"]["phase1_groups_read"]:
+        raise AssertionError("variant_in read data in phase one")
+    for key in ("pair_count", "histogram", "segmented_polyhash",
+                "segment_reduce", "segmented_affine"):
+        if launches[key] == 0:
+            raise AssertionError(f"query path launched no {key}: {launches}")
+
+    # the group-state algebra: per-group folds of L1, merged
+    dims = engine.Dims(NUM_ACTIVITIES, NUM_CASES)
+    groups = list(ChunkedEventFrame.from_edf(
+        path, columns=[CASE, ACTIVITY, TIMESTAMP], device="cuda"))
+    merged_ok, t_fold, t_merge = [], 0.0, 0.0
+    for vname, spec in sorted(engine.kernel_specs().items()):
+        kernel = spec.make(dims)
+        if not engine.mergeable(kernel):
+            continue
+        t0 = time.perf_counter()
+        states = [engine.fold_group(kernel, [ch]) for ch in groups]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        merged = engine.merge_tree(kernel, states)
+        torch.cuda.synchronize()
+        t_fold += t1 - t0
+        t_merge += time.perf_counter() - t1
+        same_result(torch, f"merge_tree {vname} vs run_streaming",
+                    engine.finalize_group(kernel, merged),
+                    run_streaming(kernel, groups, device="cuda"))
+        merged_ok.append(vname)
+    del groups
+
+    # execute_grouped twice: the second collect is served from the cache
+    statecache.state_cache().clear()
+    grouped = {}
+    band_plan = plans["case_band"][0]
+    for kname, k in kernels.items():
+        fp = statecache.spec_fingerprint(kname, dims)
+        t0 = time.perf_counter()
+        first, rep1 = qexec.execute_grouped(band_plan, k, fp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        second, rep2 = qexec.execute_grouped(band_plan, k, fp)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host = dfg_host if kname == "dfg" else fp_host
+        for i, (x, y, z) in enumerate(zip(host(first), host(second),
+                                          host(got["case_band", kname]))):
+            check_equal(f"execute_grouped {kname}[{i}] first vs execute", x, z)
+            check_equal(f"execute_grouped {kname}[{i}] cached vs first", y, x)
+        if not (rep2.groups_read == 0 and rep2.groups_cached == rep1.groups_read > 0):
+            raise AssertionError(f"execute_grouped {kname} missed the cache: "
+                                 f"{rep1.to_dict()} then {rep2.to_dict()}")
+        grouped[kname] = {"first_s": t1 - t0, "cached_s": t2 - t1,
+                          "first": {f: getattr(rep1, f) for f in (
+                              "groups_read", "groups_folded", "groups_cached",
+                              "groups_skipped", "groups_proved")},
+                          "cached": {f: getattr(rep2, f) for f in (
+                              "groups_read", "groups_folded", "groups_cached",
+                              "groups_skipped", "groups_proved")},
+                          "cache_bytes": statecache.state_cache().bytes}
+
+    # the prefetch thread: a full scan of L1 through the query layer (the
+    # DFG, two columns) at depth 0 and 1, in turns 0, 1, 1, 0
+    reader = edf.pooled_reader(path)
+    decode = {"s": 0.0}
+    inner = reader.read_group_numpy
+
+    def timed_read(index, columns=None):
+        t0 = time.perf_counter()
+        out = inner(index, columns)
+        decode["s"] += time.perf_counter() - t0
+        return out
+
+    full = query.Plan(path).project([CASE, ACTIVITY])
+    runs, results = [], {}
+    reader.read_group_numpy = timed_read
+    try:
+        for depth in (0, 1, 1, 0):
+            decode["s"] = 0.0
+            t0 = time.perf_counter()
+            res, rep = query.execute(full, kernels["dfg"], prefetch=depth)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs.append({"depth": depth, "wall_s": wall,
+                         "read_decode_s": decode["s"],
+                         "read_decode_share": decode["s"] / wall,
+                         "events_per_s": len(case_np) / wall,
+                         "groups_read": rep.groups_read})
+            results.setdefault(depth, dfg_host(res))
+    finally:
+        del reader.read_group_numpy
+    for i, (x, y) in enumerate(zip(results[0], results[1])):
+        check_equal(f"prefetch depth 1 vs 0 [{i}]", y, x)
+    for i, (x, y) in enumerate(zip(results[0], numpy_dfg(case_np, act_np,
+                                                         NUM_ACTIVITIES))):
+        check_equal(f"full query scan [{i}] vs numpy oracle", x, y)
+    return ({"phase": "query_path", "events": len(case_np), "chunks": chunks,
+             "num_cases": ncases, "file_bytes": total_bytes, "plans": plans_out,
+             "launches": launches,
+             "group_states": {"verbs": merged_ok, "fold_s": t_fold,
+                              "merge_s": t_merge,
+                              "bitwise_equal_to": "run_streaming"},
+             "execute_grouped": grouped, "prefetch": runs,
+             "bitwise_equal_to": ["eager_filter_then_mine_on_card",
+                                  "plain_lowering_on_card", "numpy_oracle"],
+             "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi},
+            launches)
 
 
 def check_equal(label: str, got: np.ndarray, want: np.ndarray) -> None:
@@ -2338,6 +2657,11 @@ def main() -> int:
               "nvidia_smi": smi})
         emit({"phase": "discovery_path_profile",
               **idle_share(torch, lambda: run_streaming(h_kernel, source), t_disc)})
+
+        # ------ query path: pruned plans, group states, the prefetch thread
+        q_phase, launches["query_path"] = query_path(
+            torch, smi, path, case_np, act_np, ts_np, sk, frame_gpu, chunks)
+        emit(q_phase)
 
         # ------------------- serve path: eventlm-100m, prefill + decode
         serve, launches["serve_path"] = serve_path(torch, smi)

@@ -14,6 +14,10 @@ Resolution goes by the device of the tensors a primitive is given:
 2. otherwise a CUDA tensor takes the kernel and a CPU tensor the plain
    version.
 
+The JAX package's names are accepted too, so its call sites carry over:
+``"xla"`` (its reference lowering) means ``"ref"`` and ``"pallas"`` (its
+kernels) means ``"cuda"``.
+
 There is no process-wide switch or environment variable that moves CUDA
 tensors onto the plain path: on a CUDA tensor a primitive launches its
 kernel or raises.
@@ -23,13 +27,16 @@ from __future__ import annotations
 import torch
 
 IMPLS = ("auto", "cuda", "ref")
+# the JAX package's lowering names, mapped onto the port's
+JAX_IMPLS = {"xla": "ref", "pallas": "cuda"}
 
 
 def resolve(device, impl: str | None = None) -> str:
     """Concrete lowering for a primitive on ``device``: ``"cuda"`` or ``"ref"``."""
     if impl is None or impl == "auto":
         return "cuda" if torch.device(device).type == "cuda" else "ref"
+    impl = JAX_IMPLS.get(impl, impl)
     if impl not in IMPLS:
-        raise ValueError(f"unknown segment-ops impl {impl!r}; "
-                         f"expected one of {IMPLS}")
+        raise ValueError(f"unknown segment-ops impl {impl!r}; expected one "
+                         f"of {IMPLS} or the JAX names {tuple(JAX_IMPLS)}")
     return impl

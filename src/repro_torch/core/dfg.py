@@ -130,7 +130,10 @@ def stitch_dfg_state(A: DFG, B: DFG, a_tail: dict, b_row0: dict,
       (``a``'s own fold deferred that end to ``finalize``, which never ran).
 
     ``a_tail`` and ``b_row0`` are host dicts (``act`` int, ``rv`` bool).
-    Integer state, so the reconstruction is bitwise.
+    Integer state, so the reconstruction is bitwise.  The sums are new
+    tensors, so the corrections never write into ``A`` or ``B``.  Shared by
+    the dfg, alpha, discovery and heuristics kernels (the latter two
+    through their embedded DFG state).
     """
     counts = A.counts + B.counts
     starts = A.starts + B.starts
@@ -145,6 +148,11 @@ def stitch_dfg_state(A: DFG, B: DFG, a_tail: dict, b_row0: dict,
     elif a_tail["rv"] and 0 <= a_tail["act"] < a:
         ends[a_tail["act"]] += 1
     return DFG(counts, starts, ends)
+
+
+def _dfg_stitch(ctx: engine.StitchCtx):
+    return stitch_dfg_state(ctx.a.state, ctx.b.state, ctx.a.tail,
+                            ctx.b.head["rows"][0], ctx.straddle), {}
 
 
 @lru_cache(maxsize=None)
@@ -180,7 +188,7 @@ def _dfg_kernel(num_activities: int, impl: str | None) -> engine.ChunkKernel:
 
     return engine.ChunkKernel(f"dfg[{impl or 'auto'}]", init, update,
                               engine.tree_sum, finalize,
-                              columns=(CASE, ACTIVITY))
+                              columns=(CASE, ACTIVITY), stitch=_dfg_stitch)
 
 
 # ------------------------------------------------- whole-log entry points

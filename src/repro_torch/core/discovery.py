@@ -34,7 +34,7 @@ import torch
 from repro_torch.kernels.segment_ops import pair_count
 
 from . import engine
-from .dfg import DFG, _method_impl, dfg_kernel
+from .dfg import DFG, _method_impl, dfg_kernel, stitch_dfg_state
 from .eventframe import ACTIVITY, CASE, EventFrame
 
 
@@ -350,9 +350,51 @@ def discovery_kernel(num_activities: int,
     def finalize(state, carry):
         return DiscoveryState(dk.finalize(state["dfg"], carry), state["l2"])
 
+    def stitch(ctx):
+        # the DFG half shares the one-row-halo stitch; the L2 half needs
+        # the *two*-row halo: triples landing on b's first two rows were
+        # invisible to b's fresh fold (its two-back carry had exists=False)
+        at = ctx.a.tail
+        ac = ctx.a.carry
+        rows_b = ctx.b.head["rows"]
+        b0 = rows_b[0]
+        dfg_s = stitch_dfg_state(ctx.a.state["dfg"], ctx.b.state["dfg"],
+                                 at, b0, ctx.straddle)
+        l2 = ctx.a.state["l2"] + ctx.b.state["l2"]      # a new tensor
+
+        def add(i, j):
+            if 0 <= i < a and 0 <= j < a:
+                l2[i, j] += 1
+
+        if ctx.straddle and at["rv"] and b0["rv"]:
+            # triple (a[-2], a[-1], b0): a's two-back halo is in its carry
+            exists2, rv2, case2, act2 = torch.stack([
+                ac["exists2"].to(torch.int64), ac["rv2"].to(torch.int64),
+                ac["case2"].to(torch.int64),
+                ac["act2"].to(torch.int64)]).tolist()
+            if exists2 and rv2 and case2 == b0["case"] and act2 == b0["act"]:
+                add(act2, at["act"])
+            # triple (a[-1], b0, b1): needs b's second leading row
+            if ctx.b.rows >= 2:
+                b1 = rows_b[1]
+                if (b1["case"] == b0["case"] and b1["rv"]
+                        and b1["case"] == at["case"]
+                        and b1["act"] == at["act"]):
+                    add(at["act"], b0["act"])
+        overrides = {}
+        if ctx.b.rows == 1:
+            # the merged two-back row is a's last row, which b's one-row
+            # fold could not know
+            dev = ac["case"].device
+            overrides = {
+                k: torch.tensor(v, dtype=engine.CARRY_DTYPES[k], device=dev)
+                for k, v in (("case2", at["case"]), ("act2", at["act"]),
+                             ("rv2", at["rv"]), ("exists2", True))}
+        return {"dfg": dfg_s, "l2": l2}, overrides
+
     return engine.ChunkKernel(f"discovery[{method}]", init, update,
                               engine.tree_sum, finalize,
-                              columns=(ACTIVITY, CASE))
+                              columns=(ACTIVITY, CASE), stitch=stitch)
 
 
 def alpha_kernel(num_activities: int, min_count: int = 1,
@@ -362,7 +404,7 @@ def alpha_kernel(num_activities: int, min_count: int = 1,
     return engine.ChunkKernel(
         f"alpha[{dk.name}]", dk.init, dk.update, dk.merge,
         lambda s, c: discover_alpha(dk.finalize(s, c), min_count),
-        mask_exact=dk.mask_exact, columns=dk.columns)
+        mask_exact=dk.mask_exact, columns=dk.columns, stitch=dk.stitch)
 
 
 def heuristics_kernel(num_activities: int, method: str = "auto",
@@ -372,7 +414,7 @@ def heuristics_kernel(num_activities: int, method: str = "auto",
     return engine.ChunkKernel(
         f"heuristics[{k.name}]", k.init, k.update, k.merge,
         lambda s, c: discover_heuristics(k.finalize(s, c), **thresholds),
-        mask_exact=k.mask_exact, columns=k.columns)
+        mask_exact=k.mask_exact, columns=k.columns, stitch=k.stitch)
 
 
 # ------------------------------------------------- whole-log entry points

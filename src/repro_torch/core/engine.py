@@ -35,6 +35,7 @@ from typing import Any, Callable, Iterable, Mapping, NamedTuple
 import numpy as np
 import torch
 
+from . import polyhash
 from .eventframe import ACTIVITY, CASE, TIMESTAMP, EventFrame
 
 State = Any
@@ -46,11 +47,27 @@ Chunk = EventFrame
 class ChunkKernel:
     """A log algorithm in mergeable chunk form (see module docstring).
 
-    ``mask_exact`` declares that rows masked out by ``row_valid``
-    contribute nothing to the state (they may still move the carry's case
-    bookkeeping).  ``columns`` names the event columns ``update`` reads (the
-    projection a scan must materialize); the empty tuple means "unknown —
-    read everything".
+    ``mask_exact`` declares the kernel stays exact on a pruned stream:
+    either rows masked out by ``row_valid`` contribute nothing to the state
+    (they may still move the carry's case bookkeeping), or the kernel
+    recovers what they would have contributed from the ghost-chunk
+    metadata the query layer supplies.  ``columns`` names the event columns
+    ``update`` reads (the projection a scan must materialize); the empty
+    tuple means "unknown — read everything".
+
+    ``ghost_sketch`` asks the query layer to attach per-segment affine
+    polyhash maps (``core.polyhash.SKETCH_COLUMNS``, composed from EDF
+    header sketches) to the ghost chunks it synthesizes: how the variants
+    kernel replays the validity-blind hash of skipped runs without reading
+    them.
+
+    ``stitch`` is the kernel's *group-state algebra*: given a
+    :class:`StitchCtx` pairing two :class:`GroupState` fresh folds, it
+    returns the state (and carry overrides) of the fresh fold of the
+    concatenation — an O(1) boundary-halo fix on top of elementwise
+    combination.  ``None`` marks the kernel non-mergeable at the group
+    level (order-sensitive float accumulation).  A stitch never writes into
+    the tensors of the states it is given: cached states are merged again.
     """
 
     name: str
@@ -60,6 +77,8 @@ class ChunkKernel:
     finalize: Callable[[State, Carry], Any]
     mask_exact: bool = True
     columns: tuple = ()
+    ghost_sketch: bool = False
+    stitch: Callable[["StitchCtx"], tuple[State, dict]] | None = None
 
 
 # ------------------------------------------------------- kernel registry
@@ -77,13 +96,16 @@ class KernelSpec:
 
     * ``make(dims, **kwargs)`` — build the :class:`ChunkKernel`;
     * ``columns`` — the event columns the kernel's ``update`` reads;
-    * ``doc`` — one line for listings.
+    * ``doc`` — one line for listings;
+    * ``members`` — for fused specs (:func:`compose_specs`): the member
+      verb names, in collection order (empty for an ordinary verb).
     """
 
     name: str
     make: Callable[..., ChunkKernel]
     columns: tuple
     doc: str = ""
+    members: tuple = ()
 
 
 _KERNEL_SPECS: dict[str, KernelSpec] = {}
@@ -274,6 +296,322 @@ def run_single(kernel: ChunkKernel, frame: Chunk):
     return kernel.finalize(state, carry)
 
 
+# ------------------------------------------------- group-state algebra
+# A GroupState is the *fresh* fold of a kernel over one contiguous unit of
+# the sorted log (a row group, a whole file): state + carry from ``init``,
+# case segments numbered locally from 0, plus the boundary halo a later
+# merge needs — the unit's leading row(s) and the lead run's
+# histogram/affine summaries.  ``merge_group_states`` reconstructs, bitwise,
+# the fresh fold of the concatenation of two units, so
+#
+#     finalize(merge_tree([fold_group(unit) for unit in units]))
+#     ==  run_streaming(kernel, all chunks)            (bitwise)
+#
+# for every kernel with a ``stitch``.
+@dataclasses.dataclass
+class GroupState:
+    """Fresh fold of one contiguous unit: mergeable, cacheable, re-usable.
+
+    ``head`` / ``tail`` are the boundary halo (host-side Python values):
+    ``head["rows"]`` holds up to two leading physical rows (the two-row
+    stitch the L2-loop kernels need), ``head["hist"]`` the valid-activity
+    histogram of the unit's *lead run* (all leading rows of its first
+    case — the EFG cross term), ``head["affine"]`` the validity-blind
+    polyhash map of that lead run (the variants hash correction).
+    ``segments``/``rows`` count case segments (locally numbered from 0)
+    and physical rows.  ``rows == 0`` is the merge identity.  The state and
+    carry tensors are never written once the fold returns.
+    """
+
+    state: State
+    carry: Carry
+    head: dict | None
+    tail: dict | None
+    segments: int
+    rows: int
+
+
+class StitchCtx(NamedTuple):
+    """Everything a kernel ``stitch`` may consult to merge ``a ++ b``:
+    ``straddle`` says the boundary splits one case segment, ``offset`` is
+    the relabel added to ``b``'s local segment ids (``a.segments``, minus
+    one when the straddling segment keeps ``a``'s numbering)."""
+
+    a: GroupState
+    b: GroupState
+    straddle: bool
+    offset: int
+
+
+def mergeable(kernel: ChunkKernel) -> bool:
+    """Does this kernel support the group-state algebra (has a stitch)?"""
+    return kernel.stitch is not None
+
+
+def tensor_leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a state or carry tree (tensors, dicts, tuples, lists
+    and dataclasses of them), in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in tree for t in tensor_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in tensor_leaves(x)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [t for f in dataclasses.fields(tree)
+                for t in tensor_leaves(getattr(tree, f.name))]
+    return []
+
+
+def empty_group_state(kernel: ChunkKernel, device) -> GroupState:
+    """The merge identity: the fresh fold of zero rows, on ``device`` (the
+    port's ``init`` takes a device; the JAX package's takes none)."""
+    state, carry = kernel.init(device)
+    return GroupState(state, carry, None, None, 0, 0)
+
+
+def shift_segments(arr: torch.Tensor, offset: int, fill=0) -> torch.Tensor:
+    """Relabel a per-segment state vector by ``offset`` slots (how a merge
+    maps ``b``'s local segment ids into the concatenation's numbering).
+    Entries shifted past capacity drop — matching the sequential fold's
+    out-of-range scatter drop.  Returns a new tensor (or ``arr`` itself for
+    ``offset <= 0``); ``arr`` is never written."""
+    if offset <= 0:
+        return arr
+    cap = arr.shape[0]
+    out = torch.full_like(arr, fill)
+    if offset < cap:
+        out[offset:] = arr[:cap - offset]
+    return out
+
+
+def _compose4(a: tuple, b: tuple) -> tuple:
+    """Compose two (mul1, add1, mul2, add2) affine-map quadruples."""
+    m1, a1 = polyhash.compose(a[0], a[1], b[0], b[1])
+    m2, a2 = polyhash.compose(a[2], a[3], b[2], b[3])
+    return (m1, a1, m2, a2)
+
+
+def _u32_host(col: torch.Tensor) -> torch.Tensor:
+    """A uint32 column (bit patterns in int32, or ``torch.uint32``) as int64
+    values in [0, 2^32), on its device."""
+    if col.dtype == torch.uint32:
+        col = col.view(torch.int32)
+    return col.to(torch.int64) & polyhash.M32
+
+
+def _chunk_halo(chunk: Chunk, lead_open: bool, heads_missing: int):
+    """What :func:`fold_group` reads of one chunk, copied to the host in one
+    transfer: the case-change count, the lead run's length ``k``, the first
+    ``p`` rows' (case, act, rv) with ``p`` covering the lead run (when it
+    may still be open) and the missing head rows, the last row, and, on a
+    ghost chunk, the lead run's sketch maps.  On a card that is two small
+    reads, never the chunk's columns."""
+    case = chunk[CASE]
+    n = case.shape[0]
+    if n > 1:
+        change = case[1:] != case[:-1]
+        nchg, first = torch.stack(
+            [change.sum(), torch.argmax(change.to(torch.int32))]).tolist()
+    else:
+        nchg, first = 0, 0
+    k = first + 1 if nchg else n
+    p = max(1, min(n, heads_missing), k if lead_open else 0)
+    act = chunk[ACTIVITY]
+    rv = chunk.rows_valid()
+    parts = [case[:p].to(torch.int64), act[:p].to(torch.int64),
+             rv[:p].to(torch.int64),
+             torch.stack([case[-1].to(torch.int64), act[-1].to(torch.int64),
+                          rv[-1].to(torch.int64)])]
+    sketch = lead_open and polyhash.SK_MUL1 in chunk
+    if sketch:
+        parts += [_u32_host(chunk[c][:k]) for c in polyhash.SKETCH_COLUMNS]
+    flat = torch.cat(parts).cpu().numpy()
+    rows = {"case": flat[:p], "act": flat[p:2 * p],
+            "rv": flat[2 * p:3 * p].astype(bool)}
+    last = flat[3 * p:3 * p + 3]
+    maps = None
+    if sketch:
+        maps = flat[3 * p + 3:].reshape(4, k)
+    return nchg, k, rows, last, maps
+
+
+def fold_group(kernel: ChunkKernel, chunks: Iterable[Chunk],
+               device=None) -> GroupState:
+    """Fold a kernel *freshly* over one contiguous unit of the stream,
+    capturing the boundary halo a later :func:`merge_group_states` needs.
+
+    The state/carry fold is exactly :func:`run_streaming`'s loop (bitwise).
+    The halo is read from each chunk by :func:`_chunk_halo`: the segment
+    count and first case change are found on the chunk's device, and only
+    the lead run (one case), the first two rows and the last row come back
+    to the host; halo values are Python ints, as in the JAX package.  Ghost
+    chunks participate like real ones: their rows are masked (so the lead
+    histogram stays empty) and their sketch columns supply the lead run's
+    composed affine map.  The state lives on ``device``, else on the first
+    chunk's device; a unit with no rows needs ``device``.
+    """
+    state = carry = None
+    if device is not None:
+        state, carry = kernel.init(device)
+    segments = 0
+    rows = 0
+    head_rows: list[dict] = []
+    hist: dict[int, int] = {}
+    affine = (1, 0, 1, 0)
+    lead_open = True
+    first_case = None
+    tail = None
+    for chunk in chunks:
+        n = int(chunk.nrows)
+        if n == 0:
+            continue
+        if state is None:
+            state, carry = kernel.init(chunk.device)
+        nchg, k, head, last, maps = _chunk_halo(chunk, lead_open,
+                                                2 - len(head_rows))
+        case, act, rv = head["case"], head["act"], head["rv"]
+        cont = rows > 0 and int(case[0]) == tail["case"]
+        segments += 1 + nchg - (1 if cont else 0)
+        if rows == 0:
+            first_case = int(case[0])
+        while len(head_rows) < 2 and len(head_rows) < rows + n:
+            i = len(head_rows) - rows
+            head_rows.append({"case": int(case[i]), "act": int(act[i]),
+                              "rv": bool(rv[i])})
+        if lead_open and rows > 0 and not cont:
+            lead_open = False
+        if lead_open:
+            counts = np.bincount(act[:k][rv[:k]])
+            for a_id in np.flatnonzero(counts):
+                hist[int(a_id)] = hist.get(int(a_id), 0) + int(counts[a_id])
+            if maps is not None:
+                m1, a1, m2, a2 = maps
+                for i in np.flatnonzero((m1 != 1) | (a1 != 0)
+                                        | (m2 != 1) | (a2 != 0)):
+                    affine = _compose4(affine, (int(m1[i]), int(a1[i]),
+                                                int(m2[i]), int(a2[i])))
+            else:
+                sk = polyhash.segment_sketch(act[:k], np.zeros(k, np.int64))
+                affine = _compose4(affine, (int(sk["mul1"][0]),
+                                            int(sk["add1"][0]),
+                                            int(sk["mul2"][0]),
+                                            int(sk["add2"][0])))
+            if nchg:
+                lead_open = False
+        state, carry = kernel.update(state, carry, chunk)
+        rows += n
+        tail = {"case": int(last[0]), "act": int(last[1]),
+                "rv": bool(last[2])}
+    if state is None:
+        raise ValueError("fold_group: a unit with no rows needs a device")
+    if rows == 0:
+        return GroupState(state, carry, None, None, 0, 0)
+    head = {"case": first_case, "rows": tuple(head_rows),
+            "hist": hist, "affine": affine}
+    return GroupState(state, carry, head, tail, segments, rows)
+
+
+def _shift_carry(carry, offset: int):
+    """Recursively relabel every ``"seg"`` entry of a (possibly composed)
+    carry by the merge's segment offset (int32 stays int32)."""
+    if not isinstance(carry, dict):
+        return carry
+    out = {}
+    for k, v in carry.items():
+        if k == "seg":
+            out[k] = v + offset
+        elif isinstance(v, dict):
+            out[k] = _shift_carry(v, offset)
+        else:
+            out[k] = v
+    return out
+
+
+def _apply_overrides(carry: dict, overrides: dict) -> dict:
+    out = dict(carry)
+    for k, v in overrides.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _apply_overrides(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def _merge_head(a: GroupState, b: GroupState, straddle: bool) -> dict:
+    head = dict(a.head)
+    head["rows"] = (a.head["rows"] + b.head["rows"])[:2]
+    if straddle and a.segments == 1:
+        # a is entirely one case run that continues into b: the merged
+        # unit's lead run is a's rows followed by b's lead run
+        hist = dict(a.head["hist"])
+        for act, cnt in b.head["hist"].items():
+            hist[act] = hist.get(act, 0) + cnt
+        head["hist"] = hist
+        head["affine"] = _compose4(a.head["affine"], b.head["affine"])
+    return head
+
+
+def merge_group_states(kernel: ChunkKernel, a: GroupState,
+                       b: GroupState) -> GroupState:
+    """The algebra's ``merge``: the fresh fold of ``a ++ b``, bitwise.
+
+    Elementwise state combination plus the kernel's O(1) boundary stitch;
+    ``b``'s carry becomes the merged carry with its local segment ids
+    relabelled (and any kernel-specific overrides applied).  Associative
+    — merging reconstructs fresh folds, so any merge-tree shape over the
+    same ordered units yields the same bits.  Neither input is written.
+    """
+    if a.rows == 0:
+        return b
+    if b.rows == 0:
+        return a
+    if kernel.stitch is None:
+        raise ValueError(
+            f"kernel {kernel.name!r} has no group-state stitch "
+            "(order-sensitive float state); use the sequential fold")
+    straddle = a.tail["case"] == b.head["case"]
+    offset = a.segments - (1 if straddle else 0)
+    state, overrides = kernel.stitch(StitchCtx(a, b, straddle, offset))
+    carry = _shift_carry(b.carry, offset)
+    if overrides:
+        carry = _apply_overrides(carry, overrides)
+    return GroupState(state, carry, _merge_head(a, b, straddle), b.tail,
+                      a.segments + b.segments - (1 if straddle else 0),
+                      a.rows + b.rows)
+
+
+def merge_tree(kernel: ChunkKernel, states: Iterable[GroupState],
+               device=None) -> GroupState:
+    """Reduce ordered unit states pairwise (a balanced merge tree).
+
+    The tree shape is a free choice — the merge is bitwise-associative.
+    With no nonempty state the result is the identity on ``device``, else
+    on the device of the first state given.
+    """
+    states = [s for s in states if s is not None]
+    level = [s for s in states if s.rows > 0]
+    if not level:
+        if device is None:
+            leaves = [t for s in states for t in tensor_leaves(s.state)]
+            if not leaves:
+                raise ValueError("merge_tree: no states and no device")
+            device = leaves[0].device
+        return empty_group_state(kernel, device)
+    while len(level) > 1:
+        nxt = [merge_group_states(kernel, level[i], level[i + 1])
+               for i in range(0, len(level) - 1, 2)]
+        if len(level) % 2:
+            nxt.append(level[-1])
+        level = nxt
+    return level[0]
+
+
+def finalize_group(kernel: ChunkKernel, gs: GroupState):
+    """Terminal step of the algebra: the kernel's ordinary ``finalize``."""
+    return kernel.finalize(gs.state, gs.carry)
+
+
 def union_columns(column_sets: Iterable[tuple]) -> tuple:
     """Union column requirements in first-seen order; any *unknown* set
     (the empty tuple) makes the union unknown — read everything."""
@@ -293,8 +631,9 @@ def compose(kernels: Mapping[str, ChunkKernel]) -> ChunkKernel:
     States/carries are dicts keyed like ``kernels``; ``finalize`` returns a
     dict of results.  One disk scan computes a whole dashboard panel.  The
     fused kernel's ``columns`` is the union of the members' column
-    requirements (unknown if any member's is unknown) and ``mask_exact``
-    the conjunction.
+    requirements (unknown if any member's is unknown), ``mask_exact`` the
+    conjunction, and ``ghost_sketch`` the disjunction — one
+    sketch-consuming member is enough for ghost chunks to carry sketches.
     """
     names = tuple(kernels)
 
@@ -315,11 +654,64 @@ def compose(kernels: Mapping[str, ChunkKernel]) -> ChunkKernel:
     def finalize(state, carry):
         return {k: kernels[k].finalize(state[k], carry[k]) for k in names}
 
+    # the fused kernel joins the group-state algebra exactly when every
+    # member does: its stitch slices the dict state/carry per member and
+    # runs each member's stitch under the shared boundary halo
+    stitch = None
+    if all(k.stitch is not None for k in kernels.values()):
+        def stitch(ctx):
+            states, overrides = {}, {}
+            for k in names:
+                sub = StitchCtx(
+                    dataclasses.replace(ctx.a, state=ctx.a.state[k],
+                                        carry=ctx.a.carry[k]),
+                    dataclasses.replace(ctx.b, state=ctx.b.state[k],
+                                        carry=ctx.b.carry[k]),
+                    ctx.straddle, ctx.offset)
+                states[k], over = kernels[k].stitch(sub)
+                if over:
+                    overrides[k] = over
+            return states, overrides
+
     return ChunkKernel("compose(" + ",".join(names) + ")",
                        init, update, merge, finalize,
                        mask_exact=all(k.mask_exact for k in kernels.values()),
                        columns=union_columns(
-                           k.columns for k in kernels.values()))
+                           k.columns for k in kernels.values()),
+                       ghost_sketch=any(
+                           k.ghost_sketch for k in kernels.values()),
+                       stitch=stitch)
+
+
+def compose_specs(specs: Mapping[str, KernelSpec]) -> KernelSpec:
+    """Fuse registered verbs into one first-class :class:`KernelSpec`.
+
+    Its ``make`` builds the :func:`compose` of the member kernels
+    (``verb_kwargs`` routes per-verb options), its ``columns`` is the union
+    of the member column sets.  Results come back as ``{verb: result}``,
+    bitwise equal per verb to running each member alone.
+    """
+    specs = dict(specs)
+    if not specs:
+        raise ValueError("compose_specs() needs at least one verb")
+    names = tuple(specs)
+
+    def make(dims: Dims, verb_kwargs: Mapping[str, dict] | None = None,
+             **common) -> ChunkKernel:
+        vk = dict(verb_kwargs or {})
+        unknown = set(vk) - set(names)
+        if unknown:
+            raise KeyError(f"verb_kwargs for verbs not in the fused set: "
+                           f"{sorted(unknown)} (fusing {list(names)})")
+        return compose({v: specs[v].make(dims, **{**common, **vk.get(v, {})})
+                        for v in names})
+
+    return KernelSpec(
+        name="fused(" + ",".join(names) + ")",
+        make=make,
+        columns=union_columns(s.columns for s in specs.values()),
+        doc="fused multi-verb collection: " + ", ".join(names),
+        members=names)
 
 
 def tree_sum(a, b):

@@ -66,6 +66,8 @@ def _performance_dfg_kernel(num_activities: int, impl: str | None) -> engine.Chu
         counts, total = state
         return counts, total / torch.clamp(counts, min=1)
 
+    # stitch=None: the float32 wait totals accumulate in row order, so the
+    # kernel keeps the sequential fold
     return engine.ChunkKernel(f"performance_dfg[{a},{impl or 'auto'}]",
                               init, update, engine.tree_sum, finalize,
                               columns=(ACTIVITY, CASE, TIMESTAMP))
@@ -101,9 +103,29 @@ def _eventually_follows_kernel(num_activities: int, impl: str | None) -> engine.
     def finalize(state, carry):
         return state.to(torch.int32)
 
+    def stitch(ctx):
+        # b's lead-run rows scanned from a zero prefix; the concatenation
+        # threads a's open prefix through them, adding exactly
+        # outer(a.prefix, lead-run valid-activity histogram).  All values
+        # are integer-valued float32 < 2^24, so the cross term is exact.
+        state = ctx.a.state + ctx.b.state
+        overrides = {}
+        if ctx.straddle:
+            hist = torch.zeros(a, dtype=torch.float32)
+            for act, cnt in ctx.b.head["hist"].items():
+                if 0 <= act < a:
+                    hist[act] = cnt
+            prefix = ctx.a.carry["prefix"]
+            state = state + torch.outer(prefix, hist.to(prefix.device))
+            if ctx.b.segments == 1:
+                # the straddling case is still open: its true prefix is
+                # both halves' counts
+                overrides["prefix"] = prefix + ctx.b.carry["prefix"]
+        return state, overrides
+
     return engine.ChunkKernel(f"eventually_follows[{a},{impl or 'auto'}]",
                               init, update, engine.tree_sum, finalize,
-                              columns=(ACTIVITY, CASE))
+                              columns=(ACTIVITY, CASE), stitch=stitch)
 
 
 # ------------------------------------------------- whole-log entry points

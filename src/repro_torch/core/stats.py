@@ -67,9 +67,16 @@ def _case_sizes_kernel(num_cases: int, impl: str | None) -> engine.ChunkKernel:
                                        num_cases, "sum", impl=impl)
         return state, engine.next_row_carry(carry, chunk, seg=seg[-1])
 
+    def stitch(ctx):
+        # per-row valid counts are position-free: relabel b's local segment
+        # slots and add (a straddling segment's halves land in one slot)
+        return ctx.a.state + engine.shift_segments(ctx.b.state,
+                                                   ctx.offset), {}
+
     return engine.ChunkKernel(f"case_sizes[{num_cases},{impl or 'auto'}]",
                               init, update, engine.tree_sum,
-                              lambda s, c: s, columns=(ACTIVITY, CASE))
+                              lambda s, c: s, columns=(ACTIVITY, CASE),
+                              stitch=stitch)
 
 
 def case_durations_kernel(num_cases: int, backend: str | None = None) -> engine.ChunkKernel:
@@ -106,9 +113,20 @@ def _case_durations_kernel(num_cases: int, impl: str | None) -> engine.ChunkKern
         tmin, tmax = state
         return torch.where(tmax >= tmin, tmax - tmin, 0.0)
 
+    def stitch(ctx):
+        amin, amax = ctx.a.state
+        bmin, bmax = ctx.b.state
+        # min/max are exact and order-free: shift b's slots (identity
+        # fills) and combine elementwise
+        return (torch.minimum(amin, engine.shift_segments(
+                    bmin, ctx.offset, _FBIG)),
+                torch.maximum(amax, engine.shift_segments(
+                    bmax, ctx.offset, -_FBIG))), {}
+
     return engine.ChunkKernel(f"case_durations[{num_cases},{impl or 'auto'}]",
                               init, update, merge, finalize,
-                              columns=(ACTIVITY, CASE, TIMESTAMP))
+                              columns=(ACTIVITY, CASE, TIMESTAMP),
+                              stitch=stitch)
 
 
 def activity_counts_kernel(num_activities: int, backend: str | None = None) -> engine.ChunkKernel:
@@ -131,7 +149,11 @@ def _activity_counts_kernel(num_activities: int, impl: str | None) -> engine.Chu
 
     return engine.ChunkKernel(f"activity_counts[{a},{impl or 'auto'}]",
                               init, update, engine.tree_sum,
-                              lambda s, c: s, columns=(ACTIVITY, CASE))
+                              lambda s, c: s, columns=(ACTIVITY, CASE),
+                              # boundary-free integer histogram: the merge
+                              # IS the stitch
+                              stitch=lambda ctx: (ctx.a.state + ctx.b.state,
+                                                  {}))
 
 
 def sojourn_times_kernel(num_activities: int, backend: str | None = None) -> engine.ChunkKernel:
@@ -164,6 +186,8 @@ def _sojourn_times_kernel(num_activities: int, impl: str | None) -> engine.Chunk
         tot, cnt = state
         return tot / torch.clamp(cnt, min=1)
 
+    # stitch=None: the float32 dt totals accumulate in row order; regrouping
+    # them is not bitwise-stable, so the kernel keeps the sequential fold
     return engine.ChunkKernel(f"sojourn_times[{a},{impl or 'auto'}]",
                               init, update, engine.tree_sum, finalize,
                               columns=(ACTIVITY, CASE, TIMESTAMP))

@@ -33,7 +33,7 @@ from repro_torch.kernels.segment_ops.ref import u32_values
 
 from . import engine, ops
 from .eventframe import ACTIVITY, CASE, EventFrame
-from .polyhash import BASE1 as _BASE1, BASE2 as _BASE2
+from .polyhash import BASE1 as _BASE1, BASE2 as _BASE2, M32
 from .polyhash import SK_ADD1, SK_ADD2, SK_MUL1, SK_MUL2
 from .stats import _impl, _seg_carry
 
@@ -59,6 +59,29 @@ def _umax_at_(vec: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> torch.
     i = torch.where(ok, i, 0)
     v = torch.where(ok, val.reshape(1).to(vec.dtype), 0)
     return vec.index_put_((i,), _umax(vec[i], v))
+
+
+def _umax_slot(vec: torch.Tensor, slot: int, val: torch.Tensor) -> torch.Tensor:
+    """``vec.at[slot].max(val, mode="drop")`` for a host ``slot``, into a new
+    tensor (``vec`` is a merged state's and is never written)."""
+    out = vec.clone()
+    if 0 <= slot < out.shape[0]:
+        out[slot:slot + 1] = _umax(out[slot:slot + 1], val.reshape(1))
+    return out
+
+
+def _set_slot(vec: torch.Tensor, slot: int, val: int) -> torch.Tensor:
+    """``vec.at[slot].set(val, mode="drop")`` for a host ``slot``, into a new
+    tensor."""
+    out = vec.clone()
+    if 0 <= slot < out.shape[0]:
+        out[slot] = val
+    return out
+
+
+def _bits(h: int) -> int:
+    """A uint32 value as the int32 bit pattern the state holds."""
+    return h - (1 << 32) if h >= 1 << 31 else h
 
 
 def _sketch(chunk: EventFrame, name: str) -> torch.Tensor:
@@ -157,9 +180,50 @@ def _variants_kernel(num_cases: int, impl: str | None) -> engine.ChunkKernel:
             for fp, h in zip(state, ("h1", "h2")))
         return fp1, fp2, torch.clamp(carry["seg"] + 1, min=0)
 
+    def stitch(ctx):
+        afp1, afp2 = ctx.a.state
+        bfp1, bfp2 = ctx.b.state
+        off = ctx.offset
+        ac = ctx.a.carry
+        if not ctx.straddle:
+            # the concatenation closes a's open case at b's first row
+            # (new_seg): the deferred carry hash lands in a's last slot —
+            # exactly the carry-close scatter update() runs at chunk joins
+            slot = ctx.a.segments - 1
+            afp1 = _umax_slot(afp1, slot, ac["h1"])
+            afp2 = _umax_slot(afp2, slot, ac["h2"])
+            return (_umax(afp1, engine.shift_segments(bfp1, off)),
+                    _umax(afp2, engine.shift_segments(bfp2, off))), {}
+        # the boundary splits one case: b's fresh fold hashed its lead run
+        # from h=0, but the true hash threads a's open carry through the
+        # lead run's composed affine map (validity-blind — for ghost units
+        # the map came from header sketches, same bits either way).  The
+        # carry is a uint32 bit pattern: read it unsigned before the map.
+        m1, a1, m2, a2 = ctx.b.head["affine"]
+        h1c = _bits((m1 * (int(ac["h1"]) & M32) + a1) & M32)
+        h2c = _bits((m2 * (int(ac["h2"]) & M32) + a2) & M32)
+        sb1 = engine.shift_segments(bfp1, off)
+        sb2 = engine.shift_segments(bfp2, off)
+        if ctx.b.segments > 1:
+            # the straddling case closed inside b: rewrite its slot with
+            # the corrected hash (a's fold left that slot untouched, and
+            # b's slot 0 held the seed-0 hash)
+            sb1 = _set_slot(sb1, off, h1c)
+            sb2 = _set_slot(sb2, off, h2c)
+            return (_umax(afp1, sb1), _umax(afp2, sb2)), {}
+        # b is entirely the straddling case — still open; fix the carry
+        dev = ac["h1"].device
+        return (_umax(afp1, sb1), _umax(afp2, sb2)), {
+            "h1": torch.tensor(h1c, dtype=torch.int32, device=dev),
+            "h2": torch.tensor(h2c, dtype=torch.int32, device=dev)}
+
+    # hashing ignores row validity (whole-log parity); pruning stays exact
+    # because ghost chunks carry the skipped runs' composed sketch maps
+    # (ghost_sketch=True asks the query layer to attach them)
     return engine.ChunkKernel(f"variants[{num_cases},{impl or 'auto'}]",
                               init, update, merge, finalize,
-                              columns=(ACTIVITY, CASE))
+                              columns=(ACTIVITY, CASE), ghost_sketch=True,
+                              stitch=stitch)
 
 
 # ------------------------------------------------- whole-log entry points

@@ -4,14 +4,16 @@ Each verb is the alpha-miner pattern one level up: the chunk-side work is
 the *existing* mergeable DFG fold (``core.dfg.dfg_kernel``), and the verb
 is a new ``finalize`` that compiles the merged state into a
 :class:`~repro_torch.graph.ir.ProcessGraph` and (for the query verbs) runs
-the semiring closure over it.  State, update and merge are shared verbatim
-with the DFG kernel, so every graph verb streams as the DFG does.
+the semiring closure over it.  State, update, merge and stitch are shared
+verbatim with the DFG kernel, so every graph verb streams, prunes and
+merges per-group states as the DFG does.
 
 ``impl`` (the query verbs) is handed down to the closures and products:
 ``"ref"`` runs the loop of plain products on either device.
 ``timed=True`` (the performance overlay) composes the DFG kernel with
 ``performance_dfg_kernel``; its float32 wait totals are folded in row
-order, so the timed graph is bitwise the JAX package's too.
+order, so the timed graph is bitwise the JAX package's too, and it has no
+stitch (regrouping the float sums is not bitwise-stable).
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ def _timed_base(num_activities: int, method: str) -> engine.ChunkKernel:
 def _wrap(base: engine.ChunkKernel, name: str, finalize) -> engine.ChunkKernel:
     return engine.ChunkKernel(
         f"{name}[{base.name}]", base.init, base.update, base.merge, finalize,
-        mask_exact=base.mask_exact, columns=base.columns)
+        mask_exact=base.mask_exact, columns=base.columns, stitch=base.stitch)
 
 
 def graph_kernel(num_activities: int, timed: bool = False,

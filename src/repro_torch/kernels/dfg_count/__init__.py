@@ -1,4 +1,5 @@
+from . import ops
 from .dfg_count import dfg_count_cuda
 from .ref import dfg_count_ref
 
-__all__ = ["dfg_count_cuda", "dfg_count_ref"]
+__all__ = ["ops", "dfg_count_cuda", "dfg_count_ref"]

@@ -43,12 +43,19 @@ def _resolve(device, impl):
 
 def semiring_matmul(a: torch.Tensor, b: torch.Tensor,
                     semiring: str = "plus_times", *,
-                    impl: str | None = None) -> torch.Tensor:
+                    impl: str | None = None, **blocks) -> torch.Tensor:
     """(M, N) float32 semiring product of ``a @ b`` (see module docstring).
 
     ``impl="ref"`` forces the plain version; otherwise a CUDA tensor takes
-    the kernel and a CPU tensor the plain version.
+    the kernel and a CPU tensor the plain version.  ``blocks`` takes the
+    JAX package's Pallas block sizes (``block_m`` / ``block_n`` /
+    ``block_k``) so its call sites carry over, and ignores them: the CUDA
+    kernel's tile is fixed, and the result does not depend on a tiling.
     """
+    unknown = set(blocks) - {"block_m", "block_n", "block_k"}
+    if unknown:
+        raise TypeError(f"semiring_matmul() got unexpected keyword "
+                        f"arguments {sorted(unknown)}")
     if semiring not in SEMIRINGS:
         raise ValueError(f"unknown semiring {semiring!r}; one of {SEMIRINGS}")
     if _resolve(a.device, impl) == "cuda":

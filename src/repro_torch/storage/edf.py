@@ -27,15 +27,27 @@ affine polyhash coefficients of its activity run, ``core.polyhash``).
 The file format is the JAX package's: files written there read here and
 files written here are byte-identical to that package's for the same
 frame.  Decoding runs on the host; each decoded group is copied to the
-``device`` the caller names (default ``"cuda"``).  Appends, the cached
-random-access reader and the reader pool come with the storage slice.
+``device`` the caller names (default ``"cuda"``).  :class:`EDFReader` is
+the cached random-access view the query planner uses (zone maps, sketches
+and segment counts straight from a v3 header, synthesized once for v1/v2
+files), shared through a :class:`ReaderPool`.  Appends come with the
+storage slice.
+
+Every written header leads with a ``stamp``: a content hash of the rest of
+the header, placed first so :func:`header_tag` can read it from the file's
+first bytes.  ``(st_mtime_ns, st_size, stamp)`` — :func:`file_sig` — is
+the staleness signature a cached reader checks before it touches bytes.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import os
 import struct
+import threading
 import zlib
+from collections import OrderedDict
+from contextlib import contextmanager
 from typing import Iterable, Mapping
 
 import numpy as np
@@ -97,6 +109,50 @@ def _stamp_header(header: dict) -> bytes:
     blob = json.dumps(_json_safe(body), sort_keys=True).encode()
     stamp = hashlib.sha1(blob).hexdigest()[:16]
     return json.dumps({"stamp": stamp, **body}).encode()
+
+
+_TAG_NEEDLE = b'{"stamp": "'
+
+
+def header_tag(path: str) -> str:
+    """Content tag of a file's header — O(1) bytes for stamped files.
+
+    Every file this module (or the JAX package) writes leads its header
+    with a ``stamp`` key, recovered here from the file's first bytes.
+    Files from other producers fall back to hashing up to 64 KiB of the
+    header itself — still content-sensitive, just not O(1).
+    """
+    with open(path, "rb") as f:
+        head = f.read(12 + 64)
+        if len(head) < 12 or head[:8] not in (MAGIC, MAGIC_V2, MAGIC_V3):
+            raise ValueError(f"{path!r} is not an EDF file")
+        (hlen,) = struct.unpack("<I", head[8:12])
+        body = head[12:12 + min(hlen, 64)]
+        if body.startswith(_TAG_NEEDLE):
+            end = body.find(b'"', len(_TAG_NEEDLE))
+            if end > 0:
+                return body[len(_TAG_NEEDLE):end].decode()
+        f.seek(12)
+        return hashlib.sha1(f.read(min(hlen, 65536))).hexdigest()[:16]
+
+
+def file_sig(path: str) -> tuple[int, int, str]:
+    """Staleness signature ``(st_mtime_ns, st_size, header_tag)``.
+
+    The stat pair catches ordinary rewrites cheaply; the header tag
+    catches a same-size rewrite landing within a single mtime tick, so a
+    cached reader can never serve bytes from a file it did not read.
+    """
+    st = os.stat(path)
+    return (st.st_mtime_ns, st.st_size, header_tag(path))
+
+
+class StaleFileError(ValueError):
+    """An EDF file changed on disk under a cached-header reader.
+
+    Subclasses ``ValueError`` so callers that guarded the stat check keep
+    working.
+    """
 
 
 def _group_aux(data: Mapping[str, np.ndarray], valid: Mapping[str, np.ndarray],
@@ -286,13 +342,14 @@ def _tables_from_schema(header: dict) -> dict[str, list]:
     return {c["name"]: c["table"] for c in header["columns"] if "table" in c}
 
 
-def _read_group_numpy(f, base: int, header: dict, group: dict, want
-                      ) -> tuple[dict, dict]:
-    """Read + decode one v2/v3 group's projected columns to numpy."""
-    cols: dict[str, np.ndarray] = {}
-    valid: dict[str, np.ndarray] = {}
+def _fetch_group_v2(f, base: int, header: dict, group: dict, want
+                    ) -> list[tuple]:
+    """Raw (still-compressed) byte extents of one group's projected
+    columns — the only step that touches the file handle, kept apart from
+    :func:`_decode_group_v2` so a reader holds its I/O lock for the
+    seek/read pairs only and decompresses outside it."""
+    fetched: list[tuple] = []
     codec = header.get("codec", "raw")
-    gn = group["nrows"]
     for meta in header["columns"]:
         name = meta["name"]
         if want is not None and name not in want:
@@ -300,17 +357,43 @@ def _read_group_numpy(f, base: int, header: dict, group: dict, want
         ext = group["columns"][name]
         ccodec = meta.get("codec", codec)
         f.seek(base + ext["offset"])
-        buf = _decode(f.read(ext["nbytes"]), ccodec)
-        cols[name] = np.frombuffer(buf, dtype=np.dtype(meta["dtype"])).copy()
+        raw = f.read(ext["nbytes"])
+        vraw = None
         if "valid_offset" in ext:
             f.seek(base + ext["valid_offset"])
-            vraw = _decode(f.read(ext["valid_nbytes"]), ccodec)
-            valid[name] = np.unpackbits(np.frombuffer(vraw, np.uint8),
-                                        count=gn).astype(bool)
+            vraw = f.read(ext["valid_nbytes"])
+        fetched.append((meta, ccodec, raw, vraw))
+    return fetched
+
+
+def _decode_group_v2(fetched: list[tuple], gn: int) -> tuple[dict, dict]:
+    """Decompress + deserialize fetched extents to numpy (no file handle)."""
+    cols: dict[str, np.ndarray] = {}
+    valid: dict[str, np.ndarray] = {}
+    for meta, ccodec, raw, vraw in fetched:
+        name = meta["name"]
+        buf = _decode(raw, ccodec)
+        cols[name] = np.frombuffer(buf, dtype=np.dtype(meta["dtype"])).copy()
+        if vraw is not None:
+            valid[name] = np.unpackbits(
+                np.frombuffer(_decode(vraw, ccodec), np.uint8),
+                count=gn).astype(bool)
     return cols, valid
 
 
+def _read_group_numpy(f, base: int, header: dict, group: dict, want
+                      ) -> tuple[dict, dict]:
+    """Read + decode one v2/v3 group's projected columns to numpy."""
+    return _decode_group_v2(_fetch_group_v2(f, base, header, group, want),
+                            group["nrows"])
+
+
 def _read_v1(path: str, columns, device):
+    cols, valid, tables = _read_v1_numpy(path, columns)
+    return EventFrame.from_numpy(cols, valid, device=device), tables
+
+
+def _read_v1_numpy(path: str, columns):
     header, base = read_header(path)
     want = set(columns) if columns is not None else None
     cols: dict[str, np.ndarray] = {}
@@ -332,7 +415,7 @@ def _read_v1(path: str, columns, device):
                     np.frombuffer(vraw, np.uint8), count=nrows).astype(bool)
             if "table" in meta:
                 tables[name] = meta["table"]
-    return EventFrame.from_numpy(cols, valid, device=device), tables
+    return cols, valid, tables
 
 
 def read(path: str, columns: Iterable[str] | None = None, *, device="cuda"
@@ -389,3 +472,338 @@ def read_streaming(path: str, columns: Iterable[str] | None = None, *,
         for group in header["groups"]:
             cols, valid = _read_group_numpy(f, base, header, group, want)
             yield EventFrame.from_numpy(cols, valid, device=device), tables
+
+
+def file_sizes(path: str) -> dict:
+    """Per-column compressed/raw byte accounting (Table 2 style).
+
+    ``total`` equals ``os.path.getsize(path)`` exactly: magic + header +
+    every column extent *including* the packed validity bitmaps.  ``raw``
+    is the uncompressed size of the column data.  ``groups`` is the
+    per-row-group breakdown (``nrows`` / ``nbytes`` / per-column bytes)
+    the query planner's skip-ratio reporting sums over; v1 files expose
+    their single whole-column block as one pseudo-group.
+    """
+    header, base = read_header(path)
+    out: dict = {"total": base, "raw": 0, "header": base}
+    groups: list[dict] = []
+    if header["version"] == 1:
+        gcols = {}
+        for c in header["columns"]:
+            gcols[c["name"]] = c["nbytes"] + c.get("valid_nbytes", 0)
+            out["raw"] += c["raw_nbytes"]
+        groups.append({"nrows": header["nrows"],
+                       "nbytes": sum(gcols.values()), "columns": gcols})
+    else:
+        for group in header["groups"]:
+            gcols = {}
+            for name, ext in group["columns"].items():
+                gcols[name] = ext["nbytes"] + ext.get("valid_nbytes", 0)
+                out["raw"] += ext["raw_nbytes"]
+            groups.append({"nrows": group["nrows"],
+                           "nbytes": sum(gcols.values()), "columns": gcols})
+    per_col: dict[str, int] = {c["name"]: 0 for c in header["columns"]}
+    for g in groups:
+        for name, nb in g["columns"].items():
+            per_col[name] += nb
+        out["total"] += g["nbytes"]
+    out.update(per_col)
+    out["groups"] = groups
+    return out
+
+
+# ---------------------------------------------------------------- reader
+class EDFReader:
+    """Cached-header random access to an EDF file — the query planner's view.
+
+    One header parse serves every ``read_group`` / ``group_meta`` /
+    ``group_nbytes`` call.  ``group_meta`` returns the zone-map / segment /
+    tail metadata of a row group: for EDFV0003 files straight from the
+    header (no data I/O); for v1/v2 files it is synthesized by loading each
+    group once on first access (a compatibility fallback — correct pruning,
+    but the synthesis pass reads the data it would later skip).
+
+    Reads decode on the host: :meth:`read_group_numpy` returns numpy
+    columns (what a prefetch thread runs — it touches no device), and
+    :meth:`read_group` copies them onto ``device``.
+    """
+
+    def __init__(self, path: str):
+        self.path = path
+        self.header, self.base = read_header(path)
+        self.version: int = self.header["version"]
+        self.tables = _tables_from_schema(self.header)
+        self.schema = {c["name"]: c for c in self.header["columns"]}
+        self.column_names = tuple(sorted(self.schema))
+        self.nrows: int = self.header["nrows"]
+        self._synth: list[dict] | None = None   # v1/v2 metadata cache
+        self._synth_lock = threading.Lock()     # one synthesis per group
+        self._sketch: dict[int, dict] = {}      # decoded/synthesized sketches
+        self._gsig: dict[int, str] = {}         # per-group content signatures
+        self._file = None                       # persistent handle (lazy)
+        self._io_lock = threading.Lock()        # seek/read pairs are shared
+        self._pins = 0                          # pin() snapshot holds
+        self._close_deferred = False            # close() arrived while pinned
+        # the signature must describe the header cached above: if the file
+        # was replaced between the two reads, take the header again
+        sig = file_sig(path)
+        if sig[2] != self.header.get("stamp", sig[2]):
+            self.header, self.base = read_header(path)
+            sig = file_sig(path)
+        self._sig = sig
+
+    # --------------------------------------------------------- file handle
+    def _check_sig(self) -> None:
+        """Re-validate before touching bytes with no open handle: decoding
+        a rewritten file against the cached header would return garbage, so
+        it fails loudly instead."""
+        if file_sig(self.path) != self._sig:
+            raise StaleFileError(
+                f"{self.path!r} changed on disk since this reader cached "
+                f"its header; get a fresh reader via pooled_reader()")
+
+    def _fh(self):
+        """The persistent read handle, reopened transparently if the reader
+        was closed (or evicted from a :class:`ReaderPool`) between uses."""
+        if self._file is None or self._file.closed:
+            self._check_sig()
+            self._file = open(self.path, "rb")
+        return self._file
+
+    @property
+    def closed(self) -> bool:
+        return self._file is None or self._file.closed
+
+    def close(self) -> None:
+        """Release the file handle.  The reader stays usable: the next read
+        reopens the handle.  While a :meth:`pin` is active the close is
+        deferred to the last unpin."""
+        with self._io_lock:
+            if self._pins > 0:
+                self._close_deferred = True
+                return
+            if self._file is not None and not self._file.closed:
+                self._file.close()
+
+    @contextmanager
+    def pin(self):
+        """Hold this reader's snapshot open for the duration of a request:
+        opens the handle now (raising :class:`StaleFileError` now rather
+        than mid-scan if the file already changed) and defers any
+        ``close()`` — including pool eviction — to the last unpin."""
+        with self._io_lock:
+            self._fh()
+            self._pins += 1
+        try:
+            yield self
+        finally:
+            with self._io_lock:
+                self._pins -= 1
+                if self._pins == 0 and self._close_deferred:
+                    self._close_deferred = False
+                    if self._file is not None and not self._file.closed:
+                        self._file.close()
+
+    def __enter__(self) -> "EDFReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    @property
+    def num_groups(self) -> int:
+        return num_row_groups_header(self.header)
+
+    def _groups(self) -> list[dict]:
+        if self.version == 1:
+            # present the single whole-column block as one pseudo-group
+            return [{"nrows": self.nrows, "columns": {
+                c["name"]: c for c in self.header["columns"]}}]
+        return self.header["groups"]
+
+    def group_nrows(self, index: int) -> int:
+        return self._groups()[index]["nrows"]
+
+    def read_group_numpy(self, index: int,
+                         columns: Iterable[str] | None = None
+                         ) -> tuple[dict, dict]:
+        """One row group's projected columns as numpy ``(columns, valid)``."""
+        if self.version == 1:
+            if index != 0:
+                raise IndexError("EDFV0001 has a single row group")
+            self._check_sig()           # v1 re-opens per read: same guard
+            cols, valid, _ = _read_v1_numpy(self.path, columns)
+            return cols, valid
+        group = self.header["groups"][index]
+        want = set(columns) if columns is not None else None
+        # the seek/read pairs on the shared handle must not interleave
+        # across threads; decompression happens outside the lock
+        with self._io_lock:
+            fetched = _fetch_group_v2(self._fh(), self.base, self.header,
+                                      group, want)
+        return _decode_group_v2(fetched, group["nrows"])
+
+    def read_group(self, index: int, columns: Iterable[str] | None = None, *,
+                   device="cuda") -> EventFrame:
+        """One row group's projected columns as a frame on ``device``."""
+        cols, valid = self.read_group_numpy(index, columns)
+        return EventFrame.from_numpy(cols, valid, device=device)
+
+    def group_meta(self, index: int) -> dict:
+        """``{"nrows", "zones", "segments"?, "tail"?, "sketch"?}`` for one
+        row group."""
+        group = self._groups()[index]
+        if "zones" in group:
+            return group
+        # v1/v2 synthesis fallback: serialized so two threads planning over
+        # the same pooled reader synthesize each group exactly once
+        with self._synth_lock:
+            if self._synth is None:
+                self._synth = [dict() for _ in range(self.num_groups)]
+            if not self._synth[index]:
+                data, valid = self.read_group_numpy(index)
+                n = group["nrows"]
+                meta = {"nrows": n}
+                meta.update(_group_aux(data, valid, self.tables, 0, n))
+                self._synth[index] = meta
+            return self._synth[index]
+
+    def group_sketch(self, index: int) -> dict[str, np.ndarray] | None:
+        """Per-segment affine polyhash maps of one row group, as
+        ``{"mul1","add1","mul2","add2"}`` uint32 arrays (one entry per case
+        segment), or ``None`` when the group has no case/activity columns.
+
+        EDFV0003 files written with the sketch band decode it straight from
+        the header; older v3 files (and the v1/v2 synthesis path) fall back
+        to a one-time two-column ``(activity, case)`` read per group.
+        """
+        cached = self._sketch.get(index)
+        if cached is not None:
+            return cached
+        meta = self.group_meta(index)       # v1/v2: synthesizes sketch too
+        if "sketch" in meta:
+            sk = {k: np.frombuffer(bytes.fromhex(meta["sketch"][k]), "<u4")
+                  for k in SKETCH_KEYS}
+        elif ("segments" in meta and ACTIVITY in self.schema
+                and CASE in self.schema):
+            # v3 file from before the sketch band: synthesize lazily from a
+            # projected read of just the two id columns
+            with self._synth_lock:
+                cached = self._sketch.get(index)
+                if cached is not None:
+                    return cached
+                cols, _ = self.read_group_numpy(index, (ACTIVITY, CASE))
+                sk = segment_sketch(cols[ACTIVITY], cols[CASE])
+        else:
+            return None
+        self._sketch[index] = sk
+        return sk
+
+    def group_signature(self, index: int) -> str:
+        """Stable, content-derived signature of one row group.
+
+        Hashes the group's *content* metadata — row count, zone maps,
+        segment count, tail halo, variant sketch bands, and per-column
+        byte sizes — but never byte offsets, so an append that adds groups
+        keeps the signatures of untouched groups (and the state-cache
+        entries keyed on them) stable.
+        """
+        cached = self._gsig.get(index)
+        if cached is not None:
+            return cached
+        meta = self.group_meta(index)
+        group = self._groups()[index]
+        payload = {
+            "nrows": meta.get("nrows"),
+            "zones": meta.get("zones"),
+            "segments": meta.get("segments"),
+            "tail": meta.get("tail"),
+            "sketch": meta.get("sketch"),
+            "columns": sorted(
+                (name, int(ext.get("nbytes", 0)),
+                 int(ext.get("valid_nbytes", 0)))
+                for name, ext in group.get("columns", {}).items()
+                if isinstance(ext, dict)),
+        }
+        blob = json.dumps(_json_safe(payload), sort_keys=True, default=str)
+        sig = hashlib.sha1(blob.encode()).hexdigest()[:16]
+        self._gsig[index] = sig
+        return sig
+
+    def group_nbytes(self, index: int, columns: Iterable[str] | None = None
+                     ) -> int:
+        """On-disk bytes of one group restricted to ``columns`` (data +
+        validity bitmap extents — what a projected read actually touches)."""
+        group = self._groups()[index]
+        want = set(columns) if columns is not None else None
+        total = 0
+        for name, ext in group["columns"].items():
+            if want is not None and name not in want:
+                continue
+            total += ext["nbytes"] + ext.get("valid_nbytes", 0)
+        return total
+
+
+# ------------------------------------------------------------ reader pool
+class ReaderPool:
+    """Shared cache of :class:`EDFReader` instances, keyed by path.
+
+    Every plan over the same file gets the *same* cached-header reader —
+    one header parse, one v1/v2 metadata synthesis, one open handle.
+    Entries are validated against :func:`file_sig` on every ``get``, so a
+    file rewritten in place is picked up fresh; least-recently-used readers
+    beyond ``capacity`` are closed (not invalidated: a plan still holding
+    an evicted reader keeps working because :meth:`EDFReader._fh` reopens).
+    """
+
+    def __init__(self, capacity: int = 16):
+        if capacity <= 0:
+            raise ValueError("capacity must be positive")
+        self.capacity = capacity
+        self._readers: OrderedDict[str, EDFReader] = OrderedDict()
+        self._lock = threading.Lock()   # get/evict race across threads
+
+    def get(self, path: str) -> EDFReader:
+        key = os.path.abspath(path)
+        sig = file_sig(key)
+        evicted = []
+        with self._lock:
+            reader = self._readers.get(key)
+            if reader is not None and reader._sig != sig:
+                evicted.append(reader)         # stale: the file changed
+                reader = None
+            if reader is None:
+                reader = EDFReader(key)
+                self._readers[key] = reader
+            self._readers.move_to_end(key)
+            while len(self._readers) > self.capacity:
+                _, old = self._readers.popitem(last=False)
+                evicted.append(old)
+        for old in evicted:                    # close() takes the reader's
+            old.close()                        # io lock — never mid-read
+        return reader
+
+    def close(self) -> None:
+        """Close every pooled handle (readers reopen lazily if reused)."""
+        with self._lock:
+            readers, self._readers = list(self._readers.values()), \
+                OrderedDict()
+        for reader in readers:
+            reader.close()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._readers)
+
+
+_POOL = ReaderPool()
+
+
+def reader_pool() -> ReaderPool:
+    """The process-wide pool the query planner draws readers from."""
+    return _POOL
+
+
+def pooled_reader(path: str) -> EDFReader:
+    """Shared cached-header reader for ``path`` (see :class:`ReaderPool`)."""
+    return _POOL.get(path)

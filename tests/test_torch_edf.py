@@ -160,3 +160,49 @@ def test_from_synthetic_stream_matches_jax():
     got = tcore.run_streaming(tdfg.dfg_kernel(6), tsrc)
     want = jcore.run_streaming(jdfg.dfg_kernel(6), jsrc)
     np.testing.assert_array_equal(got.counts.numpy(), np.asarray(want.counts))
+
+
+@pytest.mark.parametrize("version,codec,groups", [
+    (1, "zlib1", None), (2, "raw", 37), (2, "zlib6", 50), (3, "zlib1", 64),
+    (3, "raw", 1_000)])
+@pytest.mark.parametrize("with_valid", [False, True])
+def test_reader_metadata_equals_jax(tmp_path, version, codec, groups, with_valid):
+    """``EDFReader`` over a file the JAX package wrote: zone maps, segment
+    counts, tail halos and sketch bands (straight from a v3 header,
+    synthesized for v1/v2), content signatures, per-group byte extents,
+    the file's size accounting and its staleness signature all equal the
+    JAX reader's; each group decodes to the JAX reader's columns."""
+    cols, valid = _cols(5, with_valid=with_valid)
+    p = str(tmp_path / "m.edf")
+    jedf.write(p, jcore.EventFrame.from_numpy(cols, valid), TABLES, codec=codec,
+               row_group_rows=groups, version=version)
+    tr, jr = tedf.EDFReader(p), jedf.EDFReader(p)
+    assert tr.num_groups == jr.num_groups
+    assert (tr.version, tr.nrows, tr.tables, tr.column_names) == \
+        (jr.version, jr.nrows, jr.tables, jr.column_names)
+    for g in range(jr.num_groups):
+        assert tr.group_meta(g) == jr.group_meta(g)
+        tsk, jsk = tr.group_sketch(g), jr.group_sketch(g)
+        assert set(tsk) == set(jsk)
+        for k in jsk:
+            assert tsk[k].dtype == jsk[k].dtype
+            np.testing.assert_array_equal(tsk[k], jsk[k])
+        assert tr.group_signature(g) == jr.group_signature(g)
+        assert tr.group_nrows(g) == jr.group_nrows(g)
+        for proj in (None, [CASE], [ACTIVITY, TIMESTAMP]):
+            assert tr.group_nbytes(g, proj) == jr.group_nbytes(g, proj)
+            got = tr.read_group(g, proj, device="cpu")
+            want = jr.read_group(g, proj)
+            assert set(got.names) == set(want.names)
+            for k in want.names:
+                np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+            for k in want.valid:
+                np.testing.assert_array_equal(got.valid[k].numpy(),
+                                              np.asarray(want.valid[k]))
+    assert tedf.file_sizes(p) == jedf.file_sizes(p)
+    assert tedf.file_sig(p) == jedf.file_sig(p)
+    assert tedf.header_tag(p) == jedf.header_tag(p)
+    tr.close()
+    assert tr.closed
+    tr.read_group(0, device="cpu")           # reopens transparently
+    assert tedf.pooled_reader(p) is tedf.reader_pool().get(p)

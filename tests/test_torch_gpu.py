@@ -969,6 +969,15 @@ def _same_result(got, want, flow_atol=1e-6):
                 _same_result(g, w)
     elif isinstance(want, torch.Tensor):
         assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    elif isinstance(want, (tuple, list)) and len(want) and \
+            isinstance(want[0], torch.Tensor):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _same_result(g, w, flow_atol)
+    elif isinstance(want, dict):
+        assert set(got) == set(want)
+        for k in want:
+            _same_result(got[k], want[k], flow_atol)
     else:
         assert got == want
 
@@ -1229,3 +1238,117 @@ def test_reduced_engine_on_card_equals_cpu(cuda):
     assert flash_attention_cuda.launches == before + 2 * cfg.num_layers
     np.testing.assert_array_equal(got.tokens, want.tokens)
     np.testing.assert_allclose(got.prefill_logits, want.prefill_logits, atol=1e-3)
+
+
+def _query_log(tmp_path, n_cases=20_000, group_rows=8_192):
+    from repro_torch.core import ACTIVITY, CASE, TIMESTAMP
+    from repro_torch.data import synthetic
+    from repro_torch.storage import edf
+
+    frame, tables = synthetic.generate(num_cases=n_cases, num_activities=26,
+                                       seed=9, device="cpu")
+    frame = frame.select([CASE, ACTIVITY, TIMESTAMP])
+    path = str(tmp_path / "q.edf")
+    edf.write(path, frame, {ACTIVITY: tables[ACTIVITY]},
+              row_group_rows=group_rows)
+    return path, frame
+
+
+def test_pruned_variants_scan_with_ghosts_on_card(cuda, tmp_path):
+    """A pruned variants scan on the card: the ghost chunks built from the
+    header sketches go through the affine-scan kernel (two launches per
+    ghost chunk), and the result equals the plain lowering on the card,
+    the CPU scan and the eager filter-then-mine on the card."""
+    from repro_torch import query
+    from repro_torch.core import CASE, engine, ops, variants
+    from repro_torch.kernels import segment_ops as so
+
+    path, frame = _query_log(tmp_path)
+    ncases = query.count_cases(query.Plan(path))
+    plan = query.Plan(path).filter(query.col(CASE).between(4_000, 9_000))
+    ph = query.compile_plan(plan)
+    ghosts = [it for it in ph.final_schedule({}, sketch=True)
+              if type(it).__name__ == "GhostItem"]
+    assert len(ghosts) >= 2
+    before = so.segmented_affine_cuda.launches
+    got, rep = query.execute(plan, variants.variants_kernel(ncases))
+    assert so.segmented_affine_cuda.launches - before >= 2 * len(ghosts)
+    assert rep.groups_skipped > 0 and got[0].device.type == "cuda"
+    plain, _ = query.execute(plan, variants.variants_kernel(ncases, "ref"))
+    before = so.segmented_affine_cuda.launches
+    cpu, _ = query.execute(plan, variants.variants_kernel(ncases), device="cpu")
+    assert so.segmented_affine_cuda.launches == before
+    c = frame[CASE]
+    whole = engine.run_single(variants.variants_kernel(ncases),
+                              ops.proj(frame, (c >= 4_000) & (c <= 9_000)).to(cuda))
+    for g, p, h, w in zip(got, plain, cpu, whole):
+        assert torch.equal(g.cpu(), p.cpu())
+        assert torch.equal(g.cpu(), h)
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+def test_grouped_collect_and_prefetch_on_card(cuda, tmp_path):
+    """execute_grouped on the card == execute (bitwise), the second call
+    served from the state cache; the chunk stream is the same with the
+    prefetch thread off and on; merge_tree over per-group folds of every
+    mergeable spec == run_streaming on the card."""
+    from repro_torch import query
+    from repro_torch.core import CASE, ChunkedEventFrame, engine, run_streaming
+    from repro_torch.query import exec as qexec
+    from repro_torch.query import statecache
+
+    path, _ = _query_log(tmp_path, n_cases=8_000, group_rows=4_096)
+    ncases = query.count_cases(query.Plan(path))
+    dims = engine.Dims(26, ncases)
+    plan = query.Plan(path).filter(query.col(CASE).between(1_000, 5_000))
+    statecache.state_cache().clear()
+    for verb in ("dfg", "variants"):
+        kernel = engine.kernel_spec(verb).make(dims)
+        fp = statecache.spec_fingerprint(verb, dims)
+        want, _ = query.execute(plan, kernel, device="cpu")
+        first, rep1 = qexec.execute_grouped(plan, kernel, fp)
+        second, rep2 = qexec.execute_grouped(plan, kernel, fp)
+        assert rep1.groups_read > 0 and rep2.groups_read == 0
+        assert rep2.groups_cached == rep1.groups_read
+        _same_result(first, want)
+        _same_result(second, want)
+    streams = []
+    for depth in (0, 1):
+        src, _ = query.pruned_source(plan, sketch=True, prefetch=depth)
+        streams.append([(ch.columns, ch.rows_valid()) for ch in src])
+    for (c0, r0), (c1, r1) in zip(*streams):
+        assert torch.equal(r0, r1)
+        for k in c0:
+            assert torch.equal(c0[k], c1[k])
+    src = ChunkedEventFrame.from_edf(path, device=cuda)
+    cpu_src = ChunkedEventFrame.from_edf(path, device="cpu")
+    for spec in engine.kernel_specs().values():
+        kernel = spec.make(dims)
+        if engine.mergeable(kernel):
+            merged = engine.merge_tree(kernel, [engine.fold_group(kernel, [ch])
+                                                for ch in src])
+            _same_result(engine.finalize_group(kernel, merged),
+                         run_streaming(kernel, cpu_src))
+
+
+def test_state_cache_never_serves_a_cpu_state_to_a_cuda_collect(cuda, tmp_path):
+    from repro_torch import query
+    from repro_torch.core import CASE, engine
+    from repro_torch.query import exec as qexec
+    from repro_torch.query import statecache
+
+    path, _ = _query_log(tmp_path, n_cases=3_000, group_rows=4_096)
+    dims = engine.Dims(26, query.count_cases(query.Plan(path)))
+    plan = query.Plan(path).filter(query.col(CASE) >= 100)
+    kernel = engine.kernel_spec("dfg").make(dims)
+    statecache.state_cache().clear()
+    fp_cpu = statecache.spec_fingerprint("dfg", dims, device="cpu")
+    fp_cuda = statecache.spec_fingerprint("dfg", dims, device="cuda")
+    assert fp_cpu != fp_cuda
+    on_cpu, rep_cpu = qexec.execute_grouped(plan, kernel, fp_cpu, device="cpu")
+    assert rep_cpu.groups_folded > 0
+    for fp in (fp_cuda, fp_cpu):        # even a CPU fingerprint misses on cuda
+        on_card, rep = qexec.execute_grouped(plan, kernel, fp)
+        assert rep.groups_cached == 0 and rep.groups_folded > 0
+        assert on_card.counts.device.type == "cuda"
+        assert torch.equal(on_card.counts.cpu(), on_cpu.counts)

@@ -95,6 +95,31 @@ def test_dispatch_and_contract():
         tg.semiring_matmul_cuda(a, a, "min_plus")
 
 
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_semiring_matmul_takes_jax_names_and_block_sizes(impl):
+    """JAX's call ``semiring_matmul(a, b, s, impl=..., block_m=...,
+    block_n=..., block_k=...)`` carries over: the port takes its lowering
+    names and ignores its block sizes (the CUDA tile is fixed), and the
+    result is unchanged and bitwise JAX's."""
+    from repro.kernels.graph_ops import ops as jops
+
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 4, (19, 23)).astype(np.float32)
+    b = rng.integers(0, 4, (23, 9)).astype(np.float32)
+    for semiring in ("plus_times", "min_plus", "max_min"):
+        blocks = {"block_m": 8, "block_n": 8, "block_k": 8}
+        want = np.asarray(jops.semiring_matmul(jnp.asarray(a), jnp.asarray(b),
+                                               semiring, impl=impl, **blocks))
+        got = tg.semiring_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                                 semiring, impl=impl, **blocks)
+        _eq(got, want, f"{semiring}/{impl}")
+        _eq(got, tg.semiring_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                                    semiring).numpy(), "blocks change nothing")
+    with pytest.raises(TypeError):
+        tg.semiring_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                           block_q=8)
+
+
 def _host_oracles(w, adj):
     """Floyd–Warshall min-plus / max-min and BFS horizons (numpy)."""
     n = w.shape[0]

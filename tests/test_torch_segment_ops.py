@@ -165,8 +165,52 @@ def test_resolution_by_device():
     assert backend.resolve(torch.device("cpu")) == "ref"
     assert backend.resolve("cuda", "ref") == "ref"
     assert backend.resolve("cpu", "cuda") == "cuda"
+    # the JAX package's names carry over: "xla" is the plain version,
+    # "pallas" the kernel
+    assert backend.resolve("cpu", "pallas") == "cuda"
+    assert backend.resolve("cuda", "xla") == "ref"
     with pytest.raises(ValueError):
-        backend.resolve("cpu", "pallas")
+        backend.resolve("cpu", "tpu")
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_jax_impl_names_carry_over(impl):
+    """Both packages called with the JAX package's ``impl`` names give the
+    same bits (on a CPU tensor the port's wrappers run their plain
+    versions, so "pallas" reaches the kernel wrapper and its CPU route)."""
+    e, s = 500, 37
+    ids = np.sort(rng.integers(0, s, e)).astype(np.int32)
+    vals = rng.integers(-50, 50, e).astype(np.int32)
+    want = _np(jso.segment_reduce(jnp.asarray(vals), jnp.asarray(ids), s,
+                                  "sum", impl=impl))
+    got = tso.segment_reduce(T(vals), T(ids), s, "sum", impl=impl)
+    np.testing.assert_array_equal(got.numpy(), want)
+    src = rng.integers(0, 9, e).astype(np.int32)
+    dst = rng.integers(0, 9, e).astype(np.int32)
+    w = rng.random(e) < 0.5
+    want = _np(jso.pair_count(jnp.asarray(src), jnp.asarray(dst), 9,
+                              weights=jnp.asarray(w), impl=impl))
+    got = tso.pair_count(T(src), T(dst), 9, weights=T(w), impl=impl)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas", "ref", None])
+def test_dfg_count_ops_matches_jax(impl):
+    """``kernels.dfg_count.ops.dfg_count`` is bitwise JAX's under its own
+    ``impl`` names (and the port's ``None`` / ``"ref"``)."""
+    from repro.kernels.dfg_count import ops as jops
+    from repro_torch.kernels.dfg_count import ops as tops
+
+    a, e = 13, 2000
+    src = rng.integers(-1, a + 1, e).astype(np.int32)
+    dst = rng.integers(-1, a + 1, e).astype(np.int32)
+    w = (rng.random(e) < 0.6).astype(np.float32)
+    want = _np(jops.dfg_count(jnp.asarray(src), jnp.asarray(dst),
+                              jnp.asarray(w), a, impl=impl))
+    got = tops.dfg_count(T(src), T(dst), T(w), a, impl=impl)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_float_weights_refused_on_the_kernel_path():

@@ -210,8 +210,12 @@ def test_stats_kernel_columns_registry_and_compose():
     s1, _ = fused.update(*fused.init("cpu"), tf)
     merged = fused.merge(s1, s1)
     _eq(merged["a"], 2 * np.asarray(jstats.activity_counts(jf, A)))
+    # the JAX package's backend names carry over ("pallas": the kernels,
+    # their plain versions on a CPU tensor); an unknown name still raises
+    _eq(tengine.run_single(tstats.case_sizes_kernel(nc, "pallas"), tf),
+        jstats.case_sizes(jf, nc, "pallas"))
     with pytest.raises(ValueError):
-        tstats.case_sizes_kernel(nc, "pallas")
+        tstats.case_sizes_kernel(nc, "tpu")
 
 
 def test_durations_of_masked_and_single_event_cases():
