@@ -60,10 +60,14 @@ EventLM serving path:
   with the DFG and variants kernels and held bitwise against the port's
   eager filter-then-mine on the card, the plain lowerings on the card and
   numpy oracles, the ghost chunks of skipped groups folded by the affine
-  scan (two launches a ghost chunk); ``merge_tree`` over per-group folds
-  for every mergeable verb against ``run_streaming``; ``execute_grouped``
-  twice, the second call from the state cache; and a full scan at
-  prefetch depth 0 and 1 with its read + decode seconds.
+  scan (two launches a ghost chunk, the chunks counted where the scan
+  builds them); ``merge_tree`` over per-group folds on the card for every
+  mergeable verb against ``run_streaming`` on the card (bitwise) and the
+  CPU plain stream (centrality flow within 1e-6), its launches counted apart
+  (``query_group_states``: eventually-follows must launch the sum scan,
+  the graph query verbs a semiring kernel); ``execute_grouped`` twice, the
+  second call from the state cache; and a full scan at prefetch depth 0
+  and 1 with its read + decode seconds.
 * ``serve_path`` — ``eventlm-100m`` at full width (12 layers, d_model 768,
   random weights from seed 0) served by ``serve.engine.Engine`` on prompts
   from the tokenized synthetic log, as ``launch/serve.py`` builds them: (a)
@@ -1838,20 +1842,23 @@ def query_plans(query, path: str, case_np, act_np, ts_np, sk) -> dict:
 
 
 def query_path(torch, smi: str, path: str, case_np, act_np, ts_np, sk,
-               frame_gpu, chunks: int) -> tuple[dict, dict]:
+               frame_gpu, chunks: int) -> tuple[dict, dict, dict]:
     """The pruned query layer on the card (``repro_torch.query``): four
     plans over the L1 file, each mined with the DFG and the variants
     kernels, held against the port's eager filter-then-mine on the card,
     the same plan through the plain lowerings on the card, and numpy
     oracles; the group-state algebra over L1's row groups for every
-    mergeable verb; ``execute_grouped`` served from the state cache; and
-    the prefetch thread at depth 0 and 1.  Returns the phase's line and the
-    launch counts of its main drive (the eight plan executions)."""
+    mergeable verb, held against ``run_streaming`` on the card and the CPU
+    plain stream; ``execute_grouped``
+    served from the state cache; and the prefetch thread at depth 0 and 1.
+    Returns the phase's line, the launch counts of its main drive (the
+    eight plan executions) and those of the group-state folds, merges and
+    finalizes."""
     import warnings
 
     from repro_torch import query
     from repro_torch.core import (ACTIVITY, CASE, TIMESTAMP, ChunkedEventFrame,
-                                  dfg_kernel, engine, filtering, ops, polyhash,
+                                  dfg_kernel, engine, filtering, ops,
                                   run_streaming, variants)
     from repro_torch.kernels import segment_ops as so
     from repro_torch.query import exec as qexec
@@ -1873,16 +1880,28 @@ def query_path(torch, smi: str, path: str, case_np, act_np, ts_np, sk,
             query.execute(plan, k)
     torch.cuda.synchronize()
 
+    # the ghost chunks each scan builds, counted where it builds them
+    ghost_chunk, built = qexec._ghost_chunk, {"n": 0}
+
+    def counted_ghost_chunk(*args, **kwargs):
+        built["n"] += 1
+        return ghost_chunk(*args, **kwargs)
+
     reset_launches()
-    got, reports, seconds, affine = {}, {}, {}, {}
-    for name, (plan, _, _) in plans.items():
-        for kname, k in kernels.items():
-            before = so.segmented_affine_cuda.launches
-            t0 = time.perf_counter()
-            got[name, kname], reports[name, kname] = query.execute(plan, k)
-            torch.cuda.synchronize()
-            seconds[name, kname] = time.perf_counter() - t0
-            affine[name, kname] = so.segmented_affine_cuda.launches - before
+    got, reports, seconds, affine, ghosts = {}, {}, {}, {}, {}
+    qexec._ghost_chunk = counted_ghost_chunk
+    try:
+        for name, (plan, _, _) in plans.items():
+            for kname, k in kernels.items():
+                before, built["n"] = so.segmented_affine_cuda.launches, 0
+                t0 = time.perf_counter()
+                got[name, kname], reports[name, kname] = query.execute(plan, k)
+                torch.cuda.synchronize()
+                seconds[name, kname] = time.perf_counter() - t0
+                affine[name, kname] = so.segmented_affine_cuda.launches - before
+                ghosts[name, kname] = built["n"]
+    finally:
+        qexec._ghost_chunk = ghost_chunk
     launches = read_launches()
 
     def fp_host(res):
@@ -1921,8 +1940,6 @@ def query_path(torch, smi: str, path: str, case_np, act_np, ts_np, sk,
                     frame_gpu, what["activity"], NUM_CASES)
         check_equal(f"query {name} eager row mask vs numpy",
                     eager.rows_valid().cpu().numpy(), rows)
-        ghosts = sum(polyhash.SK_MUL1 in ch for ch in
-                     query.pruned_source(plan, sketch=True)[0])
         for kname in kernels:
             res = got[name, kname]
             host = dfg_host if kname == "dfg" else fp_host
@@ -1939,12 +1956,12 @@ def query_path(torch, smi: str, path: str, case_np, act_np, ts_np, sk,
                       if kname == "dfg" else tuple(v_oracle))
             for i, (x, y) in enumerate(zip(host(res), oracle)):
                 check_equal(f"query {name}/{kname}[{i}] vs numpy oracle", x, y)
-        rep = reports[name, "variants"]
-        if affine[name, "variants"] < 2 * ghosts:
+        rep, n_ghosts = reports[name, "variants"], ghosts[name, "variants"]
+        if affine[name, "variants"] < 2 * n_ghosts:
             raise AssertionError(f"query {name}: {affine[name, 'variants']} "
-                                 f"affine launches for {ghosts} ghost chunks")
+                                 f"affine launches for {n_ghosts} ghost chunks")
         plans_out[name] = {
-            **what, "rows_kept": int(rows.sum()), "ghost_chunks": ghosts,
+            **what, "rows_kept": int(rows.sum()), "ghost_chunks": n_ghosts,
             "affine_launches": affine[name, "variants"],
             "groups_total": rep.groups_total, "groups_read": rep.groups_read,
             "groups_skipped": rep.groups_skipped,
@@ -1954,7 +1971,8 @@ def query_path(torch, smi: str, path: str, case_np, act_np, ts_np, sk,
             "file_bytes": total_bytes,
             "seconds": {k: seconds[name, k] for k in kernels},
             "plain_lowering_s": {k: plain_s[name, k] for k in kernels},
-            "events_per_s": {k: len(case_np) / seconds[name, k] for k in kernels},
+            "log_events_answered_per_s": {k: len(case_np) / seconds[name, k]
+                                          for k in kernels},
             "rows_read_per_s": {k: reports[name, k].rows_read / seconds[name, k]
                                 for k in kernels}}
     band = plans_out["case_band"]
@@ -1968,28 +1986,53 @@ def query_path(torch, smi: str, path: str, case_np, act_np, ts_np, sk,
         if launches[key] == 0:
             raise AssertionError(f"query path launched no {key}: {launches}")
 
-    # the group-state algebra: per-group folds of L1, merged
+    # the group-state algebra: per-group folds of L1 on the card, merged
+    # and finalized, held against run_streaming on the card and the plain
+    # stream on the CPU (centrality flow within 1e-6, as in graph_path,
+    # its plus_times matvecs add in each lowering's order).  Each verb's
+    # launches are counted from its folds, merge and finalize alone.
     dims = engine.Dims(NUM_ACTIVITIES, NUM_CASES)
-    groups = list(ChunkedEventFrame.from_edf(
-        path, columns=[CASE, ACTIVITY, TIMESTAMP], device="cuda"))
-    merged_ok, t_fold, t_merge = [], 0.0, 0.0
+    gs_cols = [CASE, ACTIVITY, TIMESTAMP]
+    groups = list(ChunkedEventFrame.from_edf(path, columns=gs_cols,
+                                             device="cuda"))
+    cpu_groups = ChunkedEventFrame.from_edf(path, columns=gs_cols,
+                                            device="cpu")
+    merged_ok, t_fold, t_merge, t_plain = [], 0.0, 0.0, 0.0
+    gs_launches, by_verb = dict.fromkeys(wrappers(), 0), {}
     for vname, spec in sorted(engine.kernel_specs().items()):
         kernel = spec.make(dims)
         if not engine.mergeable(kernel):
             continue
+        reset_launches()
         t0 = time.perf_counter()
         states = [engine.fold_group(kernel, [ch]) for ch in groups]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        merged = engine.merge_tree(kernel, states)
+        out = engine.finalize_group(kernel, engine.merge_tree(kernel, states))
         torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        by_verb[vname] = {k: n for k, n in read_launches().items() if n}
+        for k, n in by_verb[vname].items():
+            gs_launches[k] += n
         t_fold += t1 - t0
-        t_merge += time.perf_counter() - t1
-        same_result(torch, f"merge_tree {vname} vs run_streaming",
-                    engine.finalize_group(kernel, merged),
+        t_merge += t2 - t1
+        same_result(torch, f"merge_tree {vname} vs run_streaming", out,
                     run_streaming(kernel, groups, device="cuda"))
+        t3 = time.perf_counter()
+        want = run_streaming(kernel, cpu_groups)
+        t_plain += time.perf_counter() - t3
+        same_result(torch, f"merge_tree {vname} vs cpu_plain_stream", out, want,
+                    flow_atol=1e-6)
         merged_ok.append(vname)
-    del groups
+    del groups, states, out
+    if not by_verb["eventually_follows"].get("segmented_sum_scan"):
+        raise AssertionError(f"eventually_follows group states launched no "
+                             f"segmented_sum_scan: {by_verb}")
+    for vname in ("reachability", "bottleneck_paths", "node_centrality"):
+        if not (by_verb[vname].get("semiring_closure")
+                or by_verb[vname].get("semiring_matmul")):
+            raise AssertionError(f"{vname} group states launched no semiring "
+                                 f"kernel: {by_verb}")
 
     # execute_grouped twice: the second collect is served from the cache
     statecache.state_cache().clear()
@@ -2060,13 +2103,18 @@ def query_path(torch, smi: str, path: str, case_np, act_np, ts_np, sk,
              "num_cases": ncases, "file_bytes": total_bytes, "plans": plans_out,
              "launches": launches,
              "group_states": {"verbs": merged_ok, "fold_s": t_fold,
-                              "merge_s": t_merge,
-                              "bitwise_equal_to": "run_streaming"},
+                              "merge_finalize_s": t_merge,
+                              "cpu_plain_stream_s": t_plain,
+                              "launches": gs_launches,
+                              "launches_by_verb": by_verb,
+                              "bitwise_equal_to": [
+                                  "run_streaming",
+                                  "cpu_plain_stream (flow within 1e-6)"]},
              "execute_grouped": grouped, "prefetch": runs,
              "bitwise_equal_to": ["eager_filter_then_mine_on_card",
                                   "plain_lowering_on_card", "numpy_oracle"],
              "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi},
-            launches)
+            launches, gs_launches)
 
 
 def check_equal(label: str, got: np.ndarray, want: np.ndarray) -> None:
@@ -2659,7 +2707,7 @@ def main() -> int:
               **idle_share(torch, lambda: run_streaming(h_kernel, source), t_disc)})
 
         # ------ query path: pruned plans, group states, the prefetch thread
-        q_phase, launches["query_path"] = query_path(
+        q_phase, launches["query_path"], launches["query_group_states"] = query_path(
             torch, smi, path, case_np, act_np, ts_np, sk, frame_gpu, chunks)
         emit(q_phase)
 

@@ -71,7 +71,7 @@ import threading
 import numpy as np
 import torch
 
-from repro_torch.core import engine
+from repro_torch.core import backend, engine
 from repro_torch.core.chunked import ChunkedEventFrame
 from repro_torch.core.eventframe import ACTIVITY, CASE, EventFrame
 from repro_torch.core.polyhash import sketch_columns
@@ -888,12 +888,14 @@ def grouped_eligible(kernel: engine.ChunkKernel, steps) -> bool:
 
 
 def _unit_key(ph: PhysicalPlan, item: ReadItem, spec_fp, device) -> tuple:
-    """State-cache key of one read unit: kernel build fingerprint, the
-    scan's device type, file path + group index, the group's content
-    signature, and the residual predicate set the fold masked with (""
-    when none — zone-proved and unfiltered folds share entries)."""
+    """State-cache key of one read unit: kernel spec fingerprint, the
+    scan's device type and the lowering it resolves to, file path + group
+    index, the group's content signature, and the residual predicate set
+    the fold masked with ("" when none — zone-proved and unfiltered folds
+    share entries)."""
     residual_fp = "&".join(repr(ph.steps[i]) for i in item.residual)
-    return (spec_fp, torch.device(device).type, ph.reader.path, item.index,
+    dev = torch.device(device).type
+    return (spec_fp, dev, backend.resolve(dev), ph.reader.path, item.index,
             ph.reader.group_signature(item.index), residual_fp)
 
 
@@ -907,9 +909,9 @@ def group_states(plan: "Plan | MultiPlan", kernel: engine.ChunkKernel,
 
     * **cached** — the state cache (``query.statecache``) holds a fold of
       this exact group content (group signature), under this exact kernel
-      build (``spec_fp``, which :func:`~.statecache.spec_fingerprint` ties
-      to a device type and lowering), on this device type, and with this
-      residual predicate set: reuse it with zero I/O (``groups_cached``);
+      spec (``spec_fp``, from :func:`~.statecache.spec_fingerprint`), on
+      this device type and its lowering, and with this residual predicate
+      set: reuse it with zero I/O (``groups_cached``);
     * **folded** — read the group, apply the residual masks (the same
       masking the sequential scan applies), fold it fresh, and cache the
       result (``groups_read`` / ``groups_folded``);

@@ -7,14 +7,14 @@ after an append only decodes *fresh* groups.
 
 Keys are fully content-addressed::
 
-    (kernel-spec fingerprint, scan device type, file path, group index,
-     group content signature, residual-predicate fingerprint)
+    (kernel-spec fingerprint, scan device type, lowering, file path,
+     group index, group content signature, residual-predicate fingerprint)
 
 * the *spec fingerprint* (:func:`spec_fingerprint`) covers the verb name,
-  its kwargs, both capacity dims, the device type and the lowering that
-  device resolves to — two different kernel builds can never alias, and a
-  state folded on the CPU is never served to a CUDA collect (or the other
-  way round);
+  its kwargs and both capacity dims;
+* the *scan device type* and the lowering ``core.backend.resolve`` picks on
+  it are added per unit by ``query.exec`` — a state folded on the CPU is
+  never served to a CUDA collect (or the other way round);
 * the *group signature* (``EDFReader.group_signature``) hashes the group's
   content metadata, never offsets, so appends that leave old groups' bytes
   alone keep old entries valid while any rewrite invalidates them;
@@ -35,9 +35,6 @@ import threading
 from collections import OrderedDict
 from typing import Hashable
 
-import torch
-
-from repro_torch.core import backend as _backend
 from repro_torch.core.engine import Dims, GroupState, tensor_leaves
 
 ENV_VAR = "REPRO_STATE_CACHE_BYTES"
@@ -47,16 +44,13 @@ DEFAULT_BYTES = 256 * 1024 * 1024
 _ENTRY_OVERHEAD = 512
 
 
-def spec_fingerprint(verb: str, dims: Dims, kwargs: dict | None = None, *,
-                     device="cuda", impl: str | None = None) -> tuple:
-    """Content fingerprint of one kernel build: what makes two folded
-    group states interchangeable.  Includes both capacity dims (state
-    shapes), the device type the states live on and the lowering
-    ``core.backend.resolve(device, impl)`` picks there."""
+def spec_fingerprint(verb: str, dims: Dims, kwargs: dict | None = None) -> tuple:
+    """Content fingerprint of one kernel spec: what makes two folded group
+    states interchangeable on one device.  Includes both capacity dims
+    (state shapes); the device type and its lowering go into each unit's
+    key (``query.exec._unit_key``), which knows the scan's device."""
     items = tuple(sorted((k, repr(v)) for k, v in (kwargs or {}).items()))
-    dev = torch.device(device).type
-    return (verb, int(dims.num_activities), int(dims.num_cases), items, dev,
-            _backend.resolve(dev, impl))
+    return (verb, int(dims.num_activities), int(dims.num_cases), items)
 
 
 def state_nbytes(gs: GroupState) -> int:

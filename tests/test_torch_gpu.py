@@ -1342,13 +1342,13 @@ def test_state_cache_never_serves_a_cpu_state_to_a_cuda_collect(cuda, tmp_path):
     plan = query.Plan(path).filter(query.col(CASE) >= 100)
     kernel = engine.kernel_spec("dfg").make(dims)
     statecache.state_cache().clear()
-    fp_cpu = statecache.spec_fingerprint("dfg", dims, device="cpu")
-    fp_cuda = statecache.spec_fingerprint("dfg", dims, device="cuda")
-    assert fp_cpu != fp_cuda
-    on_cpu, rep_cpu = qexec.execute_grouped(plan, kernel, fp_cpu, device="cpu")
+    fp = statecache.spec_fingerprint("dfg", dims)
+    on_cpu, rep_cpu = qexec.execute_grouped(plan, kernel, fp, device="cpu")
     assert rep_cpu.groups_folded > 0
-    for fp in (fp_cuda, fp_cpu):        # even a CPU fingerprint misses on cuda
-        on_card, rep = qexec.execute_grouped(plan, kernel, fp)
-        assert rep.groups_cached == 0 and rep.groups_folded > 0
-        assert on_card.counts.device.type == "cuda"
-        assert torch.equal(on_card.counts.cpu(), on_cpu.counts)
+    on_card, rep = qexec.execute_grouped(plan, kernel, fp)
+    assert rep.groups_cached == 0 and rep.groups_folded > 0
+    assert on_card.counts.device.type == "cuda"
+    assert torch.equal(on_card.counts.cpu(), on_cpu.counts)
+    again, rep = qexec.execute_grouped(plan, kernel, fp, device="cpu")
+    assert rep.groups_cached == rep_cpu.groups_folded and rep.groups_read == 0
+    assert torch.equal(again.counts, on_cpu.counts)

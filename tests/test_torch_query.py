@@ -218,9 +218,8 @@ def test_ghost_chunks_with_and_without_sketches(log, verb):
     _same(got, tengine.run_single(kernel, tops.proj(whole, (c >= 90) & (c <= 140))))
 
 
-def _spec_fp(verb, ncases, device="cpu"):
-    return tstatecache.spec_fingerprint(verb, tengine.Dims(A, ncases),
-                                        device=device)
+def _spec_fp(verb, ncases):
+    return tstatecache.spec_fingerprint(verb, tengine.Dims(A, ncases))
 
 
 @pytest.mark.parametrize("verb", ["dfg", "variants", "discovery"])
@@ -258,15 +257,18 @@ def test_execute_grouped_equals_execute_with_cache_hits(log, verb):
 
 def test_state_cache_key_holds_the_device(log):
     """A state folded for one device type is never served to a collect on
-    another: the spec fingerprint and the unit key both carry it."""
+    another: each unit's key carries the device type and its lowering, and
+    the spec fingerprint has JAX's signature and shape."""
     path, whole, ncases = log
-    fp_cpu, fp_cuda = _spec_fp("dfg", ncases), _spec_fp("dfg", ncases, "cuda")
-    assert fp_cpu != fp_cuda and fp_cpu[-2:] == ("cpu", "ref")
-    assert fp_cuda[-2:] == ("cuda", "cuda")
+    fp = _spec_fp("dfg", ncases)
+    j_fp = jstatecache.spec_fingerprint("dfg", jengine.Dims(A, ncases))
+    assert fp == j_fp[:-1]              # JAX's minus its resolved lowering
     ph = tq.compile_plan(tq.Plan(path))
     item = ph.unit_schedule()[0]
-    assert texec._unit_key(ph, item, fp_cpu, "cpu") != \
-        texec._unit_key(ph, item, fp_cpu, "cuda")
+    on_cpu = texec._unit_key(ph, item, fp, "cpu")
+    on_card = texec._unit_key(ph, item, fp, "cuda")
+    assert on_cpu != on_card
+    assert on_cpu[1:3] == ("cpu", "ref") and on_card[1:3] == ("cuda", "cuda")
 
 
 def _stream(src):
