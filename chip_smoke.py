@@ -12,8 +12,8 @@ products, held within their rounding bound, and flash attention, within
 2e-5 in float32 and 2e-2 in bf16), times it, and then drives seven paths
 over the paper's Table-6 level-L1 log (10^6 cases, ~7x10^6 events, 26
 activities, timestamps) written as an EDF file with 524,288-row groups and
-streamed from disk onto the card, the query layer over that file, and the
-EventLM serving path:
+streamed from disk onto the card, the query layer, the ``Dataset`` facade
+and the mining service over that file, and the EventLM serving path:
 
 * ``main_path`` — the out-of-core DFG.  It must equal, bitwise, the same
   stream through the plain versions on the CPU, the whole-log DFG on the
@@ -68,6 +68,33 @@ EventLM serving path:
   the graph query verbs a semiring kernel); ``execute_grouped`` twice, the
   second call from the state cache; and a full scan at prefetch depth 0
   and 1 with its read + decode seconds.
+* ``dataset_path`` — the ``Dataset`` facade on the card
+  (``repro_torch.open(path, device="cuda")``): all sixteen registered verbs
+  through ``collect`` under the eager engine (the whole file as one
+  7,003,349-row chunk) and the streaming engine (per-group states through
+  the state cache), and ``profile()``, each result bitwise equal across
+  the engines, to ``run_streaming`` on the card and to the CPU plain
+  streams of the earlier phases (centrality ``flow`` within 1e-6); a
+  re-collect served from the result memo with zero reads, and a CPU
+  dataset on the same file never served the card's result; the dispatch
+  sweep (case bands over 1, 2, 4, 7 and 14 groups, both engines timed
+  synchronized, median of 3, memo off, state cache cleared before every
+  call) with ``fit_calibration`` over it and ``auto``'s regret; windows by
+  groups (each the scratch mine of its rows, a second sweep folding
+  nothing) and by time (each the same filter collected directly); and an
+  append of 524,288 rows of new cases as 8,192-row groups (the re-collect
+  folds only those; the file's bytes equal a numpy-only re-run).
+* ``service_path`` — the mining service on the card: L1's first 3.5 M rows
+  (seven partitions; the whole log made the phase ~75 s) cut at case
+  boundaries into host batch files, ingested by the ``Ingestor`` with its
+  defaults (500,000-row partitions, 8,192-row groups), then ``serve`` on
+  127.0.0.1 answering ``/health``, ``/collect`` (dfg, auto and eager; variants),
+  ``/profile``, ``/window``, ``/graph?query=reachability`` and
+  ``/explain`` over HTTP, each result JSON-equal to the same verb mined
+  eagerly on the card from the claimed rows; three ``/collect`` requests
+  raced against an ingest thread appending the new cases, each equal to
+  the eager mine of the snapshot it claims; and the device idle share of
+  one cold ``/collect``.
 * ``serve_path`` — ``eventlm-100m`` at full width (12 layers, d_model 768,
   random weights from seed 0) served by ``serve.engine.Engine`` on prompts
   from the tokenized synthetic log, as ``launch/serve.py`` builds them: (a)
@@ -188,6 +215,19 @@ SERVE_ARCH = "eventlm-100m"
 SERVE_BATCHES = (("a", 8, 12, 37, 8, 64), ("b", 8, 1_000, 1_000, 16, 1_024))
 SERVE_LOGIT_ATOL = {"float32": 1e-3, "bfloat16": 5e-2}
 SERVE_MARGIN = 0.1
+SWEEP_GROUPS = (1, 2, 4, 7, 14)      # row groups each dispatch-sweep band covers
+SWEEP_REPEATS = 3
+APPEND_ROWS = 524_288                # new cases appended after L1's tail
+APPEND_GROUP_ROWS = 8_192
+SERVICE_BATCH_ROWS = 100_000         # L1 cut into host batch files of ~this size
+SERVICE_ROWS = 3_500_000             # the service ingests L1's first ~7 partitions
+RACE_BATCHES = 4                     # the appended cases, ingested while serving
+SERVICE_ROUTES = (("health", "/health"), ("collect_dfg", "/collect?verb=dfg"),
+                  ("collect_dfg_eager", "/collect?verb=dfg&engine=eager"),
+                  ("collect_variants", "/collect?verb=variants"),
+                  ("profile", "/profile"),
+                  ("window", "/window?verb=dfg&by=groups&size=8&step=4"),
+                  ("graph", "/graph?query=reachability"), ("explain", "/explain"))
 
 
 def sm_clock_mhz() -> float:
@@ -1842,7 +1882,7 @@ def query_plans(query, path: str, case_np, act_np, ts_np, sk) -> dict:
 
 
 def query_path(torch, smi: str, path: str, case_np, act_np, ts_np, sk,
-               frame_gpu, chunks: int) -> tuple[dict, dict, dict]:
+               frame_gpu, chunks: int) -> tuple[dict, dict, dict, dict]:
     """The pruned query layer on the card (``repro_torch.query``): four
     plans over the L1 file, each mined with the DFG and the variants
     kernels, held against the port's eager filter-then-mine on the card,
@@ -1852,8 +1892,8 @@ def query_path(torch, smi: str, path: str, case_np, act_np, ts_np, sk,
     plain stream; ``execute_grouped``
     served from the state cache; and the prefetch thread at depth 0 and 1.
     Returns the phase's line, the launch counts of its main drive (the
-    eight plan executions) and those of the group-state folds, merges and
-    finalizes."""
+    eight plan executions), those of the group-state folds, merges and
+    finalizes, and each mergeable verb's CPU plain stream over L1."""
     import warnings
 
     from repro_torch import query
@@ -1997,7 +2037,7 @@ def query_path(torch, smi: str, path: str, case_np, act_np, ts_np, sk,
                                              device="cuda"))
     cpu_groups = ChunkedEventFrame.from_edf(path, columns=gs_cols,
                                             device="cpu")
-    merged_ok, t_fold, t_merge, t_plain = [], 0.0, 0.0, 0.0
+    merged_ok, t_fold, t_merge, t_plain, cpu_results = [], 0.0, 0.0, 0.0, {}
     gs_launches, by_verb = dict.fromkeys(wrappers(), 0), {}
     for vname, spec in sorted(engine.kernel_specs().items()):
         kernel = spec.make(dims)
@@ -2019,7 +2059,7 @@ def query_path(torch, smi: str, path: str, case_np, act_np, ts_np, sk,
         same_result(torch, f"merge_tree {vname} vs run_streaming", out,
                     run_streaming(kernel, groups, device="cuda"))
         t3 = time.perf_counter()
-        want = run_streaming(kernel, cpu_groups)
+        want = cpu_results[vname] = run_streaming(kernel, cpu_groups)
         t_plain += time.perf_counter() - t3
         same_result(torch, f"merge_tree {vname} vs cpu_plain_stream", out, want,
                     flow_atol=1e-6)
@@ -2114,7 +2154,530 @@ def query_path(torch, smi: str, path: str, case_np, act_np, ts_np, sk,
              "bitwise_equal_to": ["eager_filter_then_mine_on_card",
                                   "plain_lowering_on_card", "numpy_oracle"],
              "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi},
-            launches, gs_launches)
+            launches, gs_launches, cpu_results)
+
+
+def json_same(label: str, got, want, flow_atol: float = 1e-6) -> None:
+    """Two JSON payloads equal value for value (their dumps equal), except
+    centrality ``flow`` lists, within ``flow_atol``."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"{label}: keys differ")
+        for k in want:
+            if k == "flow":
+                if not np.allclose(np.asarray(got[k]), np.asarray(want[k]),
+                                   rtol=0, atol=flow_atol):
+                    raise AssertionError(f"{label}.flow: beyond {flow_atol}")
+            else:
+                json_same(f"{label}.{k}", got[k], want[k], flow_atol)
+    elif isinstance(want, list) and any(isinstance(w, (dict, list)) for w in want):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise AssertionError(f"{label}: lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            json_same(f"{label}[{i}]", g, w, flow_atol)
+    elif json.dumps(got) != json.dumps(want):
+        raise AssertionError(f"{label}: {got!r} != {want!r}")
+
+
+def new_cases(first_case: int, rows: int, dtypes: dict) -> dict:
+    """``rows`` rows of fresh cases numbered from ``first_case`` (another
+    seed's process model), as host columns in the file's dtypes: the batch
+    an append or a later ingest brings."""
+    from repro_torch.core import CASE
+    from repro_torch.data import synthetic
+
+    cols, _ = synthetic.generate_numpy(num_cases=rows // 4,
+                                       num_activities=NUM_ACTIVITIES,
+                                       seed=SEED + 1, extra_numeric_attrs=0)
+    out = {k: v[:rows] for k, v in cols.items()}
+    out[CASE] = out[CASE] + first_case
+    return {k: np.ascontiguousarray(v.astype(dtypes[k])) for k, v in out.items()}
+
+
+def read_counter(reader_cls):
+    """Counts every row-group decode of any reader (``read_group_numpy``);
+    returns the counter dict and an undo function."""
+    inner, count = reader_cls.read_group_numpy, {"n": 0}
+
+    def counted(self, *args, **kwargs):
+        count["n"] += 1
+        return inner(self, *args, **kwargs)
+
+    reader_cls.read_group_numpy = counted
+
+    def undo():
+        reader_cls.read_group_numpy = inner
+    return count, undo
+
+
+def dataset_path(torch, smi: str, path: str, tables: dict, cpu_plain: dict,
+                 case_np, act_np, frame_gpu, chunks: int):
+    """The ``Dataset`` facade on the card over the L1 file
+    (``repro_torch.open(path, device="cuda")``): every registered verb
+    through ``collect`` under the eager and the streaming engine and one
+    ``profile()`` (the counted drive), each result bitwise equal across
+    the engines, to ``run_streaming`` on the card and to the CPU plain
+    streams of the earlier phases (centrality ``flow`` within 1e-6); the
+    result memo (zero reads on a re-collect, a CPU dataset never served
+    the card's result); the dispatch sweep over case bands of 1, 2, 4, 7
+    and 14 groups (memo off, state cache cleared before every call,
+    synchronized, median of 3) with ``fit_calibration`` over it and
+    ``auto``'s regret; windows by groups and by time; and an append of
+    524,288 rows of new cases as 8,192-row groups.  Returns the phase's
+    line, the drive's launch counts and the appended batch."""
+    import dataclasses
+    import os
+    import shutil
+
+    import repro_torch
+    from repro_torch.core import (ACTIVITY, CASE, TIMESTAMP, ChunkedEventFrame,
+                                  EventFrame, concat_frames, dfg_kernel, engine,
+                                  run_streaming)
+    from repro_torch.dataset import engines
+    from repro_torch.query import statecache
+    from repro_torch.storage import edf
+
+    t_phase = time.perf_counter()
+    engines.clear_result_cache()
+    statecache.state_cache().clear()
+    ds = repro_torch.open(path, device="cuda")
+    verbs = tuple(n for n, s in engine.kernel_specs().items() if not s.members)
+    dims = engine.Dims(ds.num_activities, ds.num_cases)
+    if dims != (NUM_ACTIVITIES, NUM_CASES):
+        raise AssertionError(f"dataset dims {dims}")
+
+    # the counted drive: 16 verbs x 2 engines, then profile()
+    reset_launches()
+    got, secs = {}, {}
+    for verb in verbs:
+        for eng in ("eager", "streaming"):
+            t0 = time.perf_counter()
+            res = ds.collect(verb, engine=eng)
+            torch.cuda.synchronize()
+            secs[verb, eng] = time.perf_counter() - t0
+            if res.engine != eng:
+                raise AssertionError(f"{verb}: asked {eng}, ran {res.engine}")
+            got[verb, eng] = res
+    t0 = time.perf_counter()
+    prof = ds.profile(engine="eager")
+    torch.cuda.synchronize()
+    t_profile = time.perf_counter() - t0
+    launches = read_launches()
+    for key in ("pair_count", "histogram", "segment_reduce", "segmented_polyhash",
+                "segmented_sum_scan", "semiring_matmul", "ordered_histogram"):
+        if launches[key] == 0:
+            raise AssertionError(f"dataset path launched no {key}: {launches}")
+
+    src = ChunkedEventFrame.from_edf(path, device="cuda")
+    for verb in verbs:
+        eager, streamed = got[verb, "eager"].result, got[verb, "streaming"].result
+        same_result(torch, f"dataset {verb} streaming vs eager", streamed, eager)
+        same_result(torch, f"dataset {verb} profile vs eager", prof[verb], eager)
+        ref = run_streaming(engine.kernel_spec(verb).make(dims), src)
+        same_result(torch, f"dataset {verb} vs run_streaming", eager, ref)
+        same_result(torch, f"dataset {verb} vs cpu_plain_stream", eager,
+                    cpu_plain[verb], flow_atol=1e-6)
+    del src, prof
+
+    # the memo: a re-collect reads nothing; a CPU dataset mines anew
+    count, undo = read_counter(edf.EDFReader)
+    try:
+        first = got["dfg", "streaming"]
+        again = ds.collect("dfg", engine="streaming")
+        memo_reads = count["n"]
+        on_cpu = repro_torch.open(path, device="cpu").collect("dfg", engine="streaming")
+        cpu_reads = count["n"] - memo_reads
+    finally:
+        undo()
+    if again is not first or memo_reads:
+        raise AssertionError(f"memoized collect read {memo_reads} groups")
+    if on_cpu is first or on_cpu.result.counts.device.type != "cpu" or not cpu_reads:
+        raise AssertionError("the CPU dataset was served the card's result")
+    same_result(torch, "dataset dfg on the CPU", first.result, on_cpu.result)
+    del got, again, on_cpu
+
+    # the dispatch sweep: DFG over case bands, memo off, cache cleared
+    reader = edf.pooled_reader(path)
+    zones = [reader.group_meta(g)["zones"] for g in range(reader.num_groups)]
+    mins = [int(z[CASE]["min"]) for z in zones]
+    spec = engine.kernel_spec("dfg")
+    sweep = []
+    os.environ[engines.RESULT_CACHE_ENV] = "0"
+    try:
+        for k in SWEEP_GROUPS:
+            hi = mins[k] - 1 if k < len(mins) else int(case_np[-1])
+            band = ds.filter(repro_torch.col(CASE) <= hi)
+            times = {"eager": [], "streaming": []}
+            for _ in range(SWEEP_REPEATS):
+                for eng in ("eager", "streaming"):
+                    statecache.state_cache().clear()
+                    t0 = time.perf_counter()
+                    res = band.collect("dfg", engine=eng)
+                    torch.cuda.synchronize()
+                    times[eng].append(time.perf_counter() - t0)
+                    if eng == "streaming":
+                        rep = res.report
+            est = engines.estimate(band)
+            sweep.append({"case_hi": hi, "groups_total": rep.groups_total,
+                          "groups_skipped": rep.groups_skipped,
+                          "bytes_total": rep.bytes_total, "bytes_read": rep.bytes_read,
+                          "read_fraction": rep.bytes_read / rep.bytes_total,
+                          "us_eager": 1e6 * float(np.median(times["eager"])),
+                          "us_streaming": 1e6 * float(np.median(times["streaming"])),
+                          "eager_s": times["eager"], "streaming_s": times["streaming"],
+                          "estimate": {"bytes_est": est.bytes_est,
+                                       "groups_est": est.groups_est},
+                          "auto_builtin": engines.choose(band, spec, est)})
+    finally:
+        del os.environ[engines.RESULT_CACHE_ENV]
+    fitted = engines.fit_calibration({"sweep": sweep})
+    builtin = engines.calibration()
+    for p in sweep:
+        band = ds.filter(repro_torch.col(CASE) <= p["case_hi"])
+        est = engines.estimate(band)
+        pick = "streaming" if fitted.streaming_us(est) <= fitted.eager_us(est) else "eager"
+        best = min(p["us_eager"], p["us_streaming"])
+        p["auto_fitted"] = pick
+        p["regret_fitted"] = p["us_" + pick] / best
+        p["regret_builtin"] = p["us_" + p["auto_builtin"]] / best
+
+    # windows by row groups: each window bitwise the scratch mine of its
+    # rows; a second sweep folds nothing
+    statecache.state_cache().clear()
+    w = ds.window(by="groups", size=4, step=2)
+    t0 = time.perf_counter()
+    wres = w.collect("dfg")
+    torch.cuda.synchronize()
+    t_win = time.perf_counter() - t0
+    kern = dfg_kernel(NUM_ACTIVITIES)
+    for (lo, hi), res in zip(wres.bounds, wres.results):
+        rows = slice(lo * ROW_GROUP_ROWS, min(hi * ROW_GROUP_ROWS, len(case_np)))
+        part = EventFrame({k: v[rows] for k, v in frame_gpu.columns.items()})
+        same_result(torch, f"window groups {lo}:{hi} vs scratch", res,
+                    engine.run_single(kern, part))
+    t0 = time.perf_counter()
+    wres2 = w.collect("dfg")
+    torch.cuda.synchronize()
+    t_win2 = time.perf_counter() - t0
+    if wres2.report.groups_folded or wres2.report.groups_read:
+        raise AssertionError(f"second window sweep folded: {wres2.report.to_dict()}")
+    # windows by time: four tumbling windows, each the same filter collected
+    t_lo = min(float(z[TIMESTAMP]["min"]) for z in zones)
+    t_hi = max(float(z[TIMESTAMP]["max"]) for z in zones)
+    size = (t_hi - t_lo) / 4 * 1.0001
+    wt = ds.window(by="time", size=size, step=size)
+    t0 = time.perf_counter()
+    tres = wt.collect("dfg")
+    torch.cuda.synchronize()
+    t_time = time.perf_counter() - t0
+    if len(tres.bounds) != 4:
+        raise AssertionError(f"time windows: {tres.bounds}")
+    for (a, b), res in zip(tres.bounds, tres.results):
+        direct = ds.filter(repro_torch.col(TIMESTAMP).between(a, b)).collect(
+            "dfg", engine="eager").result
+        same_result(torch, f"time window {a}..{b} vs filter", res, direct)
+
+    # append: 524,288 rows of new cases after L1's tail, as 8,192-row groups
+    out_dir = Path(path).parent
+    grown, again_np = str(out_dir / "L1_append.edf"), str(out_dir / "L1_append_np.edf")
+    shutil.copyfile(path, grown)
+    shutil.copyfile(path, again_np)
+    dtypes = {k: np.dtype(m["dtype"]) for k, m in reader.schema.items()}
+    batch = new_cases(int(case_np[-1]) + 1, APPEND_ROWS, dtypes)
+    cap = 1 << 20
+    gds = repro_torch.open(grown, num_cases=cap, device="cuda")
+    statecache.state_cache().clear()
+    gds.collect("dfg", engine="streaming")           # warms the state cache
+    batch_gpu = EventFrame.from_numpy(batch, device="cuda")
+    t0 = time.perf_counter()
+    gds.append(batch_gpu, row_group_rows=APPEND_GROUP_ROWS)
+    t_append = time.perf_counter() - t0
+    edf.append(again_np, EventFrame.from_numpy(batch, device="cpu"),
+               row_group_rows=APPEND_GROUP_ROWS)
+    same_bytes = Path(grown).read_bytes() == Path(again_np).read_bytes()
+    if not same_bytes:
+        raise AssertionError("the append from the card and the numpy re-run differ")
+    t0 = time.perf_counter()
+    after = gds.collect("dfg", engine="streaming")
+    torch.cuda.synchronize()
+    t_recollect = time.perf_counter() - t0
+    fresh = -(-APPEND_ROWS // APPEND_GROUP_ROWS)
+    rep = after.report
+    if not (rep.groups_cached == chunks and rep.groups_folded == fresh == rep.groups_read):
+        raise AssertionError(f"re-collect after append: {rep.to_dict()}")
+    whole = concat_frames([frame_gpu.select([CASE, ACTIVITY]),
+                           batch_gpu.select([CASE, ACTIVITY])])
+    same_result(torch, "appended dfg vs whole-log mine", after.result,
+                engine.run_single(kern, whole))
+    oracle = numpy_dfg(np.concatenate([case_np, batch[CASE]]),
+                       np.concatenate([act_np, batch[ACTIVITY]]), NUM_ACTIVITIES)
+    for name, x in zip(("counts", "starts", "ends"), oracle):
+        check_equal(f"appended dfg {name} vs numpy", getattr(after.result, name).cpu().numpy(), x)
+    for p in (grown, again_np):
+        Path(p).unlink()
+    engines.clear_result_cache()
+    statecache.state_cache().clear()
+    return ({"phase": "dataset_path", "events": len(case_np), "chunks": chunks,
+             "verbs": list(verbs),
+             "seconds": {f"{v}/{e}": t for (v, e), t in secs.items()},
+             "profile_eager_s": t_profile, "launches": launches,
+             "bitwise_equal_to": ["eager == streaming == profile",
+                                  "run_streaming on the card",
+                                  "cpu_plain_stream (flow within 1e-6)"],
+             "memo": {"reads_on_recollect": memo_reads, "cpu_dataset_reads": cpu_reads},
+             "sweep": sweep,
+             "calibration_fitted": dataclasses.asdict(fitted),
+             "calibration_builtin": dataclasses.asdict(builtin),
+             "windows": {"groups": {"bounds": len(wres.bounds), "first_s": t_win,
+                                    "second_s": t_win2,
+                                    "first": wres.report.to_dict(),
+                                    "second": wres2.report.to_dict()},
+                         "time": {"bounds": [list(b) for b in tres.bounds],
+                                  "seconds": t_time}},
+             "append": {"rows": APPEND_ROWS, "group_rows": APPEND_GROUP_ROWS,
+                        "append_s": t_append, "recollect_s": t_recollect,
+                        "groups_cached": rep.groups_cached,
+                        "groups_folded": rep.groups_folded,
+                        "bytes_equal_numpy_rerun": same_bytes},
+             "seconds_total": time.perf_counter() - t_phase, "nvidia_smi": smi},
+            launches, batch)
+
+
+def http_get(port: int, route: str, timeout: float = 600.0) -> tuple[dict, float]:
+    """One GET against the local service: the decoded JSON and the
+    client's wall seconds."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                timeout=timeout) as r:
+        body = r.read()
+    return json.loads(body), time.perf_counter() - t0
+
+
+def batch_files(out: Path, cols: dict, tables: dict, rows: int, prefix: str) -> int:
+    """Cut host columns at case boundaries into batch ``.edf`` files of
+    about ``rows`` rows each (one row group a file); returns the count."""
+    from repro_torch.core import CASE, EventFrame
+    from repro_torch.storage import edf
+
+    out.mkdir(parents=True, exist_ok=True)
+    case = cols[CASE]
+    heads = np.flatnonzero(np.r_[True, case[1:] != case[:-1]])
+    cuts = [0]
+    for target in range(rows, len(case), rows):
+        i = int(np.searchsorted(heads, target))
+        if i < len(heads) and heads[i] > cuts[-1]:
+            cuts.append(int(heads[i]))
+    cuts.append(len(case))
+    for i, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+        frame = EventFrame.from_numpy({k: v[lo:hi] for k, v in cols.items()},
+                                      device="cpu")
+        edf.write(str(out / f"{prefix}_{i:05d}.edf"), frame, tables, version=3)
+    return len(cuts) - 1
+
+
+def service_path(torch, smi: str, tables: dict, case_np, act_np, ts_np,
+                 new_batch: dict):
+    """The mining service on the card: the first ``SERVICE_ROWS`` rows of
+    L1 (to a case boundary) cut into batch files on the host, ingested
+    with the defaults (500,000-row partitions, 8,192-row groups), then
+    ``serve(...)`` on 127.0.0.1, port
+    0, answering ``/health``, ``/collect`` (dfg, auto and eager; variants),
+    ``/profile``, ``/window``, ``/graph?query=reachability`` and
+    ``/explain`` (the counted drive), each result JSON-equal to the same
+    verb mined eagerly on the card from the claimed rows (``flow`` within
+    1e-6); then three ``/collect?verb=dfg`` raced against an ingest
+    thread appending ``new_batch``, each equal to the eager mine of the
+    rows its snapshot claims; and the idle share of one ``/collect``."""
+    import shutil
+    import threading
+
+    import repro_torch
+    from repro_torch.core import ACTIVITY, CASE, TIMESTAMP, EventFrame, concat_frames
+    from repro_torch.dataset import engines
+    from repro_torch.query import statecache
+    from repro_torch.service import Ingestor, serve, to_jsonable
+    from repro_torch.storage import edf
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke" / "service"
+    shutil.rmtree(root, ignore_errors=True)
+    # the first partitions only: ingesting the whole log made the phase
+    # ~75 s on the card, over its ~60 s share of the script
+    base = int(np.searchsorted(case_np, case_np[min(SERVICE_ROWS, len(case_np)) - 1],
+                               side="right"))
+    cols = {CASE: case_np[:base], ACTIVITY: act_np[:base], TIMESTAMP: ts_np[:base]}
+    t0 = time.perf_counter()
+    n_batches = batch_files(root / "batches", cols, tables, SERVICE_BATCH_ROWS,
+                            "batch")
+    t_cut = time.perf_counter() - t0
+    ing = Ingestor(str(root / "parts"), str(root / "batches"))
+    t0 = time.perf_counter()
+    applied = ing.run_once()
+    t_ingest = time.perf_counter() - t0
+    parts = ing.paths
+    groups = sum(edf.num_row_groups(p) for p in parts)
+    if applied != n_batches or sum(edf.read_header(p)[0]["nrows"] for p in parts) \
+            != base:
+        raise AssertionError(f"ingest applied {applied} of {n_batches} batches")
+
+    engines.clear_result_cache()
+    statecache.state_cache().clear()
+    httpd = serve(str(root / "parts"), host="127.0.0.1", port=0, device="cuda")
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    frame_gpu = EventFrame.from_numpy(cols, device="cuda")
+    prefix_cache = {}
+
+    def eager_ds(rows: int, cap: int):
+        """The claimed rows (a prefix of L1, then of the appended batch) as
+        an in-memory dataset on the card."""
+        frame = prefix_cache.get(rows)
+        if frame is None:
+            if rows <= base:
+                frame = EventFrame({k: v[:rows] for k, v in frame_gpu.columns.items()})
+            else:
+                extra = EventFrame.from_numpy(
+                    {k: v[:rows - base] for k, v in new_batch.items()},
+                    device="cuda")
+                frame = concat_frames([frame_gpu, extra])
+            prefix_cache.clear()
+            prefix_cache[rows] = frame
+        return repro_torch.open(frame, tables=tables, num_cases=cap, device="cuda")
+
+    def reference(label, out, fn):
+        claim = out["snapshot"]
+        want = to_jsonable(fn(eager_ds(claim["rows"], claim["num_cases"])))
+        json_same(label, out["result"] if "result" in out else out["results"], want)
+
+    try:
+        requests, results = {}, {}
+        reset_launches()
+        for name, route in SERVICE_ROUTES:
+            out, secs = http_get(port, route)
+            torch.cuda.synchronize()
+            if not out.get("ok"):
+                raise AssertionError(f"{route}: {out}")
+            results[name] = out
+            rep = out.get("report") or {}
+            requests[name] = {"route": route, "seconds": secs,
+                              "elapsed_us": out.get("elapsed_us"),
+                              "engine": out.get("engine"),
+                              "groups_read": rep.get("groups_read"),
+                              "groups_cached": rep.get("groups_cached"),
+                              "groups_folded": rep.get("groups_folded")}
+        launches = read_launches()
+        for key in ("pair_count", "histogram", "segmented_polyhash", "segment_reduce"):
+            if launches[key] == 0:
+                raise AssertionError(f"service path launched no {key}: {launches}")
+
+        health = results["health"]
+        if health["rows"] != base or len(health["files"]) != len(parts):
+            raise AssertionError(f"health: {health}")
+        for name in ("collect_dfg", "collect_dfg_eager"):
+            reference(name, results[name],
+                      lambda ds: ds.collect("dfg", engine="eager").result)
+        reference("collect variants", results["collect_variants"],
+                  lambda ds: ds.collect("variants", engine="eager").result)
+        reference("profile", results["profile"],
+                  lambda ds: ds.profile(engine="eager").results)
+        win = results["window"]
+        claim = win["snapshot"]
+        offsets = np.cumsum([0] + [g["nrows"] for p in parts
+                                   for g in edf.read_header(p)[0]["groups"]
+                                   if g["nrows"]])
+        claimed = eager_ds(claim["rows"], claim["num_cases"])
+        for (lo, hi), res in zip(win["bounds"], win["results"]):
+            part = EventFrame({k: v[int(offsets[lo]):int(offsets[hi])]
+                               for k, v in claimed.frame.columns.items()})
+            want = repro_torch.open(part, tables=tables, num_cases=claim["num_cases"],
+                                    device="cuda").collect("dfg", engine="eager").result
+            json_same(f"window {lo}:{hi}", res, to_jsonable(want))
+        g = results["graph"]
+        ds = eager_ds(g["snapshot"]["rows"], g["snapshot"]["num_cases"])
+        graph = ds.collect("graph", engine="eager").result.with_labels(tables[ACTIVITY])
+        json_same("graph freq", g["graph"]["freq"], to_jsonable(graph.freq))
+        json_same("graph query", g["query"], to_jsonable(
+            ds.collect("reachability", engine="eager").result))
+        if g["graph"]["labels"] != list(graph.node_labels()):
+            raise AssertionError("graph labels")
+        explain = results["explain"]["explain"]
+        if "state-cache" not in explain or "engine " not in explain:
+            raise AssertionError(f"explain: {explain}")
+
+        # the idle share of one cold /collect (memo and state cache cleared)
+        def cold_collect():
+            engines.clear_result_cache()
+            statecache.state_cache().clear()
+            http_get(port, "/collect?verb=dfg&engine=streaming")
+
+        t0 = time.perf_counter()
+        cold_collect()
+        torch.cuda.synchronize()
+        idle = idle_share(torch, cold_collect, time.perf_counter() - t0)
+
+        # a raced request: an ingest thread appends the new cases while
+        # three /collect?verb=dfg requests run
+        n_race = batch_files(root / "batches2", new_batch, tables,
+                             -(-len(new_batch[CASE]) // RACE_BATCHES), "race")
+        racer = Ingestor(str(root / "parts"), str(root / "batches2"), poll_interval=0.01)
+        raced, errors = [], []
+
+        def client():
+            try:
+                raced.append(http_get(port, "/collect?verb=dfg"))
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client) for _ in range(3)]
+        clients[0].start()                     # pins the pre-ingest snapshot
+        racer.start()
+        for c in clients[1:]:
+            time.sleep(0.05)
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        while racer.ingested < n_race and time.perf_counter() - t0 < 600:
+            time.sleep(0.05)
+        racer.stop()
+        t_race = time.perf_counter() - t0
+        if errors or len(raced) != 3 or racer.ingested != n_race:
+            raise AssertionError(f"raced requests: {errors}, {len(raced)} answers, "
+                                 f"{racer.ingested} of {n_race} batches")
+        race_rows = []
+        for i, (out, secs) in enumerate(raced):
+            reference(f"raced collect {i}", out,
+                      lambda ds: ds.collect("dfg", engine="eager").result)
+            race_rows.append({"seconds": secs, "rows": out["snapshot"]["rows"],
+                              "files": len(out["snapshot"]["files"]),
+                              "engine": out["engine"]})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
+        engines.clear_result_cache()
+        statecache.state_cache().clear()
+    return ({"phase": "service_path", "events": base,
+             "reduced": {"rows": base, "of": len(case_np),
+                         "reason": "the first partitions of L1 only: the whole log "
+                                   "made the phase ~75 s on the card, over its "
+                                   "~60 s share of the script"},
+             "batches": n_batches, "batch_rows": SERVICE_BATCH_ROWS,
+             "partitions": len(parts), "groups": groups,
+             "partition_rows": ing.partition_rows, "row_group_rows": ing.row_group_rows,
+             "cut_s": t_cut, "ingest_s": t_ingest, "ingest_rows_per_s": base / t_ingest,
+             "requests": requests, "launches": launches,
+             "collect_profile": idle,
+             "raced": {"batches": n_race, "rows": len(new_batch[CASE]), "seconds": t_race,
+                       "requests": race_rows},
+             "bitwise_equal_to": ["eager mine on the card of the claimed rows "
+                                  "(JSON; flow within 1e-6)"],
+             "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi},
+            launches)
 
 
 def check_equal(label: str, got: np.ndarray, want: np.ndarray) -> None:
@@ -2340,6 +2903,7 @@ def main() -> int:
               "nvidia_smi": smi})
         emit({"phase": "stats_path_profile",
               **idle_share(torch, lambda: run_streaming(s_kernel, s_source), t_stats)})
+        stats_cpu = st_cpu                     # dataset_path's stats oracle
 
         # ----------- filter path: most common activity, case filter, DFG
         def filter_path(src, device):
@@ -2707,9 +3271,27 @@ def main() -> int:
               **idle_share(torch, lambda: run_streaming(h_kernel, source), t_disc)})
 
         # ------ query path: pruned plans, group states, the prefetch thread
-        q_phase, launches["query_path"], launches["query_group_states"] = query_path(
-            torch, smi, path, case_np, act_np, ts_np, sk, frame_gpu, chunks)
+        (q_phase, launches["query_path"], launches["query_group_states"],
+         cpu_plain) = query_path(torch, smi, path, case_np, act_np, ts_np, sk,
+                                 frame_gpu, chunks)
         emit(q_phase)
+
+        # --------- dataset path: the facade's verbs, dispatch, windows, append
+        cpu_plain.update({"stats": stats_cpu,
+                          "sojourn_times": stats_cpu["sojourn_times"],
+                          "performance_dfg": p_cpu["performance_dfg"]})
+        ds_phase, launches["dataset"], new_batch = dataset_path(
+            torch, smi, path, {ACTIVITY: tables[ACTIVITY]}, cpu_plain, case_np,
+            act_np, frame_gpu, chunks)
+        emit(ds_phase)
+        del cpu_plain
+
+        # ----------- service path: ingest L1, answer HTTP requests on the card
+        svc_phase, launches["service"] = service_path(
+            torch, smi, {ACTIVITY: tables[ACTIVITY]}, case_np, act_np, ts_np,
+            new_batch)
+        emit(svc_phase)
+        del new_batch
 
         # ------------------- serve path: eventlm-100m, prefill + decode
         serve, launches["serve_path"] = serve_path(torch, smi)

@@ -54,7 +54,12 @@ def discover_model(log_dfg: DFG, noise_threshold: float = 0.0) -> torch.Tensor:
 # ------------------------------------------------ discovered-model replay
 def _footprint_agreement(log_direct: torch.Tensor, model_direct: torch.Tensor):
     agree = (log_direct == model_direct) & (log_direct.T == model_direct.T)
-    return agree, agree.to(torch.float32).mean()
+    # the JAX package's ``agree.mean()`` lowers to sum * float32(1 / n),
+    # not a correctly rounded sum / n: the same two float32 operations
+    # give its bits
+    n = torch.tensor(float(agree.numel()), dtype=torch.float32,
+                     device=agree.device)
+    return agree, agree.to(torch.float32).sum() * n.reciprocal()
 
 
 def footprint_conformance(log_dfg: DFG, model) -> torch.Tensor:

@@ -11,8 +11,9 @@ phase two is a second pass that re-derives global segment ids per chunk
 from a carry and narrows each chunk's ``row_valid``.
 
 The eager ``filter_*`` entry points warn ``DeprecationWarning`` as the JAX
-package's do: there, new code goes through the Dataset facade, which this
-package does not have yet (``ROADMAP.md``, Queue 1).
+package's do: new code goes through the Dataset facade
+(``repro_torch.open(...)``), which pushes the same masks down to pruned
+scans.
 """
 from __future__ import annotations
 
@@ -52,11 +53,13 @@ def time_range_mask(frame: EventFrame, name: str, lo, hi) -> torch.Tensor:
 
 def _warn_deprecated(old: str, verb: str) -> None:
     """The eager ``filter_*`` entry points are deprecated shims over the
-    masks a Dataset facade would push down — behavior is unchanged
-    (bitwise)."""
+    same masks the ``repro_torch.dataset`` facade pushes down — behavior
+    is unchanged (bitwise), but new code should go through the facade so
+    the planner can skip I/O and pick the engine."""
     warnings.warn(
         f"repro_torch.core.filtering.{old} is deprecated; use the Dataset "
-        f"facade: open(...).{verb}", DeprecationWarning, stacklevel=3)
+        f"facade: repro_torch.open(...).{verb}", DeprecationWarning,
+        stacklevel=3)
 
 
 def filter_attr_values(frame: EventFrame, name: str, values, keep: bool = True) -> EventFrame:

@@ -160,13 +160,13 @@ def scan(path: str) -> Plan:
     """Start a lazy plan over an EDF file (any version; zone maps are
     synthesized on open for v1/v2 files).
 
-    .. deprecated:: as in the JAX package, which points to its ``Dataset``
-       facade (``open(path).filter(...)``; not ported yet); the ``Plan``
-       IR stays public via ``Plan(path)``.
+    .. deprecated:: use ``repro_torch.open(path).filter(...)`` — the
+       ``Dataset`` facade plans over file *sets* and picks the execution
+       engine; the ``Plan`` IR stays public for custom drivers via
+       ``Plan(path)``.
     """
     warnings.warn(
-        "repro_torch.query.scan() is deprecated, as the JAX package's is "
-        "(its Dataset facade, open(path), is not ported yet); use "
-        "Plan(path) directly for a raw logical plan", DeprecationWarning,
-        stacklevel=2)
+        "repro_torch.query.scan() is deprecated; use repro_torch.open(path) "
+        "and the Dataset verbs (.filter/.dfg/.stats/...) — or Plan(path) "
+        "directly for a raw logical plan", DeprecationWarning, stacklevel=2)
     return Plan(path)

@@ -30,8 +30,9 @@ frame.  Decoding runs on the host; each decoded group is copied to the
 ``device`` the caller names (default ``"cuda"``).  :class:`EDFReader` is
 the cached random-access view the query planner uses (zone maps, sketches
 and segment counts straight from a v3 header, synthesized once for v1/v2
-files), shared through a :class:`ReaderPool`.  Appends come with the
-storage slice.
+files), shared through a :class:`ReaderPool`.  :func:`append` grows a
+v2/v3 file by whole row groups, atomically (temp file + ``os.replace``),
+byte-identical to the JAX package's ``append`` for the same rows.
 
 Every written header leads with a ``stamp``: a content hash of the rest of
 the header, placed first so :func:`header_tag` can read it from the file's
@@ -43,6 +44,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import shutil
 import struct
 import threading
 import zlib
@@ -314,6 +316,139 @@ def _encode_groups(data, valid, tables, bounds, step, nrows, codec, version,
             group.update(_group_aux(data, valid, tables, lo, hi))
         groups.append(group)
     return groups, blobs
+
+
+# ----------------------------------------------------------------- append
+_APPEND_LOCKS: dict[str, threading.Lock] = {}
+_APPEND_LOCKS_GUARD = threading.Lock()
+
+
+def _append_lock(path: str) -> threading.Lock:
+    """The per-path lock every append to ``path`` holds (and the mining
+    service's last, locked attempt takes to hold writers off)."""
+    key = os.path.abspath(path)
+    with _APPEND_LOCKS_GUARD:
+        lock = _APPEND_LOCKS.get(key)
+        if lock is None:
+            lock = _APPEND_LOCKS[key] = threading.Lock()
+        return lock
+
+
+def append(path: str, frame: EventFrame,
+           tables: Mapping[str, list] | None = None,
+           row_group_rows: int | None = None) -> dict:
+    """Append ``frame``'s rows (from any device) to an existing v2/v3 EDF
+    file, atomically.
+
+    The new rows become new row groups at the end of the data region;
+    the rewritten header (with zone maps / segment counts / tail halos /
+    sketch bands for the fresh groups) goes through a temp file +
+    ``fsync`` + ``os.replace``, so a concurrent reader observes either the
+    old file or the new one — never a torn mix — and a reader holding an
+    open handle keeps reading its consistent pre-append snapshot via the
+    old inode.  Old groups are copied verbatim: their content signatures
+    (:meth:`EDFReader.group_signature`), and therefore every cached
+    per-group fold, stay valid.
+
+    Constraints enforced:
+
+    * the frame's schema (column names, dtypes, validity flags) must match
+      the file's;
+    * dictionary ``tables`` may only *extend* the file's (old ids keep
+      their meaning; pass the merged tables when the alphabet grew);
+    * the file stays (case, time)-sorted case-major: the appended frame
+      must be case-sorted and start at/after the file's tail case.
+
+    ``row_group_rows=None`` writes the whole frame as one new group.
+    Returns the new header.  Thread-safe per path within this process;
+    cross-process writers need external coordination.
+    """
+    with _append_lock(path):
+        return _append_locked(path, frame, tables, row_group_rows)
+
+
+def _append_locked(path, frame, tables, row_group_rows):
+    header, base = read_header(path)
+    version = header["version"]
+    if version < 2:
+        raise ValueError(
+            f"append needs the row-group layout (EDFV0002+); {path!r} is v1")
+    if frame.nrows == 0:
+        return header
+    codec = header.get("codec", "raw")
+    old_tables = _tables_from_schema(header)
+    schema = {c["name"]: c for c in header["columns"]}
+    tables = dict(tables) if tables is not None else dict(old_tables)
+
+    data, valid = _host_columns(frame)
+
+    if set(data) != set(schema):
+        raise ValueError(
+            f"appended frame columns {sorted(data)} != file schema "
+            f"{sorted(schema)}")
+    for name, meta in schema.items():
+        if str(data[name].dtype) != meta["dtype"]:
+            raise ValueError(
+                f"column {name!r}: appended dtype {data[name].dtype} != "
+                f"file dtype {meta['dtype']}")
+        if bool(meta.get("has_valid")) != (name in valid):
+            raise ValueError(
+                f"column {name!r}: validity flags must match the file")
+    for name, old in old_tables.items():
+        new = list(tables.get(name, old))
+        if new[:len(old)] != list(old):
+            raise ValueError(
+                f"column {name!r}: dictionary table may only extend the "
+                "file's (old ids must keep their meaning)")
+        if len(new) > len(old):
+            schema[name]["table"] = new
+        tables[name] = new
+
+    if CASE in data:
+        case = data[CASE]
+        if case.size > 1 and bool(np.any(case[1:] < case[:-1])):
+            raise ValueError("appended frame must be case-sorted "
+                             "(case-major, like the file)")
+        tail = (header["groups"][-1].get("tail") or {}).get("values", {}) \
+            if header["groups"] else {}
+        if CASE in tail and case.size and case[0] < tail[CASE]:
+            raise ValueError(
+                f"appended rows start at case {int(case[0])} < the file's "
+                f"tail case {int(tail[CASE])}; appends must not reopen "
+                "earlier cases")
+
+    nrows = frame.nrows
+    if row_group_rows is not None and int(row_group_rows) <= 0:
+        raise ValueError("row_group_rows must be positive")
+    step = nrows if row_group_rows is None else int(row_group_rows)
+    data_size = os.path.getsize(path) - base
+    groups, blobs = _encode_groups(data, valid, tables,
+                                   list(range(0, nrows, step)), step, nrows,
+                                   codec, version, offset=data_size)
+    header["groups"] = list(header["groups"]) + groups
+    header["nrows"] = int(header["nrows"]) + nrows
+    hjson = _stamp_header(header)
+
+    tmp = f"{path}.append.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as out, open(path, "rb") as src:
+            out.write(MAGIC_V3 if version >= 3 else MAGIC_V2)
+            out.write(struct.pack("<I", len(hjson)))
+            out.write(hjson)
+            src.seek(base)
+            shutil.copyfileobj(src, out, 1 << 20)   # old groups, verbatim
+            for b in blobs:
+                out.write(b)
+            out.flush()
+            os.fsync(out.fileno())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+    return header
 
 
 # ------------------------------------------------------------------- read

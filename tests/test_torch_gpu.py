@@ -1352,3 +1352,73 @@ def test_state_cache_never_serves_a_cpu_state_to_a_cuda_collect(cuda, tmp_path):
     again, rep = qexec.execute_grouped(plan, kernel, fp, device="cpu")
     assert rep.groups_cached == rep_cpu.groups_folded and rep.groups_read == 0
     assert torch.equal(again.counts, on_cpu.counts)
+
+
+def test_dataset_memo_never_serves_a_cpu_result_to_a_cuda_collect(cuda, tmp_path):
+    """The result memo's key holds the dataset's device type and lowering:
+    a collect on the card after the same collect on the CPU mines again,
+    on the card, and each device then hits its own entry."""
+    import repro_torch
+    from repro_torch.dataset import engines
+    from repro_torch.query import statecache
+
+    path, _ = _query_log(tmp_path, n_cases=3_000, group_rows=4_096)
+    engines.clear_result_cache()
+    statecache.state_cache().clear()
+    for engine in ("eager", "streaming"):
+        on_cpu = repro_torch.open(path, device="cpu").collect("dfg", engine=engine)
+        assert on_cpu.result.counts.device.type == "cpu"
+        ds = repro_torch.open(path)                  # the default: the card
+        on_card = ds.collect("dfg", engine=engine)
+        assert on_card is not on_cpu
+        assert on_card.result.counts.device.type == "cuda"
+        if engine == "streaming":
+            assert on_card.report.groups_cached == 0
+            assert on_card.report.groups_folded > 0
+        _same_result(on_card.result, on_cpu.result)
+        assert ds.collect("dfg", engine=engine) is on_card
+        assert repro_torch.open(path, device="cpu").collect(
+            "dfg", engine=engine) is on_cpu
+
+
+def test_eager_engine_at_seven_million_rows_on_card_equals_cpu(cuda):
+    """The eager engine folds the whole log as one chunk: every kernel at
+    the Table-6 L1 size (7,003,349 rows, 10^6 case segments; the (N, 26)
+    sum scan of eventually-follows, the case-indexed segment reductions,
+    both hash scans, the fold, the counting kernels) through ``profile()``
+    on the card, equal to the same fused pass on the CPU (centrality
+    ``flow`` within 1e-6)."""
+    import repro_torch
+    from repro_torch.core import ACTIVITY, CASE, TIMESTAMP, EventFrame
+    from repro_torch.data import synthetic
+
+    cols, tables = synthetic.generate_numpy(**synthetic.paper_table6_config(1))
+    assert cols[CASE].shape[0] == 7_003_349
+    frame = EventFrame.from_numpy({c: cols[c] for c in (CASE, ACTIVITY, TIMESTAMP)},
+                                  device="cpu")
+    tab = {ACTIVITY: tables[ACTIVITY]}
+    on_card = repro_torch.open(frame, tables=tab).profile(engine="eager")
+    on_cpu = repro_torch.open(frame, tables=tab, device="cpu").profile(engine="eager")
+    assert on_card.verbs == on_cpu.verbs and len(on_card.verbs) == 16
+    for verb in on_card.verbs:
+        _same_result(on_card[verb], on_cpu[verb])
+
+
+def test_mining_service_on_card_equals_cpu(cuda, tmp_path):
+    """The service mines on the card by default; each endpoint's JSON
+    equals the same service on the CPU (centrality aside)."""
+    import json
+
+    from repro_torch.service import MiningService
+
+    path, _ = _query_log(tmp_path, n_cases=3_000, group_rows=4_096)
+    pdir = tmp_path / "parts"
+    pdir.mkdir()
+    (tmp_path / "q.edf").rename(pdir / "part_00000.edf")
+    card, cpu = MiningService(str(pdir)), MiningService(str(pdir), device="cpu")
+    assert card.device == "cuda"
+    for call in (lambda s: s.collect("dfg", engine="streaming"),
+                 lambda s: s.collect("variants", engine="eager"),
+                 lambda s: s.window("dfg", size=2, step=1),
+                 lambda s: s.graph("reachability", engine="streaming")):
+        assert json.dumps(call(card)) == json.dumps(call(cpu))
