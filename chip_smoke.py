@@ -12,8 +12,9 @@ products, held within their rounding bound, and flash attention, within
 2e-5 in float32 and 2e-2 in bf16), times it, and then drives seven paths
 over the paper's Table-6 level-L1 log (10^6 cases, ~7x10^6 events, 26
 activities, timestamps) written as an EDF file with 524,288-row groups and
-streamed from disk onto the card, the query layer, the ``Dataset`` facade
-and the mining service over that file, and the EventLM serving path:
+streamed from disk onto the card, the query layer, the ``Dataset`` facade,
+its sharded engine and the mining service over that file, and the EventLM
+serving path:
 
 * ``main_path`` — the out-of-core DFG.  It must equal, bitwise, the same
   stream through the plain versions on the CPU, the whole-log DFG on the
@@ -84,6 +85,19 @@ and the mining service over that file, and the EventLM serving path:
   nothing) and by time (each the same filter collected directly); and an
   append of 524,288 rows of new cases as 8,192-row groups (the re-collect
   folds only those; the file's bytes equal a numpy-only re-run).
+* ``distributed_path`` — the sharded engine on the card
+  (``repro_torch.open(path).collect(..., engine="sharded", num_shards=n)``
+  for n = 1, 2, 4, 8, every shard on the one card): the DFG, discovery /
+  alpha / heuristics, the four graph verbs, the merge-tree verbs, variants
+  over a pruned case band (ghost rows) and one ``collect_many``, each
+  bitwise equal to the streaming engine on the card, the CPU plain streams
+  and the numpy oracles, ``pair_count`` / ``histogram`` launched on every
+  shard and the variants collect exactly four affine scans and two uint32
+  ``segment_reduce`` a shard; the DFG's events/s at each n beside
+  streaming, its stage split (gather, padding, copies, shard updates,
+  ``psum``, tail fix) and the idle share of one 8-shard collect; and
+  ``sort_by_case_sharded`` of L1 scrambled over 8 shards, equal to a numpy
+  bucket oracle with no overflow at slack 2.
 * ``service_path`` — the mining service on the card: L1's first 3.5 M rows
   (seven partitions; the whole log made the phase ~75 s) cut at case
   boundaries into host batch files, ingested by the ``Ingestor`` with its
@@ -2443,6 +2457,253 @@ def dataset_path(torch, smi: str, path: str, tables: dict, cpu_plain: dict,
             launches, batch)
 
 
+SHARD_COUNTS = (1, 2, 4, 8)
+SHARD_VERBS = ("dfg", "discovery", "alpha", "heuristics", "graph", "reachability",
+               "bottleneck_paths", "node_centrality")
+MERGE_TREE_VERBS = ("case_sizes", "case_durations", "activity_counts",
+                    "eventually_follows")
+SHARD_BAND = (400_000, 620_000)      # query_path's case band: 10 of 14 groups refuted
+SORT_SHARDS = 8
+
+
+def numpy_sort_buckets(case, act, ts, n: int, slack: float):
+    """Independent host oracle of the distributed sort-by-case: shard *i*
+    (rows ``[i N/n, (i+1) N/n)``) sends its rows of ``case % n == j``, in
+    order, to shard *j* in a bucket of ``cap`` slots (fill -1 / -1 / inf);
+    each shard lexsorts what it received by (case, ts).  Returns the
+    per-shard ``(case, act, ts)`` and whether a bucket overflowed."""
+    per = case.shape[0] // n
+    cap = int(per * slack / n + 1)
+    bc = np.full((n, n, cap), -1, np.int32)
+    ba = np.full((n, n, cap), -1, np.int32)
+    bt = np.full((n, n, cap), np.inf, np.float32)
+    overflow = False
+    for i in range(n):
+        c, a, t = (x[i * per:(i + 1) * per] for x in (case, act, ts))
+        for j in range(n):
+            rows = np.nonzero(c % n == j)[0]
+            overflow |= rows.size > cap
+            rows = rows[:cap]
+            bc[i, j, :rows.size], ba[i, j, :rows.size] = c[rows], a[rows]
+            bt[i, j, :rows.size] = t[rows]
+    out = []
+    for j in range(n):
+        cc, aa, tt = bc[:, j].reshape(-1), ba[:, j].reshape(-1), bt[:, j].reshape(-1)
+        o = np.lexsort((tt, cc))
+        out.append((cc[o], aa[o], tt[o]))
+    return out, overflow
+
+
+def distributed_path(torch, smi: str, path: str, cpu_plain: dict, case_np,
+                     act_np, ts_np, chunks: int):
+    """The sharded engine on the card: ``repro_torch.open(L1).collect(...,
+    engine="sharded", num_shards=n)`` for n = 1, 2, 4, 8 (every shard on the
+    one card, the single-controller mesh).  The counted drive: the DFG,
+    discovery / alpha / heuristics, the four graph verbs, variants over a
+    pruned case band (ghost rows), the merge-tree verbs and one
+    ``collect_many``, each bitwise equal to the streaming engine on the
+    card, the CPU plain streams and the numpy oracles (centrality ``flow``
+    within 1e-6 of the CPU).  Then the DFG's events/s at each n beside the
+    streaming DFG (median of 3, memo off), the stage split of one more
+    collect at each n (gather, host padding, copies to the shards, shard
+    updates, ``psum``, tail fix; each stage synchronized), the idle share
+    of one 8-shard collect, and ``sort_by_case_sharded`` of L1 scrambled
+    over 8 shards against a numpy oracle.  Returns the phase's line and the
+    drive's launch counts."""
+    import os
+
+    import repro_torch
+    from repro_torch.core import ACTIVITY, CASE, TIMESTAMP, EventFrame
+    from repro_torch.dataset import engines
+    from repro_torch.distributed import dfg as ddfg
+    from repro_torch.distributed import mesh as dmesh
+    from repro_torch.distributed import query as dq
+    from repro_torch.distributed import sort as dsort
+    from repro_torch.query import statecache
+
+    t_phase = time.perf_counter()
+    engines.clear_result_cache()
+    statecache.state_cache().clear()
+    col = repro_torch.col
+    ds = repro_torch.open(path, device="cuda")
+    band = ds.filter((col(CASE) >= SHARD_BAND[0]) & (col(CASE) <= SHARD_BAND[1]))
+    ds.collect("dfg", engine="sharded", num_shards=8)      # warm-up: first use
+    torch.cuda.synchronize()
+    engines.clear_result_cache()
+
+    # the counted drive
+    reset_launches()
+    got, secs, by_collect = {}, {}, {}
+
+    def drive(key, fn):
+        before = read_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        by_collect[key] = {k: v - before[k] for k, v in read_launches().items()
+                           if v - before[k]}
+        if res.engine != "sharded":
+            raise AssertionError(f"{key}: ran {res.engine}")
+        got[key] = res
+    for n in SHARD_COUNTS:
+        for verb in SHARD_VERBS + MERGE_TREE_VERBS:
+            drive(f"{verb}@{n}", lambda: ds.collect(verb, engine="sharded", num_shards=n))
+        drive(f"variants_band@{n}",
+              lambda: band.collect("variants", engine="sharded", num_shards=n))
+        drive(f"collect_many@{n}", lambda: ds.collect_many(
+            ("dfg", "alpha", "heuristics", "variants", "graph"),
+            engine="sharded", num_shards=n))
+    launches = read_launches()
+
+    # gates: launches, then every result against the streaming engine on
+    # the card, the CPU plain streams and the numpy oracles
+    for n in SHARD_COUNTS:
+        d_l, v_l = by_collect[f"dfg@{n}"], by_collect[f"variants_band@{n}"]
+        if d_l.get("pair_count", 0) < n or d_l.get("histogram", 0) < 2 * n:
+            raise AssertionError(f"sharded dfg@{n} launched {d_l}")
+        if (v_l.get("segmented_affine") != 4 * n
+                or v_l.get("segment_reduce") != 2 * n):
+            raise AssertionError(f"sharded variants@{n} launched {v_l}")
+        if by_collect[f"discovery@{n}"].get("pair_count", 0) < 2 * n:
+            raise AssertionError(f"sharded discovery@{n}: {by_collect}")
+    for key in ("pair_count", "histogram", "segment_reduce", "segmented_affine",
+                "semiring_matmul", "semiring_closure", "segmented_sum_scan"):
+        if launches[key] == 0:
+            raise AssertionError(f"distributed path launched no {key}: {launches}")
+    oracle = numpy_dfg(case_np, act_np, NUM_ACTIVITIES)
+    l2_oracle = numpy_l2_counts(case_np, act_np, NUM_ACTIVITIES)
+    streamed = {v: ds.collect(v, engine="streaming").result
+                for v in SHARD_VERBS + MERGE_TREE_VERBS}
+    band_streamed = band.collect("variants", engine="streaming")
+    for n in SHARD_COUNTS:
+        for verb in SHARD_VERBS + MERGE_TREE_VERBS:
+            res = got[f"{verb}@{n}"]
+            same_result(torch, f"sharded {verb}@{n} vs streaming", res.result,
+                        streamed[verb])
+            same_result(torch, f"sharded {verb}@{n} vs cpu_plain_stream",
+                        res.result, cpu_plain[verb], flow_atol=1e-6)
+        d = got[f"dfg@{n}"].result
+        for name, x in zip(("counts", "starts", "ends"), oracle):
+            check_equal(f"sharded dfg@{n} {name} vs numpy", getattr(d, name).cpu().numpy(), x)
+        check_equal(f"sharded l2@{n} vs numpy",
+                    got[f"discovery@{n}"].result.l2_counts.cpu().numpy(), l2_oracle)
+        vb = got[f"variants_band@{n}"]
+        if vb.report.groups_skipped == 0:
+            raise AssertionError(f"variants band@{n} skipped no group")
+        if vb.report.groups_skipped != band_streamed.report.groups_skipped:
+            raise AssertionError(f"variants band@{n} skipped {vb.report.to_dict()}, "
+                                 f"streaming {band_streamed.report.to_dict()}")
+        same_result(torch, f"sharded variants band@{n} vs streaming", vb.result,
+                    band_streamed.result)
+        many = got[f"collect_many@{n}"]
+        for verb in ("dfg", "alpha", "heuristics", "graph"):
+            same_result(torch, f"collect_many {verb}@{n}", many[verb], streamed[verb])
+        same_result(torch, f"collect_many variants@{n}", many["variants"],
+                    cpu_plain["variants"])
+        if got[f"dfg@{n}"].result.counts.device.type != "cuda":
+            raise AssertionError("the sharded result left the card")
+
+    # throughput: the DFG at each shard count beside streaming, memo off
+    os.environ[engines.RESULT_CACHE_ENV] = "0"
+    try:
+        rates = {}
+        for n in (0,) + SHARD_COUNTS:       # 0: the streaming engine
+            times = []
+            for _ in range(3):
+                statecache.state_cache().clear()
+                t0 = time.perf_counter()
+                if n:
+                    ds.collect("dfg", engine="sharded", num_shards=n)
+                else:
+                    ds.collect("dfg", engine="streaming")
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            rates["streaming" if n == 0 else f"sharded@{n}"] = {
+                "seconds": times, "median_s": float(np.median(times)),
+                "events_per_s": len(case_np) / float(np.median(times))}
+
+        # the stage split: each stage synchronized on both sides
+        split = {}
+        stages = ((dq, "_gather", "gather"), (dq, "_pad_to_shards", "pad"),
+                  (dq, "shard_columns", "copy"), (ddfg, "_update_shards", "update"),
+                  (ddfg, "psum", "psum"), (dq, "_finish_state", "tail_fix"))
+        inner = {(m, name): getattr(m, name) for m, name, _ in stages}
+
+        def timed(fn, key, acc):
+            def wrapped(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+                return out
+            return wrapped
+        for n in SHARD_COUNTS:
+            acc = {}
+            for m, name, key in stages:
+                setattr(m, name, timed(inner[m, name], key, acc))
+            try:
+                t0 = time.perf_counter()
+                ds.collect("dfg", engine="sharded", num_shards=n)
+                torch.cuda.synchronize()
+                acc["wall"] = time.perf_counter() - t0
+            finally:
+                for m, name, _ in stages:
+                    setattr(m, name, inner[m, name])
+            split[n] = acc
+        wall8 = rates["sharded@8"]["median_s"]
+        idle = idle_share(torch, lambda: ds.collect("dfg", engine="sharded",
+                                                    num_shards=8), wall8)
+    finally:
+        del os.environ[engines.RESULT_CACHE_ENV]
+
+    # the distributed sort: L1 scrambled, padded to 8 shards with -1 rows
+    pad = (-len(case_np)) % SORT_SHARDS
+    s_case = np.concatenate([case_np.astype(np.int32), np.full(pad, -1, np.int32)])
+    s_act = np.concatenate([act_np.astype(np.int32), np.full(pad, -1, np.int32)])
+    s_ts = np.concatenate([ts_np.astype(np.float32), np.full(pad, -1, np.float32)])
+    perm = np.random.default_rng(SEED).permutation(s_case.shape[0])
+    s_case, s_act, s_ts = s_case[perm], s_act[perm], s_ts[perm]
+    scrambled = EventFrame.from_numpy({CASE: s_case, ACTIVITY: s_act, TIMESTAMP: s_ts},
+                                      device="cuda")
+    mesh = dmesh.mesh_for(SORT_SHARDS, "cuda")
+    dsort.sort_by_case_sharded(scrambled, mesh)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc, sa, st, overflow = dsort.sort_by_case_sharded(scrambled, mesh)
+    torch.cuda.synchronize()
+    t_sort = time.perf_counter() - t0
+    sort_profile = idle_share(torch, lambda: dsort.sort_by_case_sharded(scrambled, mesh),
+                              t_sort)
+    want, want_over = numpy_sort_buckets(s_case, s_act, s_ts, SORT_SHARDS, 2.0)
+    if int(overflow) != 0 or want_over:
+        raise AssertionError(f"sort overflowed at slack 2: {int(overflow)}, {want_over}")
+    for j, (c, a, t) in enumerate(want):
+        for label, x, y in (("case", sc[j], c), ("act", sa[j], a), ("ts", st[j], t)):
+            if x.device.type != "cuda":
+                raise AssertionError("a sorted shard left the card")
+            check_equal(f"sorted shard {j} {label} vs numpy", x.cpu().numpy(), y)
+    engines.clear_result_cache()
+    statecache.state_cache().clear()
+    return ({"phase": "distributed_path", "events": len(case_np), "chunks": chunks,
+             "shard_counts": list(SHARD_COUNTS), "devices": torch.cuda.device_count(),
+             "mesh": "single controller, shard i on cuda:(i % device_count)",
+             "seconds": secs, "launches": launches, "launches_by_collect": by_collect,
+             "dfg_rates": rates,
+             "dfg_stage_split_s": {str(n): v for n, v in split.items()},
+             "profile_8_shards": idle,
+             "sort": {"shards": SORT_SHARDS, "rows": int(s_case.shape[0]),
+                      "slack": 2.0, "overflow": int(overflow), "seconds": t_sort,
+                      "profile": sort_profile,
+                      "bitwise_equal_to": ["numpy_bucket_oracle"]},
+             "bitwise_equal_to": ["streaming engine on the card",
+                                  "cpu_plain_stream (flow within 1e-6)",
+                                  "numpy_dfg_oracle", "numpy_triple_oracle"],
+             "seconds_total": time.perf_counter() - t_phase, "nvidia_smi": smi},
+            launches)
+
+
 def http_get(port: int, route: str, timeout: float = 600.0) -> tuple[dict, float]:
     """One GET against the local service: the decoded JSON and the
     client's wall seconds."""
@@ -3284,6 +3545,11 @@ def main() -> int:
             torch, smi, path, {ACTIVITY: tables[ACTIVITY]}, cpu_plain, case_np,
             act_np, frame_gpu, chunks)
         emit(ds_phase)
+
+        # ------- distributed path: the sharded engine over 1/2/4/8 shards
+        dist_phase, launches["distributed"] = distributed_path(
+            torch, smi, path, cpu_plain, case_np, act_np, ts_np, chunks)
+        emit(dist_phase)
         del cpu_plain
 
         # ----------- service path: ingest L1, answer HTTP requests on the card

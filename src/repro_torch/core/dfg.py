@@ -239,4 +239,6 @@ engine.register_kernel(engine.KernelSpec(
     "dfg",
     make=lambda dims, method="auto": dfg_kernel(dims.num_activities, method),
     columns=(CASE, ACTIVITY),
+    sharded_state="dfg",
+    from_sharded=lambda state, **_: state,
     doc="directly-follows graph (counts + start/end histograms)"))

@@ -467,16 +467,24 @@ engine.register_kernel(engine.KernelSpec(
     make=lambda dims, method="auto": discovery_kernel(
         dims.num_activities, method),
     columns=(ACTIVITY, CASE),
+    sharded_state="discovery",
+    from_sharded=lambda state, **_: state,
     doc="DFG + L2-loop triple counts (feeds alpha/heuristics host-side)"))
 engine.register_kernel(engine.KernelSpec(
     "alpha",
     make=lambda dims, min_count=1, method="auto": alpha_kernel(
         dims.num_activities, min_count, method),
     columns=(ACTIVITY, CASE),
+    sharded_state="dfg",
+    from_sharded=lambda state, min_count=1, **_: discover_alpha(
+        state, min_count),
     doc="alpha miner (finalize of the DFG state)"))
 engine.register_kernel(engine.KernelSpec(
     "heuristics",
     make=lambda dims, method="auto", **thresholds: heuristics_kernel(
         dims.num_activities, method, **thresholds),
     columns=(ACTIVITY, CASE),
+    sharded_state="discovery",
+    from_sharded=lambda state, method="auto", **thresholds:
+        discover_heuristics(state, **thresholds),
     doc="heuristics miner (finalize of the discovery state)"))

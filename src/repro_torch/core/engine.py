@@ -96,6 +96,14 @@ class KernelSpec:
 
     * ``make(dims, **kwargs)`` — build the :class:`ChunkKernel`;
     * ``columns`` — the event columns the kernel's ``update`` reads;
+    * ``sharded_state`` — name of the distributed driver that produces this
+      verb's mergeable state (``"dfg"`` / ``"discovery"`` / ``"variants"``,
+      ``repro_torch.distributed.query``), or ``None`` when the verb has no
+      exact distributed lowering (order-sensitive float sums; a stitchable
+      verb then shards as a merge tree);
+    * ``from_sharded(state, **kwargs)`` — the finalize mapping that
+      distributed state to the verb's result (identity for the DFG, the
+      model discovery step for alpha / heuristics);
     * ``doc`` — one line for listings;
     * ``members`` — for fused specs (:func:`compose_specs`): the member
       verb names, in collection order (empty for an ordinary verb).
@@ -104,6 +112,8 @@ class KernelSpec:
     name: str
     make: Callable[..., ChunkKernel]
     columns: tuple
+    sharded_state: str | None = None
+    from_sharded: Callable | None = None
     doc: str = ""
     members: tuple = ()
 
@@ -688,8 +698,11 @@ def compose_specs(specs: Mapping[str, KernelSpec]) -> KernelSpec:
 
     Its ``make`` builds the :func:`compose` of the member kernels
     (``verb_kwargs`` routes per-verb options), its ``columns`` is the union
-    of the member column sets.  Results come back as ``{verb: result}``,
-    bitwise equal per verb to running each member alone.
+    of the member column sets, and its ``sharded_state`` is ``"fused"``
+    exactly when *every* member has an exact distributed lowering —
+    ``repro_torch.distributed.query`` then mines each distinct member state
+    in one sharded pass.  Results come back as ``{verb: result}``, bitwise
+    equal per verb to running each member alone.
     """
     specs = dict(specs)
     if not specs:
@@ -706,10 +719,14 @@ def compose_specs(specs: Mapping[str, KernelSpec]) -> KernelSpec:
         return compose({v: specs[v].make(dims, **{**common, **vk.get(v, {})})
                         for v in names})
 
+    sharded = ("fused" if all(s.sharded_state is not None
+                              for s in specs.values()) else None)
     return KernelSpec(
         name="fused(" + ",".join(names) + ")",
         make=make,
         columns=union_columns(s.columns for s in specs.values()),
+        sharded_state=sharded,
+        from_sharded=None,      # the fused driver finalizes per member
         doc="fused multi-verb collection: " + ", ".join(names),
         members=names)
 

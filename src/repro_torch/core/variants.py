@@ -273,5 +273,7 @@ engine.register_kernel(engine.KernelSpec(
     "variants",
     make=lambda dims, backend=None: variants_kernel(dims.num_cases, backend),
     columns=(ACTIVITY, CASE),
+    sharded_state="variants",
+    from_sharded=lambda state, **_: state,
     doc="per-case variant fingerprints (validity-blind hashing; ghost chunks "
         "fold skipped runs' composed sketch maps)"))

@@ -24,8 +24,10 @@ registry (verbs are data, not if-chains) and accepts ``engine=``:
   paper's baseline; fastest for small survivors);
 * ``"streaming"``  — zone-map-pruned scans, one chunk resident at a time
   (``repro_torch.query``); refuted row groups are never read;
-* ``"sharded"``    — not ported yet: raises ``NotImplementedError``
-  (``ROADMAP.md`` Queue 1 item 6);
+* ``"sharded"``    — the pruned stream sharded over a single-controller
+  mesh of devices (``repro_torch.distributed.query``; shard *i* on
+  ``cuda:(i % device_count)``); verbs without a distributed state shard
+  as a merge tree of group states;
 * ``"auto"``       — cost-based choice from header metadata only (file
   sizes + zone-map selectivity; see ``repro_torch.dataset.engines``).
 

@@ -18,10 +18,15 @@ they cut the stream into units —
   order-sensitive float accumulators: ``sojourn_times`` /
   ``performance_dfg`` / ``stats``) and plans with case-level predicates
   keep the sequential carry-threaded scan — same results, no caching.
-* **sharded** — not ported yet: ``engine="sharded"`` raises
-  ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 6); ``ENGINES``
-  keeps the name so error messages list the same four engines as the JAX
-  package's.
+* **sharded** — one unit per shard of a single-controller mesh
+  (``repro_torch.distributed``; shard *i* on ``cuda:(i % device_count)``,
+  or every shard on the CPU): verbs with a distributed lowering
+  (``KernelSpec.sharded_state``) gather the pruned stream on the host, cut
+  it into equal shards, run one kernel update a shard from the previous
+  shard's tail rows and ``psum`` the states; every *other* mergeable verb
+  shards as a literal merge-tree instance
+  (``distributed.query.merge_tree_sharded`` — contiguous spans of the
+  pruned stream folded independently, states merged, finalized once).
 
 Every engine runs on the dataset's ``device`` (default ``"cuda"``): the
 verbs' kernels launch there, or raise; nothing falls back to the CPU.
@@ -42,7 +47,12 @@ hits, so its bytes are *estimated* skipped).  The decision is a
 **calibrated cost model**: per-byte and per-group costs fitted by least
 squares (:func:`fit_calibration`) to a dispatch sweep of both engines on
 the card (``chip_smoke.py``'s ``dataset_path``); refit to the local
-machine via ``REPRO_DATASET_CALIBRATION=/path/to/sweep.json``.
+machine via ``REPRO_DATASET_CALIBRATION=/path/to/sweep.json``.  The
+sharded decision keeps one environment-tunable threshold:
+
+* ``REPRO_DATASET_SHARD_ROWS`` (default 2M) — above this many surviving
+  rows, shard when more than one card is attached (a CPU dataset counts
+  one device).
 
 Every lowering returns bitwise-identical results, so a wrong guess costs
 time, never correctness.
@@ -50,9 +60,9 @@ time, never correctness.
 **Fused collection** (:func:`collect_many`) resolves several verbs into
 one :func:`~repro_torch.core.engine.compose_specs` fused spec and drives
 the chosen engine ONCE: one pruned scan (columns = the union of the
-member requirements, ``mask_exact`` = their conjunction) or one eager
-load — each verb's result bitwise equal to its separate ``collect``
-call.
+member requirements, ``mask_exact`` = their conjunction), one eager
+load, or one sharded pass over the distinct distributed states — each
+verb's result bitwise equal to its separate ``collect`` call.
 """
 from __future__ import annotations
 
@@ -72,11 +82,6 @@ from repro_torch.core.eventframe import CASE, EventFrame
 SHARD_ROWS = int(os.environ.get("REPRO_DATASET_SHARD_ROWS", 2_000_000))
 
 ENGINES = ("auto", "eager", "streaming", "sharded")
-
-_SHARDED_MISSING = ("engine='sharded' is not ported to repro_torch yet "
-                    "(ROADMAP.md Queue 1 item 6, distributed); use "
-                    "engine='streaming' or 'eager'")
-
 
 def spec_for(verb: str) -> _engine.KernelSpec:
     return _engine.kernel_spec(verb)
@@ -309,22 +314,16 @@ def estimate(dataset) -> CostEstimate:
 
 def choose(dataset, spec: _engine.KernelSpec,
            est: CostEstimate | None, n_devices: int | None = None) -> str:
-    """The cost-based engine decision (see module docstring).
-
-    The sharded branch needs a spec with a distributed lowering
-    (``sharded_state``), which no port spec has yet (``ROADMAP.md`` Queue
-    1 item 6): ``auto`` picks eager or streaming."""
+    """The cost-based engine decision (see module docstring)."""
     if not dataset.is_files:
         return "eager"
     if est is None:
         est = estimate(dataset)
-    if getattr(spec, "sharded_state", None) is not None:
-        if n_devices is None:
-            n_devices = (torch.cuda.device_count()
-                         if torch.device(dataset.device).type == "cuda"
-                         else 1)
-        if n_devices > 1 and est.rows_est >= SHARD_ROWS:
-            return "sharded"
+    if n_devices is None:
+        n_devices = _device_count(dataset.device)
+    if (spec.sharded_state is not None and n_devices > 1
+            and est.rows_est >= SHARD_ROWS):
+        return "sharded"
     cal = calibration()
     if cal.streaming_us(est) <= cal.eager_us(est):
         return "streaming"
@@ -369,6 +368,96 @@ def eager_frame(dataset) -> EventFrame:
     return frame
 
 
+def _device_count(device) -> int:
+    """Devices a dataset's shards spread over: the cards for a CUDA
+    dataset, one for a CPU dataset."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device_count()
+    return 1
+
+
+def _num_shards(num_shards, device) -> int:
+    if num_shards is not None:
+        return max(int(num_shards), 1)
+    return max(_device_count(device), 1)
+
+
+def _mesh(num_shards, device):
+    from repro_torch.distributed.mesh import mesh_for
+
+    return mesh_for(_num_shards(num_shards, device), device)
+
+
+def _sharded(dataset, spec: _engine.KernelSpec, dims, num_shards, **kwargs):
+    from repro_torch.distributed.query import (merge_tree_sharded,
+                                               query_sharded_multi)
+
+    if not dataset.is_files:
+        raise ValueError("engine='sharded' needs a file-backed dataset")
+    if spec.sharded_state is None:
+        # no bespoke distributed state — but a mergeable kernel shards as
+        # a merge-tree instance over contiguous spans of the pruned stream
+        kernel = spec.make(dims, **kwargs)
+        if not _engine.mergeable(kernel):
+            raise ValueError(
+                f"verb {spec.name!r} has no exact distributed lowering "
+                f"(order-sensitive state, no stitch); use "
+                f"engine='streaming' or 'eager'")
+        return merge_tree_sharded(dataset.plan(columns=spec.columns),
+                                  kernel, _num_shards(num_shards,
+                                                      dataset.device),
+                                  device=dataset.device)
+    # same projection/column validation as the other engines (the driver
+    # re-projects the scan to its own (activity, case) columns anyway)
+    plan = dataset.plan(columns=spec.columns)
+    out, report = query_sharded_multi(plan, (spec.sharded_state,),
+                                      dims.num_activities,
+                                      _mesh(num_shards, dataset.device),
+                                      method=kwargs.get("method", "auto"),
+                                      num_cases=dims.num_cases)
+    return spec.from_sharded(out[spec.sharded_state], **kwargs), report
+
+
+def _sharded_many(dataset, specs: Mapping[str, _engine.KernelSpec],
+                  fused: _engine.KernelSpec, dims, num_shards,
+                  verb_kwargs: Mapping[str, dict], common: dict):
+    from repro_torch.distributed.query import (merge_tree_sharded,
+                                               query_sharded_multi)
+
+    if not dataset.is_files:
+        raise ValueError("engine='sharded' needs a file-backed dataset")
+    if fused.sharded_state is None:
+        # same merge-tree fallback as single-verb collects: a fused kernel
+        # stitches iff every member does
+        kernel = fused.make(dims, verb_kwargs=dict(verb_kwargs), **common)
+        if not _engine.mergeable(kernel):
+            bad = sorted(v for v, s in specs.items()
+                         if s.sharded_state is None and
+                         not _engine.mergeable(s.make(dims, **{
+                             **common, **dict(verb_kwargs.get(v, {}))})))
+            raise ValueError(
+                f"fused collection has no exact distributed lowering: verbs "
+                f"{bad} (order-sensitive state, no stitch); drop them or "
+                f"use engine='streaming' or 'eager'")
+        results, report = merge_tree_sharded(
+            dataset.plan(columns=fused.columns), kernel,
+            _num_shards(num_shards, dataset.device), device=dataset.device)
+        return dict(results), report
+    # verbs sharing a distributed state (dfg + alpha, discovery +
+    # heuristics) dedupe: each distinct state is mined once from the one
+    # gathered stream, then every verb finalizes from its state
+    states = tuple(dict.fromkeys(s.sharded_state for s in specs.values()))
+    plan = dataset.plan(columns=fused.columns)
+    out, report = query_sharded_multi(plan, states, dims.num_activities,
+                                      _mesh(num_shards, dataset.device),
+                                      method=common.get("method", "auto"),
+                                      num_cases=dims.num_cases)
+    results = {v: s.from_sharded(out[s.sharded_state],
+                                 **{**common, **dict(verb_kwargs.get(v, {}))})
+               for v, s in specs.items()}
+    return results, report
+
+
 # ------------------------------------------------------------- front door
 @dataclasses.dataclass(frozen=True)
 class CollectResult:
@@ -398,8 +487,6 @@ def _fold_eager(kernel, frame):
 def _check_engine(engine: str) -> None:
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
-    if engine == "sharded":
-        raise NotImplementedError(_SHARDED_MISSING)
 
 
 def collect(dataset, verb: str, *, engine: str = "auto",
@@ -419,12 +506,13 @@ def collect(dataset, verb: str, *, engine: str = "auto",
     hit = _memo_get(memo_key)
     if hit is not None:
         return hit
-    out = _collect(dataset, verb, engine, prefetch, kwargs)
+    out = _collect(dataset, verb, engine, num_shards, prefetch, kwargs)
     _memo_put(memo_key, out)
     return out
 
 
-def _collect(dataset, verb, engine, prefetch, kwargs) -> CollectResult:
+def _collect(dataset, verb, engine, num_shards, prefetch, kwargs
+             ) -> CollectResult:
     spec = spec_for(verb)
     dims = _engine.Dims(dataset.num_activities, dataset.num_cases)
     est = None
@@ -438,6 +526,9 @@ def _collect(dataset, verb, engine, prefetch, kwargs) -> CollectResult:
         kernel = spec.make(dims, **kwargs)
         result = _fold_eager(kernel, eager_frame(dataset))
         return CollectResult(result, None, "eager", verb, est)
+    if engine == "sharded":
+        result, report = _sharded(dataset, spec, dims, num_shards, **kwargs)
+        return CollectResult(result, report, "sharded", verb, est)
     # streaming: per-group states through the cache when the kernel
     # stitches (and the plan is row-level), else the sequential scan
     from repro_torch.query.exec import (execute, execute_grouped,
@@ -484,7 +575,8 @@ def collect_many(dataset, verbs: Iterable[str], *, engine: str = "auto",
     spec — one kernel, one scan whose projection is the union of the
     member column requirements — and dispatch like any other verb:
     ``engine="auto"`` applies the calibrated cost model to the fused
-    spec.  Every registered verb is pruning-exact (``variants`` replays
+    spec, ``"sharded"`` mines each distinct distributed state once from
+    one gathered stream.  Every registered verb is pruning-exact (``variants`` replays
     skipped groups from header sketches), so the fused scan always skips
     refuted groups whatever the member mix.
 
@@ -505,12 +597,13 @@ def collect_many(dataset, verbs: Iterable[str], *, engine: str = "auto",
     hit = _memo_get(memo_key)
     if hit is not None:
         return hit
-    out = _collect_many(dataset, verbs, engine, prefetch, vk, common)
+    out = _collect_many(dataset, verbs, engine, num_shards, prefetch, vk,
+                        common)
     _memo_put(memo_key, out)
     return out
 
 
-def _collect_many(dataset, verbs, engine, prefetch, vk, common
+def _collect_many(dataset, verbs, engine, num_shards, prefetch, vk, common
                   ) -> CollectManyResult:
     specs = {v: spec_for(v) for v in verbs}
     fused = _engine.compose_specs(specs)
@@ -525,6 +618,10 @@ def _collect_many(dataset, verbs, engine, prefetch, vk, common
         kernel = fused.make(dims, verb_kwargs=vk, **common)
         results = _fold_eager(kernel, eager_frame(dataset))
         return CollectManyResult(dict(results), None, "eager", verbs, est)
+    if engine == "sharded":
+        results, report = _sharded_many(dataset, specs, fused, dims,
+                                        num_shards, vk, common)
+        return CollectManyResult(results, report, "sharded", verbs, est)
     from repro_torch.query.exec import (execute, execute_grouped,
                                         grouped_eligible)
 

@@ -13,7 +13,8 @@ merges per-group states as the DFG does.
 ``timed=True`` (the performance overlay) composes the DFG kernel with
 ``performance_dfg_kernel``; its float32 wait totals are folded in row
 order, so the timed graph is bitwise the JAX package's too, and it has no
-stitch (regrouping the float sums is not bitwise-stable).
+stitch (regrouping the float sums is not bitwise-stable) and no sharded
+lowering: ``engine="sharded"`` raises for it, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,8 +22,9 @@ from repro_torch.core import engine
 from repro_torch.core.dfg import dfg_kernel
 from repro_torch.core.eventframe import ACTIVITY, CASE, TIMESTAMP
 
-from .ir import compile_graph
-from .queries import bottleneck_paths, node_centrality, reachability
+from .ir import ProcessGraph, compile_graph
+from .queries import (BottleneckPaths, Centrality, Reachability,
+                      bottleneck_paths, node_centrality, reachability)
 
 
 def _timed_base(num_activities: int, method: str) -> engine.ChunkKernel:
@@ -96,12 +98,41 @@ def node_centrality_kernel(num_activities: int, iters: int = 16,
 
 
 # --------------------------------------------------------- registration
+def _no_sharded_perf(what: str) -> ValueError:
+    return ValueError(
+        f"{what} has no exact distributed lowering (order-sensitive f32 "
+        f"wait totals); use engine='streaming' or 'eager'")
+
+
+def _graph_from_sharded(state, timed=False, **_) -> ProcessGraph:
+    if timed:
+        raise _no_sharded_perf("graph(timed=True)")
+    return compile_graph(state)
+
+
+def _reach_from_sharded(state, k=None, impl=None, **_) -> Reachability:
+    return reachability(compile_graph(state), k, impl=impl)
+
+
+def _bott_from_sharded(state, weights="frequency", impl=None,
+                       **_) -> BottleneckPaths:
+    if weights == "performance":
+        raise _no_sharded_perf('bottleneck_paths(weights="performance")')
+    return bottleneck_paths(compile_graph(state), weights, impl=impl)
+
+
+def _cent_from_sharded(state, iters=16, impl=None, **_) -> Centrality:
+    return node_centrality(compile_graph(state), iters, impl=impl)
+
+
 engine.register_kernel(engine.KernelSpec(
     "graph",
     make=lambda dims, timed=False, method="auto": graph_kernel(
         dims.num_activities, timed, method),
     # TIMESTAMP serves only timed=True; the untimed kernel never reads it
     columns=(ACTIVITY, CASE, TIMESTAMP),
+    sharded_state="dfg",
+    from_sharded=_graph_from_sharded,
     doc="DFG state compiled into a weighted process graph "
         "(artificial start/end nodes; timed=True adds mean waits)"))
 engine.register_kernel(engine.KernelSpec(
@@ -109,6 +140,8 @@ engine.register_kernel(engine.KernelSpec(
     make=lambda dims, k=None, method="auto", impl=None: reachability_kernel(
         dims.num_activities, k, method, impl),
     columns=(ACTIVITY, CASE),
+    sharded_state="dfg",
+    from_sharded=_reach_from_sharded,
     doc="k-step boolean reachability closure of the process graph"))
 engine.register_kernel(engine.KernelSpec(
     "bottleneck_paths",
@@ -116,6 +149,8 @@ engine.register_kernel(engine.KernelSpec(
     impl=None: bottleneck_paths_kernel(dims.num_activities, weights,
                                        method, impl),
     columns=(ACTIVITY, CASE, TIMESTAMP),
+    sharded_state="dfg",
+    from_sharded=_bott_from_sharded,
     doc="min-plus shortest / max-min widest paths + source→sink bottleneck"))
 engine.register_kernel(engine.KernelSpec(
     "node_centrality",
@@ -123,4 +158,6 @@ engine.register_kernel(engine.KernelSpec(
     impl=None: node_centrality_kernel(dims.num_activities, iters,
                                       method, impl),
     columns=(ACTIVITY, CASE),
+    sharded_state="dfg",
+    from_sharded=_cent_from_sharded,
     doc="in/out degree + power-method flow centrality per node"))

@@ -7,9 +7,10 @@ filtered and not: the port's result equals JAX's bitwise (fingerprints as
 uint32; centrality ``flow`` within 1e-6), equals the port's own eager
 filter chain, and its ``ScanReport`` equals JAX's field by field.  Plus
 ``collect_many`` / ``profile``, ``explain()``, the calibrated ``auto``
-dispatch, the result memo keyed by device, ``sharded`` raising, and the
-JAX package's own facade cases (``tests/test_dataset.py``,
-``tests/test_fusion.py``) minus the sharded ones.
+dispatch, the result memo keyed by device, ``sharded`` running with JAX's
+error texts, and the JAX package's own facade cases
+(``tests/test_dataset.py``, ``tests/test_fusion.py``) minus the sharded
+ones (``tests/test_torch_distributed.py`` holds those).
 """
 import dataclasses
 import re
@@ -332,16 +333,28 @@ def test_mixed_version_multi_log(tmp_path):
 
 # ----------------------------------------------------------------- engines
 def test_engines_and_sharded_raises(logset):
-    """``ENGINES`` keeps JAX's four names; ``sharded`` is not ported and
-    raises naming the roadmap item, never falling back."""
-    paths, _, _ = logset
+    """``ENGINES`` keeps JAX's four names; ``sharded`` runs (equal to the
+    eager engine, as JAX's is) and keeps JAX's ``ValueError`` texts for an
+    in-memory dataset and a verb with no exact distributed lowering."""
+    paths, whole, tables = logset
     assert tengines.ENGINES == jengines.ENGINES
     ds = _open(paths)
-    for call in (lambda: ds.collect("dfg", engine="sharded"),
-                 lambda: ds.collect_many(["dfg"], engine="sharded"),
-                 lambda: ds.dfg(engine="sharded", num_shards=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            call()
+    jds = repro.open(paths)
+    for got in (ds.collect("dfg", engine="sharded").result,
+                ds.collect_many(["dfg"], engine="sharded")["dfg"],
+                ds.dfg(engine="sharded", num_shards=2)):
+        _same(got, jds.collect("dfg", engine="eager").result, "sharded dfg")
+    mem = _open(whole, tables=tables)
+    for tcall, jcall in (
+            (lambda: mem.collect("dfg", engine="sharded"),
+             lambda: repro.open(jedf.read(paths[0])[0], tables=tables)
+             .collect("dfg", engine="sharded")),
+            (lambda: ds.collect("stats", engine="sharded"),
+             lambda: jds.collect("stats", engine="sharded"))):
+        with pytest.raises(ValueError) as je:
+            jcall()
+        with pytest.raises(ValueError, match=re.escape(str(je.value))):
+            tcall()
     with pytest.raises(ValueError, match="unknown engine"):
         ds.collect("dfg", engine="warp")
 
@@ -372,9 +385,11 @@ def test_engine_auto_is_cost_based(logset, monkeypatch):
     assert mem.collect("dfg").engine == "eager"
 
 
-def test_fit_calibration_matches_jax_and_choose_counts_devices(logset):
+def test_fit_calibration_matches_jax_and_choose_counts_devices(logset,
+                                                              monkeypatch):
     """The least-squares fit is JAX's on the same sweep points; ``auto``
-    never picks ``sharded`` (no port spec has a distributed lowering)."""
+    picks ``sharded`` where JAX's does: a spec with a distributed lowering,
+    more than one device and at least ``SHARD_ROWS`` surviving rows."""
     sweep = {"sweep": [
         {"bytes_total": 1000, "bytes_read": b, "groups_total": 14,
          "groups_skipped": 14 - g, "us_eager": 500.0 + 0.01 * b,
@@ -384,10 +399,18 @@ def test_fit_calibration_matches_jax_and_choose_counts_devices(logset):
         sweep)
     assert dataclasses.astuple(got) == dataclasses.astuple(want)
     paths, _, _ = logset
-    ds = _open(paths)
-    spec = tengine.kernel_spec("dfg")
-    assert tengines.choose(ds, spec, None, n_devices=8) in ("eager",
-                                                            "streaming")
+    ds, jds = _open(paths), repro.open(paths)
+    rows = tengines.estimate(ds).rows_est
+    for verb in ("dfg", "variants", "stats"):
+        spec, jspec = tengine.kernel_spec(verb), jengines.spec_for(verb)
+        for n_devices, shard_rows in ((8, rows), (8, rows + 1), (1, rows)):
+            monkeypatch.setattr(tengines, "SHARD_ROWS", shard_rows)
+            monkeypatch.setattr(jengines, "SHARD_ROWS", shard_rows)
+            got = tengines.choose(ds, spec, None, n_devices=n_devices)
+            assert got == jengines.choose(jds, jspec, None,
+                                          n_devices=n_devices)
+            assert (got == "sharded") == (verb != "stats" and n_devices > 1
+                                          and shard_rows <= rows)
     with pytest.raises(ValueError, match="no usable sweep points"):
         tengines.fit_calibration({"sweep": []})
 

@@ -5,8 +5,9 @@ products and whole closures; random-float ``plus_times`` within its
 rounding bound of ``torch.matmul`` and bitwise the k-order ``fmaf`` chain
 (an exact-rounding oracle, itself checked on the CPU); flash
 attention within 2e-5 in float32, 2e-2 in bf16), and the DFG, statistics,
-filter, variants, performance, graph and discovery paths and the reduced
-EventLM served through the kernels (graph centrality ``flow`` within 1e-6
+filter, variants, performance, graph and discovery paths, the sharded
+engine at 8 shards on the one card (its shard updates never reading back to
+the host), and the reduced EventLM served through the kernels (graph centrality ``flow`` within 1e-6
 of the CPU, greedy tokens equal to the CPU's).
 The row-order float fold has no plain version on a card (CUDA
 ``index_add_`` adds in no fixed order), so it is held against the plain
@@ -1422,3 +1423,103 @@ def test_mining_service_on_card_equals_cpu(cuda, tmp_path):
                  lambda s: s.window("dfg", size=2, step=1),
                  lambda s: s.graph("reachability", engine="streaming")):
         assert json.dumps(call(card)) == json.dumps(call(cpu))
+
+
+def test_sharded_engine_on_card_equals_streaming_at_8_shards(cuda, tmp_path):
+    """``engine="sharded"`` at 8 shards on the card (all on the one card)
+    equals the streaming engine on the card and the sharded engine on the
+    CPU, for every verb with a distributed state and two merge-tree verbs,
+    over a pruned case band; the DFG launches the counting kernels on every
+    shard, variants four affine scans and two uint32 ``segment_reduce`` a
+    shard."""
+    import repro_torch
+    from repro_torch.core import CASE
+    from repro_torch.dataset import engines
+    from repro_torch.kernels import segment_ops as so
+
+    path, _ = _query_log(tmp_path, n_cases=20_000, group_rows=8_192)
+    engines.clear_result_cache()
+
+    def band(ds):
+        c = repro_torch.col(CASE)
+        return ds.filter((c >= 4_000) & (c <= 9_000))
+
+    card, cpu = band(repro_torch.open(path)), band(repro_torch.open(path, device="cpu"))
+    wrappers = (so.pair_count_cuda, so.histogram_cuda, so.segmented_affine_cuda,
+                so.segment_reduce_cuda)
+    for verb in ("dfg", "discovery", "alpha", "heuristics", "variants", "graph",
+                 "reachability", "bottleneck_paths", "node_centrality",
+                 "case_sizes", "eventually_follows"):
+        before = [w.launches for w in wrappers]
+        got = card.collect(verb, engine="sharded", num_shards=8)
+        d = [w.launches - b for w, b in zip(wrappers, before)]
+        assert got.engine == "sharded" and got.report.groups_skipped > 0
+        if verb == "dfg":
+            assert d[0] >= 8 and d[1] >= 16, d
+        if verb == "variants":
+            assert d[2] == 32 and d[3] == 16, d
+        want = cpu.collect(verb, engine="sharded", num_shards=8).result
+        _same_result(got.result, want)
+        _same_result(card.collect(verb, engine="streaming").result, want)
+
+
+def test_shard_updates_never_leave_the_card(cuda, monkeypatch):
+    """Once the shards are on the card, the composed DFG + discovery update,
+    the halo, the variants lowering and the ``psum`` read nothing back to
+    the host (every device-to-host path of a tensor raises), and their
+    states equal the same drivers over CPU shards."""
+    from repro_torch.core import CASE, ACTIVITY, engine
+    from repro_torch.core.dfg import dfg_kernel
+    from repro_torch.core.discovery import discovery_kernel
+    from repro_torch.core.polyhash import BASE1, BASE2
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import dfg as ddfg
+    from repro_torch.distributed import discovery as ddisc
+    from repro_torch.distributed import mesh as dmesh
+    from repro_torch.distributed import query as dq
+    from repro_torch.distributed.variants import run_sharded_variants
+
+    cols, _ = synthetic.generate_numpy(num_cases=5_000, num_activities=26, seed=3)
+    case, act = cols[CASE].astype(np.int64), cols[ACTIVITY].astype(np.int32)
+    v = act + 1
+    maps = (np.full(v.shape, BASE1, np.int32), v, np.full(v.shape, BASE2, np.int32), v)
+    c, a, r, maps = dq._pad_to_shards(case, act, np.ones(case.size, bool), 8, maps)
+    host = [torch.from_numpy(x) for x in (c, a, r, *maps, *dq._segment_markers(c))]
+    fixes = {"dfg": ddfg.fix_trailing_end, "discovery": ddisc._fix_end}
+
+    def run(device):
+        shards = ddfg.shard_columns(dmesh.mesh_for(8, device), *host)
+        kernel = engine.compose({"dfg": dfg_kernel(26), "discovery": discovery_kernel(26)})
+        return (ddfg.run_sharded_composed(kernel, fixes, *shards[:3])[0],
+                run_sharded_variants(*shards[3:], 5_000)[0])
+
+    want = run("cpu")
+    shards_on_card = ddfg.shard_columns(dmesh.mesh_for(8, "cuda"), *host)
+    assert all(t.is_cuda for col in shards_on_card for t in col)
+
+    def refuse(name):
+        inner = getattr(torch.Tensor, name)
+
+        def guarded(self, *args, **kwargs):
+            if self.is_cuda:
+                raise AssertionError(f"Tensor.{name} on a card tensor")
+            return inner(self, *args, **kwargs)
+        monkeypatch.setattr(torch.Tensor, name, guarded)
+
+    for name in ("cpu", "item", "tolist", "numpy", "__bool__", "__int__",
+                 "__float__", "__index__"):
+        refuse(name)
+    inner_to = torch.Tensor.to
+
+    def to(self, *args, **kwargs):
+        out = inner_to(self, *args, **kwargs)
+        if self.is_cuda and not out.is_cuda:
+            raise AssertionError("Tensor.to moved a card tensor to the host")
+        return out
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    monkeypatch.setattr(ddfg, "shard_columns", lambda mesh, *cols: shards_on_card)
+    got = run("cuda")
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    for g, w in zip(engine.tensor_leaves(got), engine.tensor_leaves(want)):
+        assert g.is_cuda and torch.equal(g.cpu(), w)

@@ -640,6 +640,7 @@ def test_http_endpoints_match_jax(tmp_path, log, monkeypatch):
                      "/profile?engine=streaming",
                      "/window?verb=dfg&by=groups&size=2&step=2",
                      "/graph?query=reachability&engine=streaming",
+                     "/collect?verb=dfg&engine=sharded",
                      "/explain?verb=dfg"):
             _fresh()
             _json_same(get(port, path), get(jax_, path), path)
@@ -651,7 +652,7 @@ def test_http_endpoints_match_jax(tmp_path, log, monkeypatch):
         assert health["ok"] and health["rows"] == frame.nrows
         for bad, code in (("/nope", 404), ("/collect", 400),
                           ("/collect?verb=nope", 400),
-                          ("/collect?verb=dfg&engine=sharded", 500)):
+                          ("/collect?verb=stats&engine=sharded", 400)):
             with pytest.raises(urllib.error.HTTPError) as err:
                 get(port, bad)
             assert err.value.code == code, bad
