@@ -14,7 +14,7 @@ over the paper's Table-6 level-L1 log (10^6 cases, ~7x10^6 events, 26
 activities, timestamps) written as an EDF file with 524,288-row groups and
 streamed from disk onto the card, the query layer, the ``Dataset`` facade,
 its sharded engine and the mining service over that file, and the EventLM
-serving path:
+serving and training paths:
 
 * ``main_path`` — the out-of-core DFG.  It must equal, bitwise, the same
   stream through the plain versions on the CPU, the whole-log DFG on the
@@ -119,6 +119,29 @@ serving path:
   logits within 1e-3 (float32) / 5e-2 (bf16); greedy tokens identical in
   float32, and in bf16 wherever the plain run's top-2 logit margin exceeds
   0.1 (a request is compared up to its first such divergence).
+* ``train_path`` — ``eventlm-100m`` at full width trained by
+  ``train.trainstep`` on batches from ``launch.train.make_data`` with the
+  launcher's ``OptConfig``: (a) 8 x 128 for 20 steps and (b) 8 x 1,024 for
+  10, each in bf16 and in float32 compute.  Under ``remat_policy="full"``
+  a step launches the flash-attention forward kernel exactly 24 times (the
+  forward pass and the recompute) and the backward kernel exactly 12.
+  Gates: every loss finite and the mean of the last 5 below the first 5's;
+  step 0's loss and every parameter's gradient against the same model and
+  batch with ``attn_impl="ref"`` (``TRAIN_LOSS_ATOL``,
+  ``TRAIN_GRAD_RTOL``); ``adamw_update`` on the card against the CPU from
+  the same gradients within ``ADAMW_ULPS``; a checkpoint saved, restored
+  and resumed giving the same next step; TF32 off.  It reports tokens/s,
+  a synchronized step's forward / backward / optimizer milliseconds, peak
+  memory and a step's idle share.
+
+The flash-attention check also holds the backward: the forward's
+log-sum-exp against ``flash_attention_lse_ref`` (``FLASH_LSE_ATOL``), the
+backward kernel's (dq, dk, dv) against ``flash_attention_bwd_ref`` on the
+same inputs (``FLASH_BWD_RTOL``), and ``FlashAttention.apply``'s
+gradients against autograd through ``flash_attention_ref``
+(``FLASH_GRAD_RTOL``), at ``FLASH_SHAPES``, on (B, S, H, D) views at
+every head dim, and at the (B, S, H, D) views ``train_path`` gives it
+(``TRAIN_RUNS``' batch and sequence lengths), in float32 and bf16.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after, and must show its kernels.
@@ -132,9 +155,11 @@ plain versions (``check_semiring``), times the products, the closures at
 N = 28 (the L1 graph, from numpy) and the JAX graph benchmark's 48 and 128,
 the closure kernel against the loop of products up to its capacity, and
 the L1 graph's five queries (``time_semiring_kernels``), and stops, without
-the ``ok`` line.  A copy of this script placed at the root of another
-checkout (a parent commit unpacked with ``git archive``) times that
-checkout's kernels with the same code.
+the ``ok`` line.  ``python3 chip_smoke.py --train`` builds only the two
+flash-attention sources, runs ``train_path`` and stops, without the ``ok``
+line.  A copy of this script placed at the root of another checkout (a
+parent commit unpacked with ``git archive``) times that checkout's kernels
+with the same code.
 
 Every line of standard output is one JSON object; the last one is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
@@ -191,11 +216,16 @@ SEMIRING_TPU = "src/repro/kernels/graph_ops/semiring.py:103"
 CLOSURE_TPU = ("none: the closure loops over semiring_matmul_pallas, "
                "src/repro/kernels/graph_ops/ops.py:78-124")
 FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:121"
+# no Pallas kernel: JAX trains through attention_chunked and XLA
+# differentiates its lax.scan
+FLASH_BWD_TPU = ("none: XLA's VJP of attention_chunked's lax.scan, "
+                 "src/repro/models/attention.py:53-114")
 # no Pallas kernel: the JAX package's row-order XLA scatter
 ORDERED_FOLD_TPU = "none: XLA scatter, src/repro/kernels/segment_ops/ref.py:58"
 KERNELS = ("pair_count", "histogram", "segment_reduce", "ordered_histogram",
            "segmented_polyhash", "segmented_affine", "segmented_sum_scan",
-           "semiring_matmul", "semiring_closure", "flash_attention")
+           "semiring_matmul", "semiring_closure", "flash_attention",
+           "flash_attention_bwd")
 SEMIRINGS = ("plus_times", "min_plus", "max_min")
 # the closures: the L1 graph's 28 nodes, the JAX graph benchmark's sweep
 # (benchmarks/bench_graph.py:93, density 0.25), and more sizes up to the
@@ -222,6 +252,37 @@ FLASH_SHAPES = ((1, 4, 2, 128, 128, 64, True, None), (2, 8, 2, 256, 256, 64, Tru
                 (8, 12, 12, 1_000, 1_000, 64, True, None))
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX kernel tests' bounds
 FLASH_TIMED = (8, 12, 1_024, 64)                     # (B, H, S, D), causal
+# the backward's tolerances.  The forward's log-sum-exp: within 2e-5 of the
+# plain one (3xTF32 / bf16-exact scores summed in another order).  The
+# kernel's gradients against the plain backward on the same inputs, each
+# |err| <= tol * (1 + |want|): float32 sums in another order (1e-5); in
+# bf16 both sides round the same float32 value, so they may differ by one
+# bf16 ulp, at most 2^-7 of the value.  FlashAttention.apply against
+# autograd through the plain forward: the forward's own error enters
+# through Delta = dO . o (float32 3xTF32 within 2^-20; bf16 P within 2^-9).
+FLASH_LSE_ATOL = 2e-5
+FLASH_BWD_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+FLASH_GRAD_RTOL = {"float32": 5e-5, "bfloat16": 3e-2}
+TRAIN_ARCH = "eventlm-100m"
+# (label, batch, seq, steps): (a) the launcher's defaults, (b) the shape at
+# which the forward kernel is timed (FLASH_TIMED)
+TRAIN_RUNS = (("a", 8, 128, 20), ("b", 8, 1_024, 10))
+# step 0 against attn_impl="ref": the loss, and each parameter's gradient as
+# ||g - g_ref|| / ||g_ref||; bf16 compute rounds every product's inputs, and
+# the kernel rounds P to bf16 where the plain attention does not
+TRAIN_LOSS_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
+TRAIN_GRAD_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# adamw_update on the card against the CPU from the same gradients: the
+# global norm's sums run in another order and cos / pow may differ by an
+# ulp, so each element of params, m and v is held within 16 float32 ulps of
+# the largest magnitude among its operands (a parameter: its value before
+# the updates and after them; an update can cancel a parameter to near 0,
+# where ulps of the result alone measure nothing)
+ADAMW_ULPS = 16
+# the next step after a checkpoint round trip: the loss bitwise; the
+# parameters within 1e-6 (the embedding gradient's scatter-add may sum its
+# rows in another order on the card)
+RESUME_ATOL = 1e-6
 SERVE_ARCH = "eventlm-100m"
 # (label, requests, prompt length, stride between prompts in the token
 # stream, steps, max_len): (a) the defaults of launch/serve.py, (b) long
@@ -295,7 +356,7 @@ def wrappers() -> dict:
     from repro_torch.kernels import flash_attention, graph_ops, segment_ops
 
     home = {"semiring_matmul": graph_ops, "semiring_closure": graph_ops,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention}
     return {name: getattr(home.get(name, segment_ops), name + "_cuda")
             for name in KERNELS}
 
@@ -524,6 +585,7 @@ def check_kernels(torch, so) -> dict:
     check_scans(torch, so, gen, record)
     check_semiring(torch, gen, record, out)
     check_flash(torch, out)
+    check_flash_bwd(torch, out)
     torch.cuda.synchronize()
     return out
 
@@ -598,6 +660,114 @@ def check_flash(torch, out) -> None:
                 torch.cuda.synchronize()
                 hold(got, fa.flash_attention_ref(q, k, v, n, causal=False), dtype,
                      f"CUDA-graph replay D={d} kv_len={n} {dtype}")
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / (1 + |want|) in float32 (0 for empty tensors)."""
+    if want.numel() == 0:
+        return 0.0
+    return float(((got.float() - want.float()).abs() / (1 + want.float().abs())).max())
+
+
+def check_flash_bwd(torch, out) -> None:
+    """The backward kernel at ``FLASH_SHAPES`` in float32 and bf16 (``kv_len``
+    as an int, as a 0-d int32 tensor on the card, and 0, whose gradients
+    must be 0), then on (B, S, H, D) buffers viewed as (B, H, S, D) at every
+    head dim (GQA, a window; the gradients keep the layout): the forward's
+    lse against ``flash_attention_lse_ref`` (``FLASH_LSE_ATOL``, -inf where
+    the plain one is), the kernel's (dq, dk, dv) against
+    ``flash_attention_bwd_ref`` on the same inputs (``FLASH_BWD_RTOL``), and
+    ``FlashAttention.apply``'s gradients against autograd through
+    ``flash_attention_ref`` (``FLASH_GRAD_RTOL``).  Last, the shapes
+    ``train_path`` gives the kernel, in both dtypes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    entry = out["flash_attention_bwd"]
+
+    def hold(q, k, v, do, kv_len, causal, win, dtype, what):
+        kw = dict(causal=causal, window=win)
+        o, lse = fa.flash_attention_cuda(q, k, v, kv_len, return_lse=True, **kw)
+        _, lse_ref = fa.flash_attention_lse_ref(q, k, v, kv_len, **kw)
+        fin = torch.isfinite(lse_ref)
+        lse_err = float((lse[fin] - lse_ref[fin]).abs().max()) if bool(fin.any()) else 0.0
+        if not (torch.equal(torch.isfinite(lse), fin) and lse_err <= FLASH_LSE_ATOL):
+            raise AssertionError(f"flash_attention lse != plain at {what}: {lse_err}")
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len, **kw)
+        want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, kv_len, **kw)
+        for x, y in zip(got, want):
+            if x.dtype != y.dtype or x.shape != y.shape:
+                raise AssertionError(f"flash_attention_bwd at {what}: {x.dtype} "
+                                     f"{tuple(x.shape)} != plain {y.dtype} {tuple(y.shape)}")
+        err = max(rel_err(x, y) for x, y in zip(got, want))
+        abs_err = max(float((x.float() - y.float()).abs().max()) if y.numel() else 0.0
+                      for x, y in zip(got, want))
+        if not err <= FLASH_BWD_RTOL[dtype]:
+            raise AssertionError(f"flash_attention_bwd kernel != plain version at "
+                                 f"{what}: rel err {err}")
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        fa.ops.flash_attention(*leaves, kv_len, **kw).backward(do)
+        plain = [t.detach().requires_grad_() for t in (q, k, v)]
+        fa.flash_attention_ref(*plain, kv_len, **kw).backward(do)
+        fn_err = max(rel_err(a.grad, b.grad) for a, b in zip(leaves, plain))
+        if not fn_err <= FLASH_GRAD_RTOL[dtype]:
+            raise AssertionError(f"FlashAttention gradients != autograd of the plain "
+                                 f"forward at {what}: rel err {fn_err}")
+        if (isinstance(kv_len, torch.Tensor) and int(kv_len) == 0
+                and any(bool(x.any()) for x in (*got, *(a.grad for a in leaves)))):
+            raise AssertionError(f"flash_attention_bwd at {what}: rows with no valid "
+                                 f"column have gradients")
+        entry["cases"] += 1
+        entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
+        for key, val in ((f"max_rel_err_{dtype}", err), (f"apply_max_rel_err_{dtype}", fn_err),
+                         ("lse_max_abs_err", lse_err)):
+            entry[key] = max(entry.get(key, 0.0), val)
+        return got
+
+    for b, h, kvh, sq, sk, d, causal, win in FLASH_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q, do = (torch.randn((b, h, sq, d), generator=gen, device=dev).to(dt)
+                     for _ in range(2))
+            k, v = (torch.randn((b, kvh, sk, d), generator=gen, device=dev).to(dt)
+                    for _ in range(2))
+            lens = [None]
+            if sk > 64 and b < 8:
+                lens = [sk - 17, torch.tensor(sk - 17, dtype=torch.int32, device=dev)]
+            if (b, h, sq) == (1, 4, 128):
+                lens.append(torch.tensor(0, dtype=torch.int32, device=dev))
+            for kv_len in lens:
+                hold(q, k, v, do, kv_len, causal, win, dtype,
+                     f"B={b} H={h} KVH={kvh} Sq={sq} Sk={sk} D={d} causal={causal} "
+                     f"window={win} kv_len={kv_len!r} {dtype}")
+    for d in (16, 32, 64, 128):
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+
+            def view(heads):
+                return (torch.randn((2, 77, heads, d), generator=gen, device=dev)
+                        .to(dt).transpose(1, 2))
+
+            q, k, v, do = view(6), view(3), view(3), view(6)
+            got = hold(q, k, v, do, None, True, 20, dtype, f"(B, S, H, D) views D={d} {dtype}")
+            if not all(x.transpose(1, 2).is_contiguous() for x in got):
+                raise AssertionError(f"flash_attention_bwd D={d} {dtype}: the gradients "
+                                     f"lost the (B, S, H, D) layout of their inputs")
+    # the shapes train_path gives the kernel: eventlm-100m's (B, S, 12, 64)
+    # projections viewed as (B, H, S, D), causal, no window, every key valid
+    cfg = get_config(TRAIN_ARCH)
+    for _, b, s, _ in TRAIN_RUNS:
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q, k, v, do = (torch.randn((b, s, heads, cfg.head_dim), generator=gen, device=dev)
+                           .to(dt).transpose(1, 2)
+                           for heads in (cfg.num_heads, cfg.num_kv_heads,
+                                         cfg.num_kv_heads, cfg.num_heads))
+            hold(q, k, v, do, None, True, None, dtype,
+                 f"train_path (B, S, H, D) views B={b} S={s} {dtype}")
+            entry["train_shapes"] = entry.get("train_shapes", 0) + 1
 
 
 def bench_graph(n: int, density: float = 0.25, seed: int | None = None):
@@ -1689,7 +1859,63 @@ def time_flash_attention(torch) -> dict:
             row.update(simt_bound_ms=simt["bound_ms"], simt_bound_by=simt["bound_by"])
         suffix = "" if dtype == "bfloat16" else "_float32"
         rows[f"flash_attention/prefill_{s}{suffix}"] = row
+    rows.update(time_flash_attention_bwd(torch))
     torch.cuda.synchronize()
+    return rows
+
+
+def time_flash_attention_bwd(torch) -> dict:
+    """The backward kernel at ``FLASH_TIMED``, causal, in bf16 and float32:
+    one call (three kernel nodes).  ``library_ms`` is the backward of
+    ``scaled_dot_product_attention`` under autograd on the same inputs
+    (``torch.autograd.grad`` of a forward run once), a yardstick the port
+    never calls; ``plain_ms`` the plain backward on the card.  The bound
+    counts q, k, v, o, dO read and dq, dk, dv written once, and the five
+    products of the backward over the causal pairs: at the bf16 tensor-core
+    rate (bf16), or as three TF32 products each (float32;
+    ``simt_bound_ms`` the same operations once each on the SIMT cores,
+    where this kernel runs them)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, s, d = FLASH_TIMED
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    pairs = s * (s + 1) // 2
+    ops = 5 * 2 * d * pairs * b * h
+    rows = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(dt)
+                       for _ in range(4))
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+
+        def kern(q=q, k=k, v=v, o=o, lse=lse, do=do):
+            return fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+
+        def plain(q=q, k=k, v=v, o=o, lse=lse, do=do):
+            return fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True)
+
+        def library(out=sdpa_out, leaves=leaves, do=do):
+            return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+        nbytes = 8 * b * h * s * d * q.element_size()
+        row = {"B": b, "H": h, "S": s, "D": d, "dtype": dtype, "causal": True,
+               "ms": time_ms(torch, lambda i: kern(), 1, iters=20),
+               "graph_ms": graph_ms(torch, lambda: [kern() for _ in range(3)], 3,
+                                    replays=5),
+               "plain_ms": time_ms(torch, lambda i: plain(), 1, iters=3),
+               "library_ms": time_ms(torch, lambda i: library(), 1, iters=20)}
+        if dtype == "bfloat16":
+            row.update(bound(nbytes, ops, BF16_TENSOR_OPS_PER_S))
+        else:
+            row.update(bound(nbytes, 3 * ops, TF32_TENSOR_OPS_PER_S))
+        simt = bound(nbytes, ops, SCALAR_OPS_PER_S)
+        row.update(simt_bound_ms=simt["bound_ms"], simt_bound_by=simt["bound_by"])
+        suffix = "" if dtype == "bfloat16" else "_float32"
+        rows[f"flash_attention_bwd/{s}{suffix}"] = row
+        del leaves, sdpa_out
     return rows
 
 
@@ -1826,6 +2052,206 @@ def serve_path(torch, smi: str) -> tuple[dict, dict]:
              cfg.resolved_head_dim, "vocab": vocab, "params": cfg.param_count(),
              "stream_tokens": int(len(stream)), "setup_s": setup_s, "runs": runs,
              "reference": "same engine and weights, attn_impl='ref'",
+             "nvidia_smi": smi}
+    return phase, total
+
+
+def ulps_apart(torch, a, b, operand=None) -> float:
+    """The largest |a - b| of two float32 tensors in float32 ulps of the
+    larger magnitude of a, b and ``operand`` (an input of the computation
+    whose result may have cancelled), element by element."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    if a.numel() == 0:
+        return 0.0
+    mag = torch.maximum(a.abs(), b.abs())
+    if operand is not None:
+        mag = torch.maximum(mag, operand.detach().cpu().double().abs())
+    mag = mag.float()
+    ulp = (torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag).double()
+    return float(((a - b).abs() / ulp).max())
+
+
+def train_path(torch, smi: str) -> tuple[dict, dict]:
+    """EventLM training at full width (see the module docstring).  Returns
+    the phase line and the launch counts of the driven runs (counts set to
+    0 just before each run's steps and read just after)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as LT
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.module import Initializer
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainstep as TS
+    from repro_torch.train.checkpoint import CheckpointManager, load_train_state
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmul is on: float32 training would round")
+    cfg0 = get_config(TRAIN_ARCH)
+    layers = cfg0.num_layers
+    runs, total = [], {}
+    for label, batch, seq, steps in TRAIN_RUNS:
+        data, _ = LT.make_data(cfg0, batch, seq, seed=0)
+        batches = [LT.to_device(next(data), "cuda") for _ in range(steps + 3)]
+        oc = LT.opt_config(steps)
+        for compute in ("bfloat16", "float32"):
+            cfg = cfg0.with_overrides(compute_dtype=compute)
+            what = f"train_path ({label}) {compute}"
+            model = Mdl.init_params(cfg, Initializer(
+                torch.Generator(device="cuda").manual_seed(0), cfg.param_dtype))
+            params = dict(model.named_parameters())
+
+            # step 0's loss and gradients against the plain attention
+            def grads_of(c):
+                for p in params.values():
+                    p.grad = None
+                loss = TS.loss_fn(c, model, batches[0])
+                loss.backward()
+                g = {n: p.grad for n, p in params.items()}
+                for p in params.values():
+                    p.grad = None
+                return loss.detach(), g
+
+            reset_launches()
+            loss_k, g_k = grads_of(cfg)
+            one = read_launches()
+            loss_r, g_r = grads_of(cfg.with_overrides(attn_impl="ref"))
+            loss_err = abs(float(loss_k) - float(loss_r))
+            grad_err = {n: float((g_k[n] - g_r[n]).norm() / g_r[n].norm()) for n in g_k}
+            worst = max(grad_err, key=grad_err.get)
+            if not (loss_err <= TRAIN_LOSS_ATOL[compute]
+                    and grad_err[worst] <= TRAIN_GRAD_RTOL[compute]):
+                raise AssertionError(f"{what}: step 0 loss {float(loss_k)} vs plain "
+                                     f"{float(loss_r)}, gradient {worst} rel err "
+                                     f"{grad_err[worst]}")
+            del g_r
+
+            # adamw_update on the card against the CPU, from the same gradients
+            on_card = {n: p.detach().clone() for n, p in params.items()}
+            on_cpu = {n: t.cpu() for n, t in on_card.items()}
+            p_before = {n: t.clone() for n, t in on_cpu.items()}
+            g_cpu = {n: t.cpu() for n, t in g_k.items()}
+            opt_card, opt_cpu = O.init_opt_state(on_card), O.init_opt_state(on_cpu)
+            for _ in range(2):
+                _, opt_card, om_card = O.adamw_update(oc, on_card, g_k, opt_card)
+                _, opt_cpu, om_cpu = O.adamw_update(oc, on_cpu, g_cpu, opt_cpu)
+            adamw_ulps = max(max(ulps_apart(torch, x[n], y[n], z and z[n]) for n in x)
+                             for x, y, z in ((on_card, on_cpu, p_before),
+                                             (opt_card["m"], opt_cpu["m"], None),
+                                             (opt_card["v"], opt_cpu["v"], None)))
+            if adamw_ulps > ADAMW_ULPS:
+                raise AssertionError(f"{what}: adamw_update on the card is {adamw_ulps} "
+                                     f"ulps from the CPU's")
+            adamw = {"ulps": adamw_ulps,
+                     "lr_ulps": ulps_apart(torch, om_card["lr"], om_cpu["lr"]),
+                     "grad_norm_ulps": ulps_apart(torch, om_card["grad_norm"],
+                                                  om_cpu["grad_norm"])}
+            del on_card, on_cpu, p_before, g_cpu, opt_card, opt_cpu, g_k
+
+            # the run
+            state = TS.init_state(cfg, model)
+            step_fn = TS.make_train_step(cfg, oc)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, step_s, per_step = [], [], []
+            reset_launches()
+            for i in range(steps):
+                before = read_launches()
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batches[i])
+                losses.append(float(metrics["loss"]))
+                step_s.append(time.perf_counter() - t0)
+                after = read_launches()
+                per_step.append({n: after[n] - before[n] for n in after if after[n] - before[n]})
+            run_l = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            for name, n in run_l.items():
+                total[name] = total.get(name, 0) + n
+            want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers}
+            if any(st != want for st in per_step) or one != {**{n: 0 for n in one},
+                                                            "flash_attention": 2 * layers,
+                                                            "flash_attention_bwd": layers}:
+                raise AssertionError(f"{what} did not launch the forward kernel 24 and "
+                                     f"the backward 12 times a step: {per_step}, step 0 {one}")
+            if not all(np.isfinite(losses)) or not np.mean(losses[-5:]) < np.mean(losses[:5]):
+                raise AssertionError(f"{what}: losses {losses}")
+
+            # one synchronized step split into forward / backward / optimizer
+            def split_step(b):
+                for p in params.values():
+                    p.grad = None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = TS.loss_fn(cfg, model, b)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                loss.backward()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                state["opt"] = O.adamw_update(
+                    oc, params, {n: p.grad for n, p in params.items()}, state["opt"])[1]
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                for p in params.values():
+                    p.grad = None
+                return {"forward_ms": 1e3 * (t1 - t0), "backward_ms": 1e3 * (t2 - t1),
+                        "optimizer_ms": 1e3 * (t3 - t2)}
+
+            split = split_step(batches[steps])
+            wall = float(np.median(step_s[2:]))
+            prof = idle_share(torch, lambda: step_fn(state, batches[steps + 1]), wall)
+
+            # a checkpoint saved, restored and resumed gives the same next step
+            ckdir = ROOT / "build" / "chip_smoke" / f"ckpt_{label}_{compute}"
+            shutil.rmtree(ckdir, ignore_errors=True)
+            mgr = CheckpointManager(str(ckdir), keep=1)
+            t0 = time.perf_counter()
+            mgr.save(steps, state)
+            save_s = time.perf_counter() - t0
+            got_step, tree = mgr.restore_latest()
+            restored = load_train_state(cfg, tree, "cuda")
+            del tree
+            shutil.rmtree(ckdir, ignore_errors=True)
+            same = got_step == steps and int(restored["opt"]["step"]) == int(
+                state["opt"]["step"])
+            for (n, p), q in zip(model.named_parameters(), restored["params"].parameters()):
+                same = same and torch.equal(p, q) and torch.equal(
+                    state["opt"]["m"][n], restored["opt"]["m"][n]) and torch.equal(
+                    state["opt"]["v"][n], restored["opt"]["v"][n])
+            _, m_a = step_fn(state, batches[steps + 2])
+            _, m_b = step_fn(restored, batches[steps + 2])
+            resume_err = max(float((p.detach() - q.detach()).abs().max()) for p, q in zip(
+                model.parameters(), restored["params"].parameters()))
+            if not (same and float(m_a["loss"]) == float(m_b["loss"])
+                    and resume_err <= RESUME_ATOL):
+                raise AssertionError(f"{what}: the checkpoint round trip differs: state "
+                                     f"equal {same}, next loss {float(m_a['loss'])} vs "
+                                     f"{float(m_b['loss'])}, params {resume_err}")
+            tok = batch * seq
+            runs.append({
+                "run": label, "compute_dtype": compute, "batch": batch, "seq": seq,
+                "steps": steps, "opt": {"lr": oc.lr, "warmup_steps": oc.warmup_steps,
+                                        "total_steps": oc.total_steps},
+                "losses": losses, "step_s": step_s,
+                "tokens_per_s": float(np.median([tok / dt for dt in step_s[2:]])),
+                "step_ms_median": 1e3 * wall, "split_step": split,
+                "max_memory_allocated": peak, "profile": prof,
+                "launches": run_l, "launches_per_step": per_step[0],
+                "step0": {"loss": float(loss_k), "loss_ref": float(loss_r),
+                          "loss_abs_err": loss_err, "loss_atol": TRAIN_LOSS_ATOL[compute],
+                          "grad_max_rel_err": grad_err[worst], "grad_worst": worst,
+                          "grad_rtol": TRAIN_GRAD_RTOL[compute]},
+                "adamw_card_vs_cpu": {**adamw, "bound_ulps": ADAMW_ULPS},
+                "resume": {"state_bitwise": same, "next_loss_bitwise": True,
+                           "params_max_abs_err": resume_err, "atol": RESUME_ATOL,
+                           "save_s": save_s}})
+            del state, restored, model, params, step_fn, m_a, m_b
+            torch.cuda.empty_cache()
+    phase = {"phase": "train_path", "arch": cfg0.name, "layers": layers,
+             "d_model": cfg0.d_model, "heads": cfg0.num_heads,
+             "head_dim": cfg0.resolved_head_dim, "vocab": cfg0.vocab_size,
+             "params": cfg0.param_count(), "remat_policy": cfg0.remat_policy,
+             "runs": runs, "reference": "same model and batch, attn_impl='ref'",
              "nvidia_smi": smi}
     return phase, total
 
@@ -2978,9 +3404,12 @@ def main() -> int:
     # ----------------------------------------------------------------- build
     counting_only = "--counting" in sys.argv[1:]
     semiring_only = "--semiring" in sys.argv[1:]
+    train_only = "--train" in sys.argv[1:]
     t0 = time.perf_counter()
     log = _build.build(("pair_count", "histogram") if counting_only
-                       else ("semiring",) if semiring_only else _build.SOURCES)
+                       else ("semiring",) if semiring_only
+                       else ("flash_attention", "flash_attention_bwd") if train_only
+                       else _build.SOURCES)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {name: {"seconds": v["seconds"], "cached": v["cached"],
                              "ptxas": [ln.strip() for ln in v["ptxas"].splitlines()
@@ -3019,6 +3448,15 @@ def main() -> int:
               "rows": time_semiring_kernels(torch, g)})
         return 0
 
+    if train_only:
+        # the training path alone; a copy of this script placed in another
+        # checkout (a parent commit) runs that tree's training path
+        t0 = time.perf_counter()
+        train, launches = train_path(torch, smi)
+        emit({**train, "root": str(ROOT), "seconds": time.perf_counter() - t0,
+              "launches": launches})
+        return 0
+
     # --------------------------------------------------- kernels vs plain
     t0 = time.perf_counter()
     checks = check_kernels(torch, so)
@@ -3027,7 +3465,11 @@ def main() -> int:
                        "float32 sums, uint32 scans); flash_attention within 2e-5 "
                        "(float32, 3xTF32 products: each within 2^-20 of itself) / "
                        "2e-2 (bf16, P rounded to bf16 before P.V: each weight "
-                       "within 2^-9 of itself)", **checks})
+                       "within 2^-9 of itself); its lse within 2e-5; "
+                       "flash_attention_bwd within 1e-5 (float32) / 2^-7 (bf16) "
+                       "x (1 + |want|) of the plain backward, FlashAttention "
+                       "gradients within 5e-5 / 3e-2 x (1 + |want|) of autograd "
+                       "through the plain forward", **checks})
 
     # ------------------------------------------------------ data: L1 log
     cfg = synthetic.paper_table6_config(1)
@@ -3563,6 +4005,10 @@ def main() -> int:
         serve, launches["serve_path"] = serve_path(torch, smi)
         emit(serve)
 
+        # ------------- train path: eventlm-100m, forward + backward kernels
+        train, launches["train_path"] = train_path(torch, smi)
+        emit(train)
+
         # ------------------------------------------- kernel times on card
         times = time_kernels(torch, so, engine, frame_gpu, ghosts)
         times.update(time_semiring_kernels(torch, g_gpu))
@@ -3630,6 +4076,12 @@ def main() -> int:
                            for key in ("ms", "graph_ms", "plain_ms", "bound_ms",
                                        "bound_by", "simt_bound_ms", "library_ms",
                                        "library_graph_ms")}},
+        {**entry("flash_attention_bwd", csrc + "flash_attention_bwd.cu", FLASH_BWD_TPU,
+                 times[f"flash_attention_bwd/{FLASH_TIMED[2]}"]),
+         "simt_bound_ms": times[f"flash_attention_bwd/{FLASH_TIMED[2]}"]["simt_bound_ms"],
+         "float32_route": {key: times[f"flash_attention_bwd/{FLASH_TIMED[2]}_float32"][key]
+                           for key in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "simt_bound_ms", "library_ms")}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

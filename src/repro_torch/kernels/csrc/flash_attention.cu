@@ -81,6 +81,13 @@
 //
 // Both routes read kv_len on the device (a 0-d tensor or a value), never on
 // the host, so a CUDA-graph capture holds.
+//
+// Training asks for the log-sum-exp of every row as well (lse non-null):
+// each route's epilogue stores lse = m + log(l), in natural-log units of the
+// scaled score s = q.k D^-1/2 (the routes keep m in log2 units and convert),
+// -inf for a row with no valid column. The backward
+// (kernels/csrc/flash_attention_bwd.cu) recomputes P = exp(s - lse) from it.
+// With lse null (serving) the kernels store nothing more.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,6 +109,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                // (b, h, sq) float32, contiguous; null: not stored
   int64_t q_sb, q_sh, q_ss;  // strides in elements: batch, head, row
   int64_t k_sb, k_sh, k_ss;
   int64_t v_sb, v_sh, v_ss;
@@ -126,6 +134,15 @@ __device__ __forceinline__ void key_tiles(const Params& p, int q0, int kvl,
 __device__ __forceinline__ int read_kv_len(const Params& p) {
   const int kvl = p.kv_len != nullptr ? *p.kv_len : p.kv_len_value;
   return min(max(kvl, 0), p.sk);
+}
+
+// Row `row` of (batch b, q head hq)'s log-sum-exp from the row's running
+// max m (log2 units of the scaled score) and its sum l.
+__device__ __forceinline__ void store_lse(const Params& p, int b, int hq, int row,
+                                          float m, float l) {
+  if (p.lse == nullptr) return;
+  p.lse[((int64_t)b * gridDim.y + hq) * p.sq + row] =
+      l > 0.f ? (m + log2f(l)) * 0.6931471805599453f : -INFINITY;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -429,6 +446,7 @@ flash_attention_f32(const Params p) {
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int row = r0 + 8 * h;
     if (row >= p.sq) continue;
+    if (tq == 0) store_lse(p, b, hq, row, m_row[h], l);
     float* orow = op + (int64_t)row * p.o_ss;
 #pragma unroll
     for (int jn = 0; jn < D / 8; ++jn) {
@@ -847,6 +865,7 @@ flash_attention_bf16(const __grid_constant__ Params p,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int row = r0 + 8 * h;
     if (row >= p.sq) continue;
+    if ((lane & 3) == 0) store_lse(p, b, hq, row, m_row[h], l);
     const float inv = l > 0.f ? 1.f / l : 0.f;
     __nv_bfloat16* orow = op + row * p.o_ss;
 #pragma unroll
@@ -995,10 +1014,11 @@ extern "C" const char* repro_error_string(int err) {
 // pointers and strides are multiples of 16 bytes, strides of dimensions
 // longer than 1 nonzero, as TMA reads them). dtype: 0 float32, 1 bf16. d:
 // 16, 32, 64 or 128. kv_len: a device pointer to an int32, or null to use
-// kv_len_value. window < 0: none. Every element of o is written. Returns
+// kv_len_value. window < 0: none. Every element of o is written, and of lse
+// ((b, h, sq) float32, contiguous) when it is not null. Returns
 // the launch's cudaError_t (0 on success); never synchronizes.
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, void* lse,
     int64_t b, int64_t h, int64_t kvh, int64_t sq, int64_t sk, int64_t d,
     int64_t q_sb, int64_t q_sh, int64_t q_ss,
     int64_t k_sb, int64_t k_sh, int64_t k_ss,
@@ -1012,6 +1032,7 @@ extern "C" int repro_flash_attention(
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;

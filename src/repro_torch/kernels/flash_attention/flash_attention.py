@@ -1,4 +1,4 @@
-"""Flash attention forward: the CUDA kernel's wrapper.
+"""Flash attention forward and backward: the CUDA kernels' wrappers.
 
 The counterpart of the JAX package's ``flash_attention_pallas``: causal
 GQA online-softmax attention with an optional sliding window and a ragged
@@ -19,10 +19,17 @@ row with no valid column (``kv_len = 0``, or a window that leaves a row
 nothing): it is 0 here, as in the JAX package's ``ref.py``; the TPU kernel
 returns the mean of V over the tiles it visited there.
 
-On a CPU tensor the wrapper takes the plain version
-(``ref.flash_attention_ref``); on CUDA tensors it launches the kernel on
-the current stream or raises.  ``flash_attention_cuda.launches`` counts
-the launches.
+Training asks the forward for each row's log-sum-exp as well
+(``return_lse=True``), and ``flash_attention_bwd_cuda`` takes it back with
+the output's gradient: three kernels (``kernels/csrc/flash_attention_bwd.cu``)
+recompute P from the lse and write dq, dk (summed over each KV head's
+query heads) and dv once each, in float32 arithmetic, with no atomics.
+
+On a CPU tensor each wrapper takes its plain version (``ref.py``); on CUDA
+tensors it launches its kernel on the current stream or raises.
+``flash_attention_cuda.launches`` and ``flash_attention_bwd_cuda.launches``
+count the calls that launched (a backward call is three kernel nodes and
+counts one).
 """
 from __future__ import annotations
 
@@ -31,21 +38,22 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 18
-             + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_TAIL = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 18 + _TAIL
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 30 + _TAIL
 
 
-def _launcher():
-    lib = _build.load("flash_attention")
-    fn = lib.repro_flash_attention
+def _launcher(name="flash_attention", symbol="repro_flash_attention", argtypes=_ARGTYPES):
+    lib = _build.load(name)
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -87,10 +95,25 @@ def _check(q, k, v, window):
         raise ValueError(f"flash_attention: window {window} < 0")
 
 
+def _kv_len_args(kv_len, sk: int, device):
+    """(device pointer or None, value) of ``kv_len`` for the C launchers,
+    and the int32 tensor the pointer lives in (kept alive by the caller)."""
+    if isinstance(kv_len, torch.Tensor):
+        if kv_len.numel() != 1:
+            raise ValueError("flash_attention: kv_len must be a scalar")
+        if kv_len.device.type == "cuda":
+            kv_len = kv_len.to(device=device, dtype=torch.int32).reshape(())
+            return kv_len.data_ptr(), sk, kv_len
+        return None, int(kv_len), None
+    return None, sk if kv_len is None else int(kv_len), None
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_len=None, *, causal: bool = True,
-                         window: int | None = None) -> torch.Tensor:
-    """(B, H, Sq, D) attention output in q's dtype (see module docstring).
+                         window: int | None = None, return_lse: bool = False):
+    """(B, H, Sq, D) attention output in q's dtype (see module docstring);
+    with ``return_lse`` also each row's log-sum-exp of the scaled scores,
+    (B, H, Sq) float32, -inf for a row with no valid column.
 
     ``kv_len`` is None (all of k), an int, or a 0-d integer tensor, read on
     the card without a host sync.  The output has q's memory layout when q
@@ -99,6 +122,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, window)
     device = q.device
     if device.type == "cpu":
+        if return_lse:
+            return flash_attention_lse_ref(q, k, v, kv_len, causal=causal, window=window)
         return flash_attention_ref(q, k, v, kv_len, causal=causal, window=window)
     if device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {device}")
@@ -106,22 +131,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = _readable(torch.empty_like(q))
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
-    len_ptr, len_value = None, sk
-    if isinstance(kv_len, torch.Tensor):
-        if kv_len.numel() != 1:
-            raise ValueError("flash_attention: kv_len must be a scalar")
-        if kv_len.device.type == "cuda":
-            kv_len = kv_len.to(device=device, dtype=torch.int32).reshape(())
-            len_ptr = kv_len.data_ptr()
-        else:
-            len_value = int(kv_len)
-    elif kv_len is not None:
-        len_value = int(kv_len)
+        return (out, lse) if return_lse else out
+    len_ptr, len_value, _len = _kv_len_args(kv_len, sk, device)
     lib, fn = _launcher()
     with torch.cuda.device(device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  b, h, kvh, sq, sk, d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
                  len_ptr, len_value, int(bool(causal)),
@@ -129,7 +147,64 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  DTYPES[q.dtype], _build.stream_of(out))
     _build.check(lib, err, "flash_attention")
     flash_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
+
+
+def _unit_last(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its last stride is 1 (the backward kernels read
+    any other strides element by element), else a dense copy."""
+    return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len=None, *, causal: bool = True,
+                             window: int | None = None):
+    """(dq, dk, dv) of ``flash_attention_cuda(q, k, v, kv_len, causal=...,
+    window=...)`` at its output ``o`` and log-sum-exp ``lse``, given the
+    output's gradient ``do`` (B, H, Sq, D).  Each gradient has its input's
+    dtype, shape and, for a dense input, memory layout; dk and dv are
+    summed over each KV head's query heads.  One call launches three
+    kernels on the current stream and counts one launch."""
+    _check(q, k, v, window)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype} and do "
+                         f"{tuple(do.shape)} {do.dtype} must match q {tuple(q.shape)} "
+                         f"{q.dtype}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} {lse.dtype}; "
+                         f"expected {tuple(q.shape[:3])} float32")
+    device = q.device
+    if not all(t.device == device for t in (o, lse, do)):
+        raise ValueError("flash_attention_bwd: inputs on different devices")
+    if device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, kv_len, causal=causal,
+                                       window=window)
+    if device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {device}")
+    q, k, v, o, do = (_unit_last(t) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    dq, dk, dv = (_unit_last(torch.empty_like(t)) for t in (q, k, v))
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    if dq.numel() == 0 and dk.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=device)
+    len_ptr, len_value, _len = _kv_len_args(kv_len, sk, device)
+    lib, fn = _launcher("flash_attention_bwd", "repro_flash_attention_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, h, kvh, sq, sk, d,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                 *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+                 len_ptr, len_value, int(bool(causal)),
+                 -1 if window is None else int(window), d ** -0.5,
+                 DTYPES[q.dtype], _build.stream_of(dq))
+    _build.check(lib, err, "flash_attention_bwd")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0

@@ -4,9 +4,14 @@ The JAX model keeps each per-layer leaf stacked on a leading ``layers``
 axis (``{"layers": {"attn": {"wq": (L, D, Hd)}}}``); the port keeps one
 ``Block`` per layer.  ``params_from_jax`` unstacks that axis into the
 port's ``state_dict`` names (``layers.3.attn.wq``) and keeps every value
-bitwise.  Checkpoints written by the JAX package name their arrays by JAX
-``keystr`` paths (``['params']['layers']['attn']['wq']``);
-``unflatten_keystr`` turns such a flat mapping back into the nested tree.
+bitwise.  ``params_to_jax`` is its inverse: the per-layer leaves stacked
+back on the leading ``layers`` axis, bitwise.  ``opt_to_jax`` /
+``opt_from_jax`` carry the AdamW state (``m`` and ``v`` keyed like the
+parameters, ``step``) across the same way, so either package resumes the
+other's training.  Checkpoints written by the JAX package name their
+arrays by JAX ``keystr`` paths (``['params']['layers']['attn']['wq']``);
+``unflatten_keystr`` turns such a flat mapping back into the nested tree
+and ``flatten_keystr`` makes one.
 """
 from __future__ import annotations
 
@@ -45,6 +50,67 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
     walk("", tree.get("layers", {}))
     return state
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def params_to_jax(params) -> dict:
+    """The JAX parameter pytree (nested dicts of numpy arrays) of a ``Model``
+    or of a mapping keyed by the port's parameter names (a ``state_dict``,
+    or AdamW's ``m`` / ``v``): ``layers.{i}.attn.wq`` leaves stacked in
+    layer order into ``["layers"]["attn"]["wq"]``, every value bitwise."""
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+    out: dict = {}
+    layers: dict[str, dict[int, Any]] = {}
+    for name, t in params.items():
+        head, _, rest = name.partition(".")
+        if head == "layers":
+            i, _, leaf = rest.partition(".")
+            layers.setdefault(leaf, {})[int(i)] = t
+        else:
+            out[name] = _host(t)
+    for leaf, by_layer in layers.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"layers of {leaf!r} are not 0..{len(by_layer) - 1}")
+        node = out.setdefault("layers", {})
+        *groups, key = leaf.split(".")
+        for g in groups:
+            node = node.setdefault(g, {})
+        node[key] = np.stack([_host(by_layer[i]) for i in range(len(by_layer))])
+    return out
+
+
+def opt_to_jax(opt: Mapping[str, Any]) -> dict:
+    """AdamW state ``{"m", "v", "step"}`` in the JAX package's layout
+    (``step`` an int32 scalar)."""
+    return {"m": params_to_jax(opt["m"]), "v": params_to_jax(opt["v"]),
+            "step": np.asarray(_host(opt["step"]), np.int32)}
+
+
+def opt_from_jax(tree: Mapping[str, Any], device="cpu") -> dict:
+    """The port's AdamW state from the JAX package's: ``m`` / ``v`` keyed by
+    the port's parameter names, ``step`` a 0-d int32 tensor, on ``device``."""
+    dev = torch.device(device)
+    return {"m": {k: t.to(dev) for k, t in params_from_jax(tree["m"]).items()},
+            "v": {k: t.to(dev) for k, t in params_from_jax(tree["v"]).items()},
+            "step": torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32,
+                                 device=dev)}
+
+
+def flatten_keystr(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
+    """``{"params": {"embed": a}}`` -> ``{"['params']['embed']": a}``: the
+    JAX ``keystr`` path of every leaf of a tree of nested dicts."""
+    out = {}
+    for key, leaf in tree.items():
+        path = f"{prefix}['{key}']"
+        if isinstance(leaf, Mapping):
+            out.update(flatten_keystr(leaf, path))
+        else:
+            out[path] = leaf
+    return out
 
 
 def unflatten_keystr(flat: Mapping[str, Any]) -> dict:

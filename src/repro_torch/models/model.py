@@ -7,6 +7,10 @@ package, so the same weights can run under another configuration
 (``attn_impl="ref"``, another compute dtype).  Layers run in a Python
 loop.  Families other than ``dense`` raise ``NotImplementedError`` until
 their modules are ported.
+
+``forward`` is differentiable (the parameters take gradients; each block
+runs under ``cfg.remat_policy``, ``transformer.block_remat``); ``prefill``
+and ``decode_step`` are serving's and run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from . import layers as L
 from .config import ModelConfig
 from .layers import torch_dtype
 from .module import Creator, parameter
-from .transformer import Block, block_apply, block_decode
+from .transformer import Block, block_apply, block_decode, block_remat
 
 
 class Model(nn.Module):
@@ -66,7 +70,7 @@ def forward(cfg: ModelConfig, params: Model, tokens, *, collect_cache: bool = Fa
             ks.append(k)
             vs.append(v)
         else:
-            h = block_apply(blk, h, cfg, kind=kind, positions=positions)
+            h = block_remat(blk, h, cfg, kind=kind, positions=positions)
     logits = _head(cfg, params, h)
     if collect_cache:
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "pos": S}
@@ -83,12 +87,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict[
             "pos": 0}
 
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params: Model, tokens):
     """Process a prompt; returns (last-token logits, cache at len(prompt))."""
     logits, cache = forward(cfg, params, tokens, collect_cache=True)
     return logits[:, -1], cache
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Model, cache, tokens):
     """One token for every sequence. tokens: (B, 1). Returns (logits, cache).
 

@@ -57,7 +57,9 @@ class Empty(Creator):
 
 
 def parameter(t: torch.Tensor) -> torch.nn.Parameter:
-    """A model parameter.  Serving only reads them, and the attention kernel
-    has no backward yet, so they take no gradient until the training slice
-    gives it one."""
-    return torch.nn.Parameter(t, requires_grad=False)
+    """A model parameter; it takes gradients (training differentiates the
+    loss through the flash-attention kernel's autograd function).  Serving
+    runs under ``torch.inference_mode`` (``serve.engine.Engine``), and the
+    model's ``prefill`` / ``decode_step`` under ``torch.no_grad``, so they
+    build no graph."""
+    return torch.nn.Parameter(t, requires_grad=True)

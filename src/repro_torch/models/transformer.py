@@ -6,10 +6,24 @@ its layers in Python and knows each layer's kind statically
 (``cfg.layer_kinds()``), so the window reaches attention as a Python
 ``int | None``.  The MoE, hybrid and xLSTM blocks arrive with their
 families.
+
+``block_remat`` applies ``cfg.remat_policy`` as the JAX package's
+``_remat`` does around its scan body, through ``torch.utils.checkpoint``
+(non-reentrant) and only while grad is enabled: ``"none"`` keeps every
+activation; ``"full"`` keeps only the block's input and recomputes the
+block in the backward pass, so a training step launches the flash-attention
+forward kernel twice a layer (the forward pass and the recompute) and the
+backward kernel once; ``"dots"`` keeps the matrix products' outputs
+(``aten.mm`` / ``bmm`` / ``addmm``, JAX's ``checkpoint_dots``) and
+recomputes the rest, the attention kernel included.
 """
 from __future__ import annotations
 
+import functools
+
+import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from . import layers as L
 from .config import ModelConfig
@@ -49,6 +63,29 @@ def block_apply(p: Block, h, cfg: ModelConfig, *, kind: int, positions,
     h = h + a
     h = h + L.mlp_apply(p.mlp, L.rmsnorm(h, p.ln2), cfg.compute_dtype)
     return (h, kv) if collect else h
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def block_remat(p: Block, h, cfg: ModelConfig, *, kind: int, positions):
+    """``block_apply`` under ``cfg.remat_policy`` (see the module note)."""
+    fn = functools.partial(block_apply, cfg=cfg, kind=kind, positions=positions)
+    policy = cfg.remat_policy
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn(p, h)
+    if policy == "full":
+        return ckpt.checkpoint(fn, p, h, use_reentrant=False)
+    if policy == "dots":
+        return ckpt.checkpoint(fn, p, h, use_reentrant=False, context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat_policy {policy!r}; expected full, dots or none")
 
 
 def block_decode(p: Block, h, cfg: ModelConfig, cache_k, cache_v, pos: int, *,

@@ -1,3 +1,4 @@
-"""Training runtime.  So far only the restore side of checkpoints (what
-serving needs); the optimizer, train step and saving come with the
-training slice."""
+"""Training runtime of the dense family: AdamW (``optimizer``), the train
+step (``trainstep``), checkpoints in the JAX package's format
+(``checkpoint``), fault tolerance (``ft``) and int8 gradient compression
+over the single-controller mesh (``compression``)."""

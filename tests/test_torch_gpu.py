@@ -1523,3 +1523,143 @@ def test_shard_updates_never_leave_the_card(cuda, monkeypatch):
     monkeypatch.undo()
     for g, w in zip(engine.tensor_leaves(got), engine.tensor_leaves(want)):
         assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+# ------------------------------------------------- training: the backward
+FLASH_LSE_ATOL = 2e-5
+FLASH_BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+FLASH_GRAD_RTOL = {torch.float32: 5e-5, torch.bfloat16: 3e-2}
+
+
+def _rel(got, want):
+    return float(((got.float() - want.float()).abs() / (1 + want.float().abs())).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_flash_attention_bwd_kernel_equals_plain(cuda, dtype, shape):
+    """The forward's lse within 2e-5 of the plain one (-inf where it is),
+    and the backward kernel's (dq, dk, dv) against the plain backward on
+    the same inputs, each within tol (1 + |want|): 1e-5 in float32 (sums in
+    another order), 2^-7 in bf16 (both sides round one float32 value);
+    ``kv_len`` as an int and as a 0-d tensor, and 0 giving 0 gradients."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_cuda,
+                                                     flash_attention_lse_ref)
+
+    b, h, kvh, sq, sk, d, causal, win = shape
+    gen = torch.Generator(device=cuda).manual_seed(sq * 17 + d)
+    q, k, v = _flash_inputs(gen, b, h, kvh, sq, sk, d, dtype, cuda)
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    lens = [None] if sk <= 64 or b == 8 else [sk - 17, torch.tensor(sk - 17, device=cuda),
+                                              torch.tensor(0, device=cuda, dtype=torch.int32)]
+    for kv_len in lens:
+        o, lse = flash_attention_cuda(q, k, v, kv_len, causal=causal, window=win,
+                                      return_lse=True)
+        _, lse_ref = flash_attention_lse_ref(q, k, v, kv_len, causal=causal, window=win)
+        fin = torch.isfinite(lse_ref)
+        assert torch.equal(torch.isfinite(lse), fin)
+        if bool(fin.any()):
+            assert float((lse[fin] - lse_ref[fin]).abs().max()) <= FLASH_LSE_ATOL
+        before = flash_attention_bwd_cuda.launches
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len, causal=causal, window=win)
+        torch.cuda.synchronize()
+        assert flash_attention_bwd_cuda.launches == before + 1
+        want = flash_attention_bwd_ref(q, k, v, o, lse, do, kv_len, causal=causal, window=win)
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype == dtype and x.shape == y.shape
+            assert _rel(x, y) <= FLASH_BWD_RTOL[dtype]
+        if isinstance(kv_len, torch.Tensor) and int(kv_len) == 0:
+            assert not any(bool(x.any()) for x in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_function_gradients_on_card(cuda, d, dtype):
+    """``FlashAttention`` on (B, S, H, D) views (GQA, a window): gradients
+    against autograd through the plain forward within 5e-5 (float32) /
+    3e-2 (bf16) relative, in the inputs' layout; one forward with lse and
+    one backward launch."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda,
+                                                     flash_attention_ref, ops)
+
+    gen = torch.Generator(device=cuda).manual_seed(d + 7)
+
+    def view(heads):
+        return torch.randn((2, 77, heads, d), generator=gen, device=cuda).to(dtype).transpose(1, 2)
+
+    q, k, v, do = view(6), view(3), view(3), view(6)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    fwd, bwd = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+    ops.flash_attention(*leaves, causal=True, window=20).backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches - fwd, flash_attention_bwd_cuda.launches - bwd) == (1, 1)
+    plain = [t.detach().requires_grad_() for t in (q, k, v)]
+    flash_attention_ref(*plain, causal=True, window=20).backward(do)
+    for a, p in zip(leaves, plain):
+        assert a.grad.transpose(1, 2).is_contiguous()
+        assert _rel(a.grad, p.grad) <= FLASH_GRAD_RTOL[dtype]
+
+
+def test_flash_attention_bwd_refuses_mismatched_inputs(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+
+    q = torch.zeros((1, 2, 8, 16), device=cuda)
+    lse = torch.zeros((1, 2, 8), device=cuda)
+    before = flash_attention_bwd_cuda.launches
+    with pytest.raises(ValueError):
+        flash_attention_bwd_cuda(q, q, q, q, lse[..., :4], q)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_cuda(q, q, q, q.to(torch.bfloat16), lse, q)
+    assert flash_attention_bwd_cuda.launches == before
+
+
+def test_reduced_training_on_card_equals_cpu(cuda):
+    """Three train steps of the reduced eventlm-100m (float32) on the card
+    against the CPU from the same weights and batches: each step launches
+    the forward kernel twice a layer and the backward once (remat "full");
+    losses within 1e-5, parameters within 2e-5 (AdamW scales each update to
+    about lr = 1e-3, so gradients a few ulps apart near 0 move a parameter
+    by a fraction of it)."""
+    _train_on_card_against_cpu(cuda, "full")
+
+
+def test_reduced_training_dots_remat_on_card_equals_cpu(cuda):
+    """The same three steps under remat "dots": the selective checkpoint
+    keeps the products' outputs, but the attention kernel is no aten op, so
+    the recompute launches it again (twice a layer) and the backward kernel
+    once a layer; the same bounds against the CPU."""
+    _train_on_card_against_cpu(cuda, "dots")
+
+
+def _train_on_card_against_cpu(cuda, remat):
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.module import Initializer
+    from repro_torch.train import trainstep as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = reduced_config(get_config("eventlm-100m")).with_overrides(remat_policy=remat)
+    oc = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    states = {dev: TS.init_state(cfg, Mdl.init_params(cfg, Initializer(
+        torch.Generator().manual_seed(0), cfg.param_dtype)).to(dev)) for dev in ("cpu", cuda)}
+    step = TS.make_train_step(cfg, oc)
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, (4, 65)).astype(np.int32))
+        losses = {}
+        for dev, st in states.items():
+            batch = {"tokens": toks[:, :-1].to(dev), "targets": toks[:, 1:].to(dev),
+                     "loss_mask": torch.ones((4, 64), device=dev)}
+            fwd, bwd = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+            states[dev], m = step(st, batch)
+            losses[dev] = float(m["loss"])
+            if dev != "cpu":
+                assert flash_attention_cuda.launches - fwd == 2 * cfg.num_layers
+                assert flash_attention_bwd_cuda.launches - bwd == cfg.num_layers
+        assert abs(losses["cpu"] - losses[cuda]) <= 1e-5
+    for p, q in zip(states["cpu"]["params"].parameters(), states[cuda]["params"].parameters()):
+        assert float((p.detach() - q.detach().cpu()).abs().max()) <= 2e-5
