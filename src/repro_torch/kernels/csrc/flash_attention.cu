@@ -43,8 +43,9 @@
 // Tiles are stored with the TMA swizzle that matches the wgmma
 // descriptors' (128 B rows at D = 64 and 128, 64 B at 32, 32 B at 16; D =
 // 128 is two 64-column panels). P is rounded to bf16 before P.V, a rounding
-// point the JAX kernel does not have: each weight moves by at most 2^-9 of
-// itself, so an output moves by at most 2^-9 max|v| (2e-2 is the gate).
+// point the JAX kernel does not have: bf16 keeps 8 significant bits, so
+// rounding to nearest moves each weight by at most 2^-8 of itself and an
+// output by at most 2^-8 max|v| (2e-2 is the gate).
 // Tiles above the diagonal, outside the window or past kv_len are skipped.
 // Within one warpgroup the two products and the softmax run one after the
 // other; 4 CTAs an SM (94 registers, 41 KB of shared memory at D = 64)
@@ -88,13 +89,16 @@
 // -inf for a row with no valid column. The backward
 // (kernels/csrc/flash_attention_bwd.cu) recomputes P = exp(s - lse) from it.
 // With lse null (serving) the kernels store nothing more.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+//
+// The wgmma / TMA / mbarrier / 3xTF32 building blocks live in hopper.cuh,
+// shared with the backward.
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kRows = 64;                 // query rows per block
 constexpr int kKeys = 64;                 // key rows per staged tile
@@ -145,48 +149,7 @@ __device__ __forceinline__ void store_lse(const Params& p, int b, int hq, int ro
       l > 0.f ? (m + log2f(l)) * 0.6931471805599453f : -INFINITY;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // ------------------------------------------------------- float32 route
-// 3xTF32 on mma.sync: x = big + small, big = tf32(x), small = tf32(x - big),
-// each rounded to nearest with ties away from zero (cvt.rna's rounding),
-// done with two integer operations on the bits
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(x - __uint_as_float(big));
-}
-
-// D (16 x 8, float32) += A (16 x 8, tf32, row) . B (8 x 8, tf32, col); not
-// volatile, so the compiler may interleave independent products
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc[off + i] += a . b[i] for a group of N products sharing the A
-// operand, the small terms first (small . small is dropped); each pass runs
-// over the group, so consecutive products are independent
-template <int N, int M>
-__device__ __forceinline__ void mma_3xtf32(float (&acc)[M][4], int off,
-                                           const uint32_t (&ab)[4], const uint32_t (&as)[4],
-                                           const uint32_t (&bb)[N][2],
-                                           const uint32_t (&bs)[N][2]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) mma_tf32(acc[off + i], as, bb[i]);
-#pragma unroll
-  for (int i = 0; i < N; ++i) mma_tf32(acc[off + i], ab, bs[i]);
-#pragma unroll
-  for (int i = 0; i < N; ++i) mma_tf32(acc[off + i], ab, bb[i]);
-}
-
 // Q's A-fragment element e of k-step kk from the thread's float4s (see
 // the permuted dims in flash_attention_f32); kk and e are constants once
 // unrolled
@@ -195,19 +158,6 @@ __device__ __forceinline__ float q_elem(const float4 (&qr)[P][2], int kk, int e)
   const float4 v = qr[kk >> 1][e & 1];
   const int c = 2 * (kk & 1) + (e >> 1);
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  // src-size 0 zero-fills the 16 bytes (keys past the end of k and v)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // Shared-memory geometry of the float32 route: kF32Stages (K, V) pairs of
@@ -458,236 +408,16 @@ flash_attention_f32(const Params p) {
 }
 
 // ---------------------------------------------------------- bf16 route
-// Shared-memory geometry of one 64-row bf16 tile of D columns, as TMA
-// writes it with the swizzle whose span is the tile's row (D <= 64), or as
-// two 64-column panels of 128-byte rows (D = 128).
+// Q, then kStages (K, V) pairs, then the barriers; 1 KB of slack lets the
+// base be rounded up to the swizzle's 1,024-byte repeat
 template <int D>
-struct Tile {
-  static constexpr int kPanelCols = D < 64 ? D : 64;
-  static constexpr int kRowBytes = kPanelCols * 2;              // 32, 64, 128
-  static constexpr int kPanels = D / kPanelCols;                // 1 or 2
-  static constexpr int kPanelBytes = kRows * kRowBytes;
-  static constexpr int kBytes = kPanels * kPanelBytes;          // 64 x D x 2
-  // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
-  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
-  // Q, then kStages (K, V) pairs, then the barriers; 1 KB of slack lets
-  // the base be rounded up to the swizzle's 1,024-byte repeat
-  static constexpr int kSmem = (1 + 2 * kStages) * kBytes + 64 + 1024;
-};
-
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (each >> 4), swizzle layout in bits 62-63
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
-}
-
-// A K-major operand (Q, or K as B of Q.K^T) at the 16-column step kk: LBO
-// unused under a swizzle, SBO = 8 rows.
-template <int D>
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t base, int kk) {
-  using G = Tile<D>;
-  const int col = kk * 16;
-  const uint32_t addr = base + (col / G::kPanelCols) * G::kPanelBytes +
-                        (col % G::kPanelCols) * 2;
-  return gmma_desc(addr, 16, 8 * G::kRowBytes, G::kLayout);
-}
-
-// V as the MN-major B operand of P.V at the 16-key step kk: LBO = the next
-// 64-column panel (D = 128), SBO = 8 keys.
-template <int D>
-__device__ __forceinline__ uint64_t desc_mn_major(uint32_t base, int kk) {
-  using G = Tile<D>;
-  return gmma_desc(base + kk * 16 * G::kRowBytes, G::kPanelBytes,
-                   8 * G::kRowBytes, G::kLayout);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box of a 4-D tensor map into shared memory, completing on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
+constexpr int kSmemTc = (1 + 2 * kStages) * Tile<D>::kBytes + 64 + 1024;
 
 // A tensor map's dimensions 1-3 hold (row, head, batch) in the order of
 // their strides; axes[i] is the map dimension of row (0), head (1), batch (2).
 struct MapAxes {
   int q[3], k[3], v[3];
 };
-
-template <int D>
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         const int (&axes)[3], uint32_t bar,
-                                         int row, int head, int batch) {
-  using G = Tile<D>;
-  int c[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    c[i] = axes[0] == i ? row : axes[1] == i ? head : batch;
-#pragma unroll
-  for (int panel = 0; panel < G::kPanels; ++panel)
-    tma_load(dst + panel * G::kPanelBytes, map, bar, panel * G::kPanelCols, c[0],
-             c[1], c[2]);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving accumulator reads across the async product
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// S (64 x 64) += Q (64 x 16, shared, K-major) . K^T (16 x 64, shared, K-major)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// O (64 x 16) += P (64 x 16, registers) . V (16 x 16, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// O (64 x 32) += P (64 x 16, registers) . V (16 x 32, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// O (64 x 64) += P (64 x 16, registers) . V (16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// O (64 x 128) += P (64 x 16, registers) . V (16 x 128, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreadsTc)
@@ -894,79 +624,13 @@ int launch_f32(const Params& p, int64_t b, int64_t h, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
-// library links no driver library of its own
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault,
-                                &status) == cudaSuccess &&
-        status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(sym);
-  }
-  return fn;
-}
-
-// The tensor map of a (b, h, s, D) bf16 view with element strides (sb, sh,
-// ss) and a unit last stride: dimension 0 is D, dimensions 1-3 are row,
-// head and batch sorted by stride (a dimension of size 1 last), boxes of
-// (64 or D) columns x 64 rows, zero fill past the edges.
-template <int D>
-cudaError_t make_map(CUtensorMap* map, int axes[3], const void* ptr, int64_t b,
-                     int64_t h, int64_t s, int64_t sb, int64_t sh, int64_t ss) {
-  using G = Tile<D>;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const int64_t size[3] = {s, h, b}, stride[3] = {ss, sh, sb};
-  int order[3] = {0, 1, 2};
-  auto key = [&](int i) { return size[i] == 1 ? INT64_MAX : stride[i]; };
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && key(order[j]) < key(order[j - 1]); --j) {
-      const int tmp = order[j];
-      order[j] = order[j - 1];
-      order[j - 1] = tmp;
-    }
-  cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
-  cuuint64_t strides[3];
-  uint64_t extent = 2 * D;  // bytes spanned so far
-  for (int i = 0; i < 3; ++i) {
-    const int a = order[i];
-    axes[a] = i;
-    dims[i + 1] = (cuuint64_t)size[a];
-    strides[i] = size[a] == 1 ? extent : (cuuint64_t)stride[a] * 2;
-    if (strides[i] % 16 != 0) return cudaErrorInvalidValue;
-    const uint64_t span = (uint64_t)strides[i] * (uint64_t)size[a];
-    if (span > extent) extent = span;
-  }
-  cuuint32_t box[4] = {(cuuint32_t)G::kPanelCols, 1, 1, 1};
-  box[1 + axes[0]] = (cuuint32_t)kRows;  // 64 rows, one head, one batch
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = G::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                   : G::kRowBytes == 64  ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                         : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D>
 int launch_bf16(const Params& p, int64_t b, int64_t h, int64_t kvh,
                 cudaStream_t stream) {
-  using G = Tile<D>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+        flash_attention_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemTc<D>);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
@@ -978,7 +642,7 @@ int launch_bf16(const Params& p, int64_t b, int64_t h, int64_t kvh,
       (err = make_map<D>(&mv, axes.v, p.v, b, kvh, p.sk, p.v_sb, p.v_sh, p.v_ss)) != cudaSuccess)
     return (int)err;
   const dim3 grid((unsigned)((p.sq + kRows - 1) / kRows), (unsigned)h, (unsigned)b);
-  flash_attention_bf16<D><<<grid, kThreadsTc, G::kSmem, stream>>>(p, mq, mk, mv, axes);
+  flash_attention_bf16<D><<<grid, kThreadsTc, kSmemTc<D>, stream>>>(p, mq, mk, mv, axes);
   return (int)cudaGetLastError();
 }
 

@@ -5,55 +5,113 @@
 //   P   = exp(s - lse),  s = q.k D^-1/2 over the valid columns, else 0
 //   D_i = sum_d dO_i O_i                           (attn_bwd_delta)
 //   dV  = P^T dO,  dP = dO V^T,  dS = P o (dP - D)
-//   dK  = dS^T Q D^-1/2                             (attn_bwd_dkdv)
-//   dQ  = dS K D^-1/2                               (attn_bwd_dq)
+//   dK  = dS^T Q D^-1/2                             (attn_bwd_dkdv_*)
+//   dQ  = dS K D^-1/2                               (attn_bwd_dq_*)
 //
 // lse is the forward's log-sum-exp ((b, h, sq) float32); a row with no valid
-// column has lse = -inf and gets P = 0, so 0 gradients (exp(-inf - -inf) is
-// never taken). bf16 or float32 q, k, v, o, dO in any strides with a unit
-// last stride; all arithmetic in float32; dq, dk, dv written in the input
+// column has lse = -inf and gets P = 0, so 0 gradients (every column of it
+// is masked, and a masked P is 0 by selection). bf16 or float32 q, k, v, o,
+// dO with a unit last stride; bf16 bases and strides in multiples of 16
+// bytes, float32 rows on 16-byte boundaries; dq, dk, dv written in the input
 // type through their own strides.
 //
 // Replaces: nothing in Pallas. The JAX package trains through
 // attention_chunked (src/repro/models/attention.py:53-114, a lax.scan) and
 // XLA differentiates that scan; this kernel stands where XLA's generated VJP
 // stands, beside the forward kernel that replaces flash_attention_pallas
-// (src/repro/kernels/flash_attention/flash_attention.py:121).
-//
-// Design: FlashAttention-2's backward split so that nothing needs atomics
-// and the result is deterministic. attn_bwd_delta takes one warp a row.
-// attn_bwd_dkdv gives each (64-key tile, KV head, batch) to a block that
-// keeps K and V in shared memory, loops over the H / KVH query heads of its
-// group and the 64-row query tiles that can see it, recomputes S and P from
-// lse, and accumulates dK and dV in registers: the GQA sum with no repeated
-// K / V and no atomics, each of dK and dV written once. attn_bwd_dq gives
-// each (64-row query tile, head, batch) to a block that walks the key tiles
-// the forward's key_tiles selects and accumulates dQ. Both recompute S and
-// dP, so a step does seven 64 x 64 x D products a tile pair where five are
-// the least. Every product is a SIMT float32 fmaf loop over shared memory
-// (256 threads, each owning a 4 x 4 block of S or a 4 x D/16 block of a
-// gradient; rows padded to D + 1 / 65 floats so no read conflicts on a
-// bank); no mma.sync, wgmma or TMA yet.
+// (src/repro/kernels/flash_attention/flash_attention.py:121). It replaces
+// a first version that ran every product as a SIMT float32 fmaf loop over
+// shared memory (2.42 ms at the shape below, in either type).
 //
 // Bound on an H100 SXM at (8, 12, 1,024, 64) causal: the five products of
 // the causal half, 32.2 GFLOP, take 0.033 ms at 989 TFLOP/s bf16, and the
 // bytes (q, k, v, o, dO read, dq, dk, dv written: 100.7 MB bf16) 0.030 ms;
 // the operations bound it. In float32 the bytes double (0.060 ms) and the
-// operations on the SIMT cores (67 TFLOP/s) take 0.48 ms, 0.195 ms as
-// 3xTF32. This kernel runs every product on the SIMT cores, two loads from
-// shared memory to eight fmaf, so it is far off the bf16 bound; PERF.md
-// gives its time.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// products run as three TF32 products each: 0.195 ms at 495 TFLOP/s. This
+// version takes about 0.29 ms in bf16 (8.9 x the bound; SDPA's backward
+// 0.16) and 1.52 ms in float32 there (PERF.md section 6, row 9b): one
+// warpgroup runs its products and the softmax gradient one after the other,
+// and seven products do the work of five.
+//
+// Split: FlashAttention-2's backward in three kernels so that nothing needs
+// atomics and two calls on the same inputs give the same bits.
+// attn_bwd_delta takes D x sizeof(T) / 16 lanes a row, one 16-byte load of
+// dO and of o each. attn_bwd_dkdv gives each (64-key
+// tile, KV head, batch) to a block that keeps K and V in shared memory,
+// walks every (query head of its group, query tile that can see the key
+// tile) pair, recomputes S^T and P^T from lse, and accumulates dK and dV in
+// registers: the GQA sum with no repeated K / V, each of dK and dV written
+// once. attn_bwd_dq gives each (64-row query tile, head, batch) to a block
+// that walks the key tiles the forward's key_tiles selects and accumulates
+// dQ. Both recompute S and dP, so a tile pair costs seven 64 x 64 x D
+// products where five are the least (1.4 x the operations); atomics on dQ
+// would save two and give up bitwise-repeatable gradients. Heaviest causal
+// tiles start first. Tiles with every (row, key) valid skip the masks.
+//
+// bf16 route (attn_bwd_*_tc): every product on wgmma, float32 accumulators,
+// tiles fed by TMA from 4-D tensor maps built on the host (any (B, S, H, D)
+// or (B, H, S, D) view, read in place, rows past the end zero-filled). A
+// block is one consumer warpgroup and a producer warp, as in the forward.
+//   dK/dV: the producer loads K and V once and streams the (Q, dO) 64-row
+//   tiles, with their rows' lse and Delta (stored by its 32 lanes), through
+//   a 2-stage ring behind full and empty mbarriers. The consumer computes
+//   S^T = K.Q^T and dP^T = V.dO^T (m64n64k16, both operands K-major from
+//   shared memory), forms P^T = exp2(s scale log2e - lse log2e) and dS^T =
+//   P^T o (dP^T - Delta) on the accumulator fragment (lse and Delta read per
+//   column from shared memory), packs both to bf16 (an m64 accumulator
+//   fragment is the A operand as it lies) and accumulates dV += P^T.dO and
+//   dK += dS^T.Q with register-A wgmma at N = D, dO and Q as MN-major B
+//   operands (the transpose bit): one load of each tile feeds both uses.
+//   dQ: Q and dO load once, K and V tiles stream through the ring; S = Q.K^T
+//   and dP = dO.V^T shared x shared, dS in registers, dQ += dS.K register-A
+//   with K as an MN-major B operand.
+// P and dS are rounded to bf16 before the three gradient products, rounding
+// points the plain backward (float32 P and dS) does not have. bf16 keeps 8
+// significant bits, so each moves by at most 2^-8 of itself, and a gradient
+// moves by at most 2^-8 A, A the float32 magnitude product of its terms
+// (|P|^T |dO| for dv, D^-1/2 |dS|^T |Q| for dk, D^-1/2 |dS| |K| for dq;
+// ref.py's flash_attention_bwd_magnitudes). With the tensor cores'
+// float32 sums and the outputs' own bf16 rounding, the stated gate against
+// the plain backward is |got - want| <= 2^-7 (1 + |want|) + 2 2^-8 A.
+//
+// float32 route (attn_bwd_*_f32): every product 3xTF32 on mma.sync
+// m16n8k8 (wgmma takes tf32 only K-major, and four of the seven products
+// read a tile MN-major). The same two kernels and tiles: 4 warps, each
+// owning 16 keys (dK/dV) or 16 query rows (dQ), the streamed tiles through
+// a 2-stage cp.async ring (lse and Delta by 4-byte copies beside them). Each
+// operand is split into big = tf32(x) and small = tf32(x - big) and a
+// product is big.big + big.small + small.big, small terms first. Tiles are
+// [64][D + 4] floats, so both read patterns a tile meets (a row's 8
+// consecutive dims, and 2 consecutive rows of one dim, for the transposed
+// products P^T.dO, dS^T.Q, dS.K) hit 32 banks once. S^T / S accumulators
+// are the A fragment of the next product as they lie (the k index of each
+// 8-step permuted: k = t holds row 2t, k = t + 4 row 2t + 1). Each
+// gradient product goes to fresh accumulators of 4 x 8 columns and is
+// added to the running sum in float32 (the tensor cores' sums do not round
+// to nearest). Each product is within 2^-20 of its magnitude product, so a
+// gradient's own product within 2^-20 A; S and dP carry the same relative
+// error into P and dS. The stated gate: |got - want| <= 1e-5 (1 + |want|) +
+// 2^-19 A.
+//
+// Both routes read kv_len on the device, take no host sync, build their
+// tensor maps per call and set the shared-memory opt-in once per
+// instantiation, so a call can be captured in a CUDA graph.
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kRows = 64;      // query rows per tile
-constexpr int kKeys = 64;      // keys per tile
-constexpr int kThreads = 256;  // 16 x 16: thread (ty, tx) owns rows ty + 16 a
-constexpr int kLdS = kKeys + 1;  // row stride of a 64 x 64 tile in shared memory
+using namespace hopper;
+
+constexpr int kRows = 64;                    // query rows per tile
+constexpr int kKeys = 64;                    // keys per tile
+constexpr int kDeltaThreads = 256;           // attn_bwd_delta's block
+constexpr int kThreadsF32 = 128;             // f32: 4 warps
+constexpr int kConsumers = 128;              // bf16: one warpgroup
+constexpr int kThreadsTc = kConsumers + 32;  // bf16: plus the producer warp
+constexpr int kStages = 2;                   // ring depth, both routes
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -82,11 +140,6 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 __device__ __forceinline__ int read_kv_len(const Params& p) {
   const int kvl = p.kv_len != nullptr ? *p.kv_len : p.kv_len_value;
   return min(max(kvl, 0), p.sk);
@@ -102,328 +155,830 @@ __device__ __forceinline__ void key_tiles(const Params& p, int q0, int kvl,
   begin = p.window >= 0 ? max(0, q0 - p.window + 1) / kKeys : 0;
 }
 
+// The query tiles [begin, end) whose rows can see a key of [k0, k0 + kKeys).
+__device__ __forceinline__ void query_tiles(const Params& p, int k0, int kvl,
+                                            int& begin, int& end) {
+  begin = p.causal ? k0 / kRows : 0;
+  end = k0 < kvl ? (p.sq + kRows - 1) / kRows : 0;
+  if (p.window >= 0) {
+    const int64_t last_row = (int64_t)k0 + kKeys - 2 + p.window;  // col > row - window
+    if (last_row / kRows + 1 < end) end = (int)(last_row / kRows + 1);
+  }
+  if (end < begin) end = begin;
+}
+
 __device__ __forceinline__ bool valid(const Params& p, int row, int col, int kvl) {
   return row < p.sq && col < kvl && (!p.causal || col <= row) &&
          (p.window < 0 || col > row - p.window);
 }
 
-// rows [r0, r0 + 64) of a (rows, D) matrix with row stride ss, as float,
-// into a [64][D + 1] tile; rows at or past n are 0
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t ss, int r0,
-                                          int n) {
-  for (int e = threadIdx.x; e < kRows * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    const int row = r0 + r;
-    dst[r * (D + 1) + c] = row < n ? to_float(src[(int64_t)row * ss + c]) : 0.f;
-  }
+// Every (row, key) of the tile pair is valid but for rows past sq, whose
+// zero-filled q, dO, lse and Delta give P = 1 and dS = 0 and so add nothing.
+__device__ __forceinline__ bool full_tile(const Params& p, int q0, int k0, int kvl) {
+  return k0 + kKeys <= kvl && (!p.causal || k0 + kKeys - 1 <= q0) &&
+         (p.window < 0 || k0 > q0 + kRows - 1 - p.window);
 }
 
-// c[a][b] = sum_d x[ty + 16 a][d] y[tx + 16 b][d]: a 64 x 64 tile of X Y^T
-// from two [64][D + 1] tiles
-template <int D>
-__device__ __forceinline__ void product_nt(float (&c)[4][4], const float* x, const float* y,
-                                           int ty, int tx) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) c[a][b] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float xv[4], yv[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) xv[a] = x[(ty + 16 * a) * (D + 1) + d];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) yv[b] = y[(tx + 16 * b) * (D + 1) + d];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) c[a][b] = fmaf(xv[a], yv[b], c[a][b]);
-  }
+// P and dS of one score from s, dP and the row's lse (log2 units) and Delta
+__device__ __forceinline__ void softmax_grad(float& s, float& dp, bool ok, float scale_log2,
+                                             float lse2, float dlt) {
+  const float pr = ok ? exp2f(fmaf(s, scale_log2, -lse2)) : 0.f;
+  s = pr;
+  dp = pr * (dp - dlt);
 }
 
-// c[a][b] += sum_i x[i][ty + 16 a] y[i][tx + 16 b]: rows ty + 16 a of X^T Y,
-// X a [64][65] tile (P or dS), Y a [64][D + 1] tile
-template <int D>
-__device__ __forceinline__ void product_tn(float (&c)[4][D / 16], const float* x,
-                                           const float* y, int ty, int tx) {
-#pragma unroll 4
-  for (int i = 0; i < kRows; ++i) {
-    float xv[4], yv[D / 16];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) xv[a] = x[i * kLdS + ty + 16 * a];
-#pragma unroll
-    for (int b = 0; b < D / 16; ++b) yv[b] = y[i * (D + 1) + tx + 16 * b];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < D / 16; ++b) c[a][b] = fmaf(xv[a], yv[b], c[a][b]);
-  }
+// sum of x . y over one 16-byte chunk of each
+__device__ __forceinline__ float dot_chunk(const float* x, const float* y) {
+  const float4 a = *reinterpret_cast<const float4*>(x);
+  const float4 b = *reinterpret_cast<const float4*>(y);
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
 }
-
-// c[a][b] += sum_j x[ty + 16 a][j] y[j][tx + 16 b]: rows ty + 16 a of X Y,
-// X a [64][65] tile (dS), Y a [64][D + 1] tile (K)
-template <int D>
-__device__ __forceinline__ void product_nn(float (&c)[4][D / 16], const float* x,
-                                           const float* y, int ty, int tx) {
-#pragma unroll 4
-  for (int j = 0; j < kKeys; ++j) {
-    float xv[4], yv[D / 16];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) xv[a] = x[(ty + 16 * a) * kLdS + j];
-#pragma unroll
-    for (int b = 0; b < D / 16; ++b) yv[b] = y[j * (D + 1) + tx + 16 * b];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < D / 16; ++b) c[a][b] = fmaf(xv[a], yv[b], c[a][b]);
-  }
-}
-
-// P and dS of the 64 x 64 tile (rows q0.., keys k0..) from the S and dP
-// fragments: p = exp(s D^-1/2 - lse) where valid, else 0; ds = p (dp - D).
-__device__ __forceinline__ void softmax_grad(const Params& p, float (&s)[4][4],
-                                             float (&dp)[4][4], const float* s_lse,
-                                             const float* s_delta, int q0, int k0,
-                                             int kvl, int ty, int tx) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = ty + 16 * a;
-    const float lse = s_lse[i];
-    const float dlt = s_delta[i];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = tx + 16 * b;
-      const bool ok = lse != -INFINITY && valid(p, q0 + i, k0 + j, kvl);
-      const float pr = ok ? expf(s[a][b] * p.scale - lse) : 0.f;
-      s[a][b] = pr;
-      dp[a][b] = pr * (dp[a][b] - dlt);
-    }
-  }
-}
-
-// lse and D of rows [q0, q0 + 64) into shared memory (-inf and 0 past sq)
-__device__ __forceinline__ void load_rows(const Params& p, float* s_lse, float* s_delta,
-                                          int64_t row0, int q0) {
-  const int t = threadIdx.x;
-  if (t < kRows) {
-    const int row = q0 + t;
-    s_lse[t] = row < p.sq ? p.lse[row0 + row] : -INFINITY;
-    s_delta[t] = row < p.sq ? p.delta[row0 + row] : 0.f;
-  }
-}
-
-// D_i = sum_d dO_i O_i, one warp a row of (b, h, sq), lanes over d; the
-// warp's sum order is fixed, so the result is deterministic
-template <typename T>
-__global__ void __launch_bounds__(kThreads) attn_bwd_delta(const Params p, int d,
-                                                           int64_t rows) {
-  const int64_t r = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (r >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const int64_t bh = r / p.sq;
-  const int i = (int)(r % p.sq);
-  const int b = (int)(bh / p.h), hq = (int)(bh % p.h);
-  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + hq * p.o_sh + i * p.o_ss;
-  const T* g = static_cast<const T*>(p.dout) + b * p.do_sb + hq * p.do_sh + i * p.do_ss;
+__device__ __forceinline__ float dot_chunk(const __nv_bfloat16* x, const __nv_bfloat16* y) {
+  const uint4 a = *reinterpret_cast<const uint4*>(x);
+  const uint4 b = *reinterpret_cast<const uint4*>(y);
+  const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
   float acc = 0.f;
-  for (int c = lane; c < d; c += 32) acc = fmaf(to_float(g[c]), to_float(o[c]), acc);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.delta[r] = acc;
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(a2[i]), v = __bfloat1622float2(b2[i]);
+    acc = fmaf(u.y, v.y, fmaf(u.x, v.x, acc));
+  }
+  return acc;
 }
 
-template <int D>
-struct Smem {
-  static constexpr int kTile = kRows * (D + 1);                       // floats
-  static constexpr int kDkDv = (4 * kTile + 2 * kRows * kLdS + 2 * kRows) * 4;
-  static constexpr int kDq = (4 * kTile + kRows * kLdS + 2 * kRows) * 4;
+// D_i = sum_d dO_i O_i over the rows of (b, h, sq): L = D x sizeof(T) / 16
+// lanes a row (2 to 32), each one 16-byte load of dO and of o, the row's
+// sum over its lanes by shuffles in a fixed order, so the result is
+// deterministic. Bound by its bytes.
+template <typename T, int D>
+__global__ void __launch_bounds__(kDeltaThreads) attn_bwd_delta(const Params p,
+                                                                int64_t rows) {
+  constexpr int kVec = 16 / (int)sizeof(T);  // elements a load
+  constexpr int L = D / kVec;                // lanes a row
+  const int64_t r = (int64_t)blockIdx.x * (kDeltaThreads / L) + threadIdx.x / L;
+  const int c = (int)(threadIdx.x % L) * kVec;
+  float acc = 0.f;
+  if (r < rows) {
+    const int64_t bh = r / p.sq;
+    const int i = (int)(r % p.sq);
+    const int b = (int)(bh / p.h), hq = (int)(bh % p.h);
+    const T* o = static_cast<const T*>(p.o) + b * p.o_sb + hq * p.o_sh + i * p.o_ss;
+    const T* g = static_cast<const T*>(p.dout) + b * p.do_sb + hq * p.do_sh + i * p.do_ss;
+    acc = dot_chunk(g + c, o + c);
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (r < rows && c == 0) p.delta[r] = acc;
+}
+
+// ---------------------------------------------------------- bf16 route
+// A tensor map's dimensions 1-3 hold (row, head, batch) in the order of
+// their strides; axes[i] is the map dimension of row (0), head (1), batch (2).
+struct MapAxes {
+  int q[3], k[3], v[3], dout[3];
 };
 
-// dK and dV of one 64-key tile of one KV head, summed over its query heads
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dkdv(const Params p) {
-  using S = Smem<D>;
-  extern __shared__ float smem[];
-  float* s_k = smem;
-  float* s_v = s_k + S::kTile;
-  float* s_q = s_v + S::kTile;
-  float* s_do = s_q + S::kTile;
-  float* s_p = s_do + S::kTile;           // [64][65]
-  float* s_ds = s_p + kRows * kLdS;       // [64][65]
-  float* s_lse = s_ds + kRows * kLdS;     // [64]
-  float* s_delta = s_lse + kRows;         // [64]
+// Shared memory of both bf16 kernels: two resident tiles, kStages pairs of
+// streamed tiles, (dK/dV only) kStages rows of lse and Delta, the barriers,
+// and 1 KB of slack to round the base up to the swizzle's 1,024-byte repeat.
+template <int D>
+struct SmemTc {
+  static constexpr int kTiles = (2 + 2 * kStages) * Tile<D>::kBytes;
+  static constexpr int kRowsBytes = kStages * 2 * kRows * (int)sizeof(float);
+  static constexpr int kDkDv = kTiles + kRowsBytes + 64 + 1024;
+  static constexpr int kDq = kTiles + 64 + 1024;
+};
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+// bf16 stores of an m64nD accumulator fragment, rows [r0, r0 + 64) of a
+// (rows, D) matrix at `out` with row stride ss, scaled; rows at or past n
+// are not written
+template <int D>
+__device__ __forceinline__ void store_fragment(__nv_bfloat16* out, int64_t ss, int r0, int n,
+                                               const float (&acc)[D / 2], float scale) {
+  const int lane = threadIdx.x & 31;
+  const int row = r0 + 16 * (threadIdx.x >> 5) + (lane >> 2);
+  const int col = 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= n) continue;
+    __nv_bfloat16* dst = out + (int64_t)(row + 8 * h) * ss + col;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
+  }
+}
+
+// the m64n16 A fragments of the 16-column steps of a 64 x 64 fragment
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+// dK and dV of one 64-key tile of one KV head, summed over its query heads
+// (155 registers at D = 64, 2 blocks an SM; capped for 3 it spilled and was
+// 1.2 x slower)
+template <int D>
+__global__ void __launch_bounds__(kThreadsTc)
+attn_bwd_dkdv_tc(const __grid_constant__ Params p,
+                 const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_do,
+                 const __grid_constant__ MapAxes axes) {
+  using G = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t s_k = base;
+  const uint32_t s_v = base + G::kBytes;
+  const uint32_t s_q = base + 2 * G::kBytes;                // stage s: + 2 s kBytes
+  const uint32_t s_do = s_q + G::kBytes;
+  // [stage][lse (log2 units) 64 | Delta 64]
+  float* const s_rows = reinterpret_cast<float*>(smem_raw + (base - raw) + SmemTc<D>::kTiles);
+  const uint32_t bars = base + SmemTc<D>::kTiles + SmemTc<D>::kRowsBytes;
+  const uint32_t bar_kv = bars;                             // 8 bytes each
+  const uint32_t bar_full = bars + 8;                       // [kStages]
+  const uint32_t bar_empty = bars + 8 + 8 * kStages;        // [kStages]
+
   const int k0 = blockIdx.x * kKeys, hk = blockIdx.y, b = blockIdx.z;
   const int kvl = read_kv_len(p);
-  load_tile<D>(s_k, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.sk);
-  load_tile<D>(s_v, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.sk);
+  int qt_begin, qt_end;
+  query_tiles(p, k0, kvl, qt_begin, qt_end);
+  const int nq = qt_end - qt_begin;
+  const int steps = p.group * nq;
 
-  // the query tiles whose rows can see a key of [k0, k0 + 64)
-  int qt_begin = p.causal ? k0 / kRows : 0;
-  int qt_end = k0 < kvl ? (p.sq + kRows - 1) / kRows : 0;
-  if (p.window >= 0) {
-    const int64_t last_row = (int64_t)k0 + kKeys - 2 + p.window;  // col > row - window
-    if (last_row / kRows + 1 < qt_end) qt_end = (int)(last_row / kRows + 1);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 32);        // every producer lane arrives
+      mbar_init(bar_empty + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------ producer warp
+    const int lane = threadIdx.x - kConsumers;
+    if (lane == 0 && steps > 0) {
+      mbar_expect_tx(bar_kv, 2 * G::kBytes);
+      tma_tile<D>(s_k, &map_k, axes.k, bar_kv, k0, hk, b);
+      tma_tile<D>(s_v, &map_v, axes.v, bar_kv, k0, hk, b);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int s = 0; s < steps; ++s) {
+      const int hq = hk * p.group + s / nq, q0 = (qt_begin + s % nq) * kRows;
+      mbar_wait(bar_empty + 8 * stage, phase ^ 1);
+      // the tile's rows' lse and Delta; 0 past sq, like the zero-filled tiles
+      float* rows = s_rows + stage * 2 * kRows;
+      const int64_t row0 = ((int64_t)b * p.h + hq) * p.sq;
+#pragma unroll
+      for (int i = lane; i < kRows; i += 32) {
+        const int row = q0 + i;
+        const bool in = row < p.sq;
+        rows[i] = in ? p.lse[row0 + row] * kLog2e : 0.f;
+        rows[kRows + i] = in ? p.delta[row0 + row] : 0.f;
+      }
+      const uint32_t full = bar_full + 8 * stage;
+      if (lane == 0) {
+        mbar_expect_tx(full, 2 * G::kBytes);   // lane 0's arrival
+        tma_tile<D>(s_q + 2 * stage * G::kBytes, &map_q, axes.q, full, q0, hq, b);
+        tma_tile<D>(s_do + 2 * stage * G::kBytes, &map_do, axes.dout, full, q0, hq, b);
+      } else {
+        mbar_arrive(full);                     // after this lane's rows
+      }
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
   }
 
-  float dk[4][D / 16], dv[4][D / 16];
+  // ------------------------------------------------ consumer warpgroup
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  const int key0 = k0 + w * 16 + (lane >> 2);  // this thread's keys: key0, key0 + 8
+  const int c_lane = 2 * (lane & 3);           // its first query row in each 8
+  const float scale_log2 = p.scale * kLog2e;
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) dk[a][c] = dv[a][c] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 
-  for (int g = 0; g < p.group; ++g) {
-    const int hq = hk * p.group + g;
-    const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + hq * p.q_sh;
-    const T* gp = static_cast<const T*>(p.dout) + b * p.do_sb + hq * p.do_sh;
-    const int64_t row0 = ((int64_t)b * p.h + hq) * p.sq;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * kRows;
-      __syncthreads();  // the last tile's reads of s_q, s_do, s_p, s_ds are done
-      load_tile<D>(s_q, qp, p.q_ss, q0, p.sq);
-      load_tile<D>(s_do, gp, p.do_ss, q0, p.sq);
-      load_rows(p, s_lse, s_delta, row0, q0);
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      product_nt<D>(s, s_q, s_k, ty, tx);
-      product_nt<D>(dp, s_do, s_v, ty, tx);
-      softmax_grad(p, s, dp, s_lse, s_delta, q0, k0, kvl, ty, tx);
+  if (steps > 0) mbar_wait(bar_kv, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int s = 0; s < steps; ++s) {
+    const int q0 = (qt_begin + s % nq) * kRows;
+    mbar_wait(bar_full + 8 * stage, phase);
+    const uint32_t q_tile = s_q + 2 * stage * G::kBytes;
+    const uint32_t do_tile = s_do + 2 * stage * G::kBytes;
+    const float* rows = s_rows + stage * 2 * kRows;
+
+    // S^T = K . Q^T and dP^T = V . dO^T on the tensor cores
+    float st[32], dpt[32];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s_p[(ty + 16 * a) * kLdS + tx + 16 * c] = s[a][c];
-          s_ds[(ty + 16 * a) * kLdS + tx + 16 * c] = dp[a][c];
-        }
-      __syncthreads();
-      product_tn<D>(dv, s_p, s_do, ty, tx);
-      product_tn<D>(dk, s_ds, s_q, ty, tx);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(st, desc_k_major<D>(s_k, kk), desc_k_major<D>(q_tile, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dpt, desc_k_major<D>(s_v, kk), desc_k_major<D>(do_tile, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T and dS^T: st[4 j + e] is key key0 + 8 (e >> 1), query row q0 + 8 j
+    // + c_lane + (e & 1)
+    const bool full = full_tile(p, q0, k0, kvl);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(rows + 8 * j + c_lane);
+      const float2 dl = *reinterpret_cast<const float2*>(rows + kRows + 8 * j + c_lane);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + 8 * (e >> 1);
+        const int row = q0 + 8 * j + c_lane + (e & 1);
+        const bool ok = full || valid(p, row, key, kvl);
+        softmax_grad(st[4 * j + e], dpt[4 * j + e], ok, scale_log2, (e & 1) ? l2.y : l2.x,
+                     (e & 1) ? dl.y : dl.x);
+      }
+    }
+    uint32_t a_p[4][4], a_ds[4][4];
+    pack_a(a_p, st);
+    pack_a(a_ds, dpt);
+
+    // dV += P^T . dO and dK += dS^T . Q, dO and Q as MN-major B operands
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dv, a_p[kk], desc_mn_major<D>(do_tile, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dk, a_ds[kk], desc_mn_major<D>(q_tile, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+    mbar_arrive(bar_empty + 8 * stage);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
     }
   }
 
-  T* dkp = static_cast<T*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
-  T* dvp = static_cast<T*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int key = k0 + ty + 16 * a;
-    if (key >= p.sk) continue;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      store(dkp + (int64_t)key * p.dk_ss + tx + 16 * c, dk[a][c] * p.scale);
-      store(dvp + (int64_t)key * p.dv_ss + tx + 16 * c, dv[a][c]);
-    }
-  }
+  store_fragment<D>(static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + hk * p.dk_sh, p.dk_ss,
+                    k0, p.sk, dk, p.scale);
+  store_fragment<D>(static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + hk * p.dv_sh, p.dv_ss,
+                    k0, p.sk, dv, 1.f);
 }
 
 // dQ of one 64-row query tile of one head
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dq(const Params p) {
-  using S = Smem<D>;
-  extern __shared__ float smem[];
-  float* s_q = smem;
-  float* s_do = s_q + S::kTile;
-  float* s_k = s_do + S::kTile;
-  float* s_v = s_k + S::kTile;
-  float* s_ds = s_v + S::kTile;           // [64][65]
-  float* s_lse = s_ds + kRows * kLdS;
-  float* s_delta = s_lse + kRows;
+template <int D>
+__global__ void __launch_bounds__(kThreadsTc)
+attn_bwd_dq_tc(const __grid_constant__ Params p,
+               const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               const __grid_constant__ CUtensorMap map_do,
+               const __grid_constant__ MapAxes axes) {
+  using G = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t s_q = base;
+  const uint32_t s_do = base + G::kBytes;
+  const uint32_t s_k = base + 2 * G::kBytes;                // stage s: + 2 s kBytes
+  const uint32_t s_v = s_k + G::kBytes;
+  const uint32_t bars = base + SmemTc<D>::kTiles;
+  const uint32_t bar_q = bars;                              // 8 bytes each
+  const uint32_t bar_full = bars + 8;                       // [kStages]
+  const uint32_t bar_empty = bars + 8 + 8 * kStages;        // [kStages]
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   // the heaviest causal tiles (the last rows) start first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
   const int hq = blockIdx.y, b = blockIdx.z;
   const int hk = hq / p.group;
   const int kvl = read_kv_len(p);
-  load_tile<D>(s_q, static_cast<const T*>(p.q) + b * p.q_sb + hq * p.q_sh, p.q_ss, q0, p.sq);
-  load_tile<D>(s_do, static_cast<const T*>(p.dout) + b * p.do_sb + hq * p.do_sh, p.do_ss,
-               q0, p.sq);
-  load_rows(p, s_lse, s_delta, ((int64_t)b * p.h + hq) * p.sq, q0);
-  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
   int kt_begin, kt_end;
   key_tiles(p, q0, kvl, kt_begin, kt_end);
-  float dq[4][D / 16];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) dq[a][c] = 0.f;
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kKeys;
-    __syncthreads();  // the last tile's reads of s_k, s_ds are done
-    load_tile<D>(s_k, kp, p.k_ss, k0, p.sk);
-    load_tile<D>(s_v, vp, p.v_ss, k0, p.sk);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    product_nt<D>(s, s_q, s_k, ty, tx);
-    product_nt<D>(dp, s_do, s_v, ty, tx);
-    softmax_grad(p, s, dp, s_lse, s_delta, q0, k0, kvl, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s_ds[(ty + 16 * a) * kLdS + tx + 16 * c] = dp[a][c];
-    __syncthreads();
-    product_nn<D>(dq, s_ds, s_k, ty, tx);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------ producer warp
+    if (threadIdx.x == kConsumers && kt_begin < kt_end) {
+      mbar_expect_tx(bar_q, 2 * G::kBytes);
+      tma_tile<D>(s_q, &map_q, axes.q, bar_q, q0, hq, b);
+      tma_tile<D>(s_do, &map_do, axes.dout, bar_q, q0, hq, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = kt_begin; kt < kt_end; ++kt) {
+        mbar_wait(bar_empty + 8 * stage, phase ^ 1);
+        const uint32_t full = bar_full + 8 * stage;
+        mbar_expect_tx(full, 2 * G::kBytes);
+        tma_tile<D>(s_k + 2 * stage * G::kBytes, &map_k, axes.k, full, kt * kKeys, hk, b);
+        tma_tile<D>(s_v + 2 * stage * G::kBytes, &map_v, axes.v, full, kt * kKeys, hk, b);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
   }
 
-  T* dqp = static_cast<T*>(p.dq) + b * p.dq_sb + hq * p.dq_sh;
+  // ------------------------------------------------ consumer warpgroup
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  const int r0 = q0 + w * 16 + (lane >> 2);  // this thread's rows: r0, r0 + 8
+  const int c_lane = 2 * (lane & 3);         // its first key in each 8
+  const float scale_log2 = p.scale * kLog2e;
+  const int64_t row0 = ((int64_t)b * p.h + hq) * p.sq;
+  float lse2[2], dlt[2];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = q0 + ty + 16 * a;
-    if (row >= p.sq) continue;
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    lse2[h] = row < p.sq ? p.lse[row0 + row] * kLog2e : 0.f;
+    dlt[h] = row < p.sq ? p.delta[row0 + row] : 0.f;
+  }
+  float dq[D / 2];
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c)
-      store(dqp + (int64_t)row * p.dq_ss + tx + 16 * c, dq[a][c] * p.scale);
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  if (kt_begin < kt_end) mbar_wait(bar_q, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kKeys;
+    mbar_wait(bar_full + 8 * stage, phase);
+    const uint32_t k_tile = s_k + 2 * stage * G::kBytes;
+    const uint32_t v_tile = s_v + 2 * stage * G::kBytes;
+
+    // S = Q . K^T and dP = dO . V^T on the tensor cores
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_k_major<D>(s_q, kk), desc_k_major<D>(k_tile, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, desc_k_major<D>(s_do, kk), desc_k_major<D>(v_tile, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dS: s[4 j + e] is row r0 + 8 (e >> 1), key k0 + 8 j + c_lane + (e & 1)
+    const bool full = full_tile(p, q0, k0, kvl);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + 8 * (e >> 1);
+        const int col = k0 + 8 * j + c_lane + (e & 1);
+        const bool ok = full || valid(p, row, col, kvl);
+        softmax_grad(s[4 * j + e], dp[4 * j + e], ok, scale_log2, lse2[e >> 1], dlt[e >> 1]);
+      }
+    uint32_t a[4][4];
+    pack_a(a, dp);
+
+    // dQ += dS . K, K as an MN-major B operand
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dq, a[kk], desc_mn_major<D>(k_tile, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq);
+    mbar_arrive(bar_empty + 8 * stage);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  store_fragment<D>(static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + hq * p.dq_sh, p.dq_ss,
+                    q0, p.sq, dq, p.scale);
+}
+
+// ------------------------------------------------------- float32 route
+// Shared memory of both float32 kernels: two resident [64][D + 4] tiles,
+// kStages pairs of streamed ones and (dK/dV only) kStages rows of lse and
+// Delta. A stride of D + 4 floats (4 mod 32, 20 at D = 16) puts a row's 8
+// consecutive dims (fragment reads g ld + t) and 2 consecutive rows of one
+// dim (2 t ld + g) on 32 distinct banks.
+template <int D>
+struct SmemF32 {
+  static constexpr int kLd = D + 4;
+  static constexpr int kTile = kRows * kLd;                      // floats
+  static constexpr int kRowFloats = 2 * kRows;                   // lse | Delta
+  static constexpr int kDkDv = ((2 + 2 * kStages) * kTile + kStages * kRowFloats) * 4;
+  static constexpr int kDq = (2 + 2 * kStages) * kTile * 4;
+};
+
+// rows [r0, r0 + 64) of a (rows, D) float32 matrix with row stride ss into a
+// [64][D + 4] tile at dst, 16 bytes a copy; rows at or past n zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile_f32(uint32_t dst, const float* src, int64_t ss,
+                                              int r0, int n) {
+  constexpr int C = D / 4;  // 16-byte chunks a row
+  for (int e = threadIdx.x; e < kRows * C; e += kThreadsF32) {
+    const int r = e / C, c = e % C;
+    const int row = r0 + r;
+    const bool ok = row < n;
+    cp_async16(dst + (uint32_t)((r * SmemF32<D>::kLd + 4 * c) * sizeof(float)),
+               ok ? src + (int64_t)row * ss + 4 * c : src, ok);
   }
 }
 
+// A (16 rows from `x`, row stride ld, dims 8 kk ..) of the m16n8k8 fragment, split
+__device__ __forceinline__ void a_frag(const float* x, int ld, int kk, int g, int t,
+                                       uint32_t (&ab)[4], uint32_t (&as)[4]) {
+  const float* r = x + g * ld + 8 * kk + t;
+  split_tf32(r[0], ab[0], as[0]);
+  split_tf32(r[8 * ld], ab[1], as[1]);
+  split_tf32(r[4], ab[2], as[2]);
+  split_tf32(r[8 * ld + 4], ab[3], as[3]);
+}
+
+// acc (16 x 64, 8 groups of 8 columns) = X . Y^T over D for the 16 rows of
+// X at x and the 64 rows of Y at y, both [.][D + 4] tiles
+template <int D>
+__device__ __forceinline__ void product_nt(float (&acc)[8][4], const float* x, const float* y,
+                                           int g, int t) {
+  constexpr int ld = SmemF32<D>::kLd;
+  constexpr int NJ = 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ab[4], as[4];
+    a_frag(x, ld, kk, g, t, ab, as);
+#pragma unroll
+    for (int jg = 0; jg < 8; jg += NJ) {
+      uint32_t bb[NJ][2], bs[NJ][2];
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        const float* r = y + (8 * (jg + i) + g) * ld + 8 * kk + t;
+        split_tf32(r[0], bb[i][0], bs[i][0]);
+        split_tf32(r[4], bb[i][1], bs[i][1]);
+      }
+      mma_3xtf32<NJ>(acc, jg, ab, as, bb, bs);
+    }
+  }
+}
+
+// out (16 x D) += A . Y, A (16 x 64) the accumulators of a product_nt as
+// they lie (k = t of step j holds column 8 j + 2 t, k = t + 4 column 8 j +
+// 2 t + 1) and Y the 64 rows of a [.][D + 4] tile at y; NO groups of 8
+// output columns at a time into fresh accumulators, each added to out in
+// float32
+template <int D>
+__device__ __forceinline__ void product_an(float (&out)[D / 8][4], const float (&a)[8][4],
+                                           const float* y, int g, int t) {
+  constexpr int ld = SmemF32<D>::kLd;
+  constexpr int NO = D / 8 < 4 ? D / 8 : 4;
+#pragma unroll
+  for (int ng = 0; ng < D / 8; ng += NO) {
+    float acc[NO][4];
+#pragma unroll
+    for (int i = 0; i < NO; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t ab[4], as[4];
+      split_tf32(a[j][0], ab[0], as[0]);   // row g,     column 2 t
+      split_tf32(a[j][2], ab[1], as[1]);   // row g + 8, column 2 t
+      split_tf32(a[j][1], ab[2], as[2]);   // row g,     column 2 t + 1
+      split_tf32(a[j][3], ab[3], as[3]);   // row g + 8, column 2 t + 1
+      const float* r = y + (8 * j + 2 * t) * ld + g;
+      uint32_t bb[NO][2], bs[NO][2];
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+        split_tf32(r[8 * (ng + i)], bb[i][0], bs[i][0]);
+        split_tf32(r[ld + 8 * (ng + i)], bb[i][1], bs[i][1]);
+      }
+      mma_3xtf32<NO>(acc, 0, ab, as, bb, bs);
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[ng + i][e] += acc[i][e];
+  }
+}
+
+// float32 stores of a warp's (16 x D) fragment, rows r0 + g and r0 + g + 8
+// of a (rows, D) matrix at `out`, scaled; rows at or past n are not written
+template <int D>
+__device__ __forceinline__ void store_f32(float* out, int64_t ss, int r0, int n,
+                                          const float (&acc)[D / 8][4], float scale, int g,
+                                          int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row >= n) continue;
+    float* dst = out + (int64_t)row * ss + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32)
+attn_bwd_dkdv_f32(const Params p) {
+  using S = SmemF32<D>;
+  extern __shared__ float4 smem_f4[];
+  float* const smem = reinterpret_cast<float*>(smem_f4);
+  const uint32_t smem_base = smem_u32(smem);
+  // K, V, then kStages (Q, dO) pairs, then kStages (lse, Delta) rows
+  const float* const s_k = smem;
+  const float* const s_v = smem + S::kTile;
+  const float* const s_rows = smem + (2 + 2 * kStages) * S::kTile;
+
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // the mma fragments' group / thread
+  const int k0 = blockIdx.x * kKeys, hk = blockIdx.y, b = blockIdx.z;
+  const int kvl = read_kv_len(p);
+  int qt_begin, qt_end;
+  query_tiles(p, k0, kvl, qt_begin, qt_end);
+  const int nq = qt_end - qt_begin;
+  const int steps = p.group * nq;
+  const int key0 = k0 + 16 * w + g;          // this thread's keys: key0, key0 + 8
+
+  // (Q, dO, lse, Delta) of step s into stage st
+  auto load_step = [&](int s, int st) {
+    const int hq = hk * p.group + s / nq, q0 = (qt_begin + s % nq) * kRows;
+    const uint32_t qs = smem_base + (uint32_t)((2 + 2 * st) * S::kTile * sizeof(float));
+    load_tile_f32<D>(qs, static_cast<const float*>(p.q) + b * p.q_sb + hq * p.q_sh, p.q_ss,
+                     q0, p.sq);
+    load_tile_f32<D>(qs + (uint32_t)(S::kTile * sizeof(float)),
+                     static_cast<const float*>(p.dout) + b * p.do_sb + hq * p.do_sh, p.do_ss,
+                     q0, p.sq);
+    if (tid < 2 * kRows) {
+      const int i = tid % kRows, row = q0 + i;
+      const bool ok = row < p.sq;
+      const float* src = (tid < kRows ? p.lse : p.delta) + ((int64_t)b * p.h + hq) * p.sq;
+      cp_async4(smem_base + (uint32_t)(((2 + 2 * kStages) * S::kTile + st * S::kRowFloats +
+                                        tid) * sizeof(float)),
+                ok ? src + row : src, ok);
+    }
+  };
+  if (steps > 0) {
+    load_tile_f32<D>(smem_base, static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh,
+                     p.k_ss, k0, p.sk);
+    load_tile_f32<D>(smem_base + (uint32_t)(S::kTile * sizeof(float)),
+                     static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0,
+                     p.sk);
+    load_step(0, 0);
+  }
+  cp_async_commit();
+
+  const float scale_log2 = p.scale * kLog2e;
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int s = 0; s < steps; ++s) {
+    const int st = s & 1;
+    if (s + 1 < steps) load_step(s + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();  // step s has landed
+    __syncthreads();
+    const int q0 = (qt_begin + s % nq) * kRows;
+    const float* qs = smem + (2 + 2 * st) * S::kTile;
+    const float* dos = qs + S::kTile;
+    const float* rows = s_rows + st * S::kRowFloats;
+
+    // S^T = K . Q^T and dP^T = V . dO^T for this warp's 16 keys: [j][e] is
+    // key key0 + 8 (e >> 1), query row q0 + 8 j + 2 t + (e & 1)
+    float sp[8][4], dp[8][4];
+    product_nt<D>(sp, s_k + 16 * w * S::kLd, qs, g, t);
+    product_nt<D>(dp, s_v + 16 * w * S::kLd, dos, g, t);
+    const bool full = full_tile(p, q0, k0, kvl);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(rows + kRows + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + 8 * (e >> 1);
+        const int row = q0 + 8 * j + 2 * t + (e & 1);
+        const bool ok = full || valid(p, row, key, kvl);
+        softmax_grad(sp[j][e], dp[j][e], ok, scale_log2, ((e & 1) ? l2.y : l2.x) * kLog2e,
+                     (e & 1) ? dl.y : dl.x);
+      }
+    }
+    product_an<D>(dv, sp, dos, g, t);  // dV += P^T . dO
+    product_an<D>(dk, dp, qs, g, t);   // dK += dS^T . Q
+    __syncthreads();  // stage st is read; the next prefetch may overwrite it
+  }
+
+  store_f32<D>(static_cast<float*>(p.dk) + b * p.dk_sb + hk * p.dk_sh, p.dk_ss, k0 + 16 * w,
+               p.sk, dk, p.scale, g, t);
+  store_f32<D>(static_cast<float*>(p.dv) + b * p.dv_sb + hk * p.dv_sh, p.dv_ss, k0 + 16 * w,
+               p.sk, dv, 1.f, g, t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32)
+attn_bwd_dq_f32(const Params p) {
+  using S = SmemF32<D>;
+  extern __shared__ float4 smem_f4[];
+  float* const smem = reinterpret_cast<float*>(smem_f4);
+  const uint32_t smem_base = smem_u32(smem);
+  // Q, dO, then kStages (K, V) pairs
+  const float* const s_q = smem;
+  const float* const s_do = smem + S::kTile;
+
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the heaviest causal tiles (the last rows) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int hq = blockIdx.y, b = blockIdx.z;
+  const int hk = hq / p.group;
+  const int kvl = read_kv_len(p);
+  int kt_begin, kt_end;
+  key_tiles(p, q0, kvl, kt_begin, kt_end);
+  const int r0 = q0 + 16 * w + g;           // this thread's rows: r0, r0 + 8
+
+  const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  auto load_keys = [&](int kt, int st) {
+    const uint32_t ks = smem_base + (uint32_t)((2 + 2 * st) * S::kTile * sizeof(float));
+    load_tile_f32<D>(ks, kp, p.k_ss, kt * kKeys, p.sk);
+    load_tile_f32<D>(ks + (uint32_t)(S::kTile * sizeof(float)), vp, p.v_ss, kt * kKeys, p.sk);
+  };
+  if (kt_begin < kt_end) {
+    load_tile_f32<D>(smem_base, static_cast<const float*>(p.q) + b * p.q_sb + hq * p.q_sh,
+                     p.q_ss, q0, p.sq);
+    load_tile_f32<D>(smem_base + (uint32_t)(S::kTile * sizeof(float)),
+                     static_cast<const float*>(p.dout) + b * p.do_sb + hq * p.do_sh, p.do_ss,
+                     q0, p.sq);
+    load_keys(kt_begin, 0);
+  }
+  cp_async_commit();
+
+  const float scale_log2 = p.scale * kLog2e;
+  const int64_t row0 = ((int64_t)b * p.h + hq) * p.sq;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    lse2[h] = row < p.sq ? p.lse[row0 + row] * kLog2e : 0.f;
+    dlt[h] = row < p.sq ? p.delta[row0 + row] : 0.f;
+  }
+  float dq[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) load_keys(kt + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();  // tile kt has landed
+    __syncthreads();
+    const int k0 = kt * kKeys;
+    const float* ks = smem + (2 + 2 * st) * S::kTile;
+    const float* vs = ks + S::kTile;
+
+    // S = Q . K^T and dP = dO . V^T for this warp's 16 rows: [j][e] is row
+    // r0 + 8 (e >> 1), key k0 + 8 j + 2 t + (e & 1)
+    float sp[8][4], dp[8][4];
+    product_nt<D>(sp, s_q + 16 * w * S::kLd, ks, g, t);
+    product_nt<D>(dp, s_do + 16 * w * S::kLd, vs, g, t);
+    const bool full = full_tile(p, q0, k0, kvl);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + 8 * (e >> 1);
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        const bool ok = full || valid(p, row, col, kvl);
+        softmax_grad(sp[j][e], dp[j][e], ok, scale_log2, lse2[e >> 1], dlt[e >> 1]);
+      }
+    product_an<D>(dq, dp, ks, g, t);   // dQ += dS . K
+    __syncthreads();  // stage st is read; the next prefetch may overwrite it
+  }
+
+  store_f32<D>(static_cast<float*>(p.dq) + b * p.dq_sb + hq * p.dq_sh, p.dq_ss, q0 + 16 * w,
+               p.sq, dq, p.scale, g, t);
+}
+
 // --------------------------------------------------------------- host
-template <int D, typename T>
-int launch(const Params& p, int64_t b, int64_t kvh, cudaStream_t stream) {
-  using S = Smem<D>;
+template <typename T, int D>
+int launch_delta(const Params& p, int64_t b, cudaStream_t stream) {
+  constexpr int kRowsPerBlock = kDeltaThreads / (D * (int)sizeof(T) / 16);
+  const int64_t rows = b * p.h * (int64_t)p.sq;
+  const int64_t blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  attn_bwd_delta<T, D><<<(unsigned)blocks, kDeltaThreads, 0, stream>>>(p, rows);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_f32(const Params& p, int64_t b, int64_t kvh, cudaStream_t stream) {
+  using S = SmemF32<D>;
   // the opt-in above 48 KB, once per instantiation (so never inside a CUDA
   // graph capture that follows a first call)
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv<D, T>,
+    cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_f32<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            S::kDkDv);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(attn_bwd_dq<D, T>,
+      err = cudaFuncSetAttribute(attn_bwd_dq_f32<D>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, S::kDq);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const int64_t rows = b * p.h * (int64_t)p.sq;
-  if (rows > 0) {
-    const int64_t blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-    attn_bwd_delta<T><<<(unsigned)blocks, kThreads, 0, stream>>>(p, D, rows);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (p.sk > 0) {
-    const dim3 grid((unsigned)((p.sk + kKeys - 1) / kKeys), (unsigned)kvh, (unsigned)b);
-    attn_bwd_dkdv<D, T><<<grid, kThreads, S::kDkDv, stream>>>(p);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (p.sq > 0) {
-    const dim3 grid((unsigned)((p.sq + kRows - 1) / kRows), (unsigned)p.h, (unsigned)b);
-    attn_bwd_dq<D, T><<<grid, kThreads, S::kDq, stream>>>(p);
-  }
+  int err = launch_delta<float, D>(p, b, stream);
+  if (err != 0) return err;
+  const dim3 kv_grid((unsigned)((p.sk + kKeys - 1) / kKeys), (unsigned)kvh, (unsigned)b);
+  attn_bwd_dkdv_f32<D><<<kv_grid, kThreadsF32, S::kDkDv, stream>>>(p);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  const dim3 q_grid((unsigned)((p.sq + kRows - 1) / kRows), (unsigned)p.h, (unsigned)b);
+  attn_bwd_dq_f32<D><<<q_grid, kThreadsF32, S::kDq, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const Params& p, int64_t d, int64_t b, int64_t kvh, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch<16, T>(p, b, kvh, s);
-    case 32: return launch<32, T>(p, b, kvh, s);
-    case 64: return launch<64, T>(p, b, kvh, s);
-    case 128: return launch<128, T>(p, b, kvh, s);
+template <int D>
+int launch_tc(const Params& p, int64_t b, int64_t kvh, cudaStream_t stream) {
+  using S = SmemTc<D>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_tc<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           S::kDkDv);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(attn_bwd_dq_tc<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, S::kDq);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  alignas(64) CUtensorMap mq, mk, mv, mdo;
+  MapAxes axes;
+  cudaError_t e;
+  const int64_t h = p.h;
+  if ((e = make_map<D>(&mq, axes.q, p.q, b, h, p.sq, p.q_sb, p.q_sh, p.q_ss)) != cudaSuccess ||
+      (e = make_map<D>(&mk, axes.k, p.k, b, kvh, p.sk, p.k_sb, p.k_sh, p.k_ss)) != cudaSuccess ||
+      (e = make_map<D>(&mv, axes.v, p.v, b, kvh, p.sk, p.v_sb, p.v_sh, p.v_ss)) != cudaSuccess ||
+      (e = make_map<D>(&mdo, axes.dout, p.dout, b, h, p.sq, p.do_sb, p.do_sh, p.do_ss)) !=
+          cudaSuccess)
+    return (int)e;
+  int err = launch_delta<__nv_bfloat16, D>(p, b, stream);
+  if (err != 0) return err;
+  const dim3 kv_grid((unsigned)((p.sk + kKeys - 1) / kKeys), (unsigned)kvh, (unsigned)b);
+  attn_bwd_dkdv_tc<D><<<kv_grid, kThreadsTc, S::kDkDv, stream>>>(p, mq, mk, mv, mdo, axes);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  const dim3 q_grid((unsigned)((p.sq + kRows - 1) / kRows), (unsigned)p.h, (unsigned)b);
+  attn_bwd_dq_tc<D><<<q_grid, kThreadsTc, S::kDq, stream>>>(p, mq, mk, mv, mdo, axes);
+  return (int)cudaGetLastError();
+}
+
+int dispatch(const Params& p, int dtype, int64_t d, int64_t b, int64_t kvh, cudaStream_t s) {
+  if (dtype == 0) {
+    switch (d) {
+      case 16: return launch_f32<16>(p, b, kvh, s);
+      case 32: return launch_f32<32>(p, b, kvh, s);
+      case 64: return launch_f32<64>(p, b, kvh, s);
+      case 128: return launch_f32<128>(p, b, kvh, s);
+    }
+  } else if (dtype == 1) {
+    switch (d) {
+      case 16: return launch_tc<16>(p, b, kvh, s);
+      case 32: return launch_tc<32>(p, b, kvh, s);
+      case 64: return launch_tc<64>(p, b, kvh, s);
+      case 128: return launch_tc<128>(p, b, kvh, s);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -436,12 +991,15 @@ extern "C" const char* repro_error_string(int err) {
 
 // q, o, dout, dq (b, h, sq, d), k, v, dk, dv (b, kvh, sk, d), each given by
 // its base pointer and its batch, head and row strides in elements (the
-// last stride is 1); lse and delta (b, h, sq) float32, contiguous (delta is
-// scratch the call overwrites). dtype: 0 float32, 1 bf16 (q, k, v, o, dout
-// and the outputs alike). d: 16, 32, 64 or 128. kv_len: a device pointer to
-// an int32, or null to use kv_len_value. window < 0: none. Every element of
-// dq, dk and dv is written. Three kernels on `stream`; returns the first
-// launch error (0 on success); never synchronizes.
+// last stride is 1; float32 rows start on 16-byte boundaries; bf16 base
+// pointers and strides are multiples of 16 bytes, strides of dimensions
+// longer than 1 nonzero, as TMA reads them); lse and delta (b, h, sq)
+// float32, contiguous (delta is scratch the call overwrites). dtype: 0
+// float32, 1 bf16 (q, k, v, o, dout and the outputs alike). d: 16, 32, 64
+// or 128. sq and sk > 0. kv_len: a device pointer to an int32, or null to
+// use kv_len_value. window < 0: none. Every element of dq, dk and dv is
+// written. Three kernels on `stream`; returns the first launch error (0 on
+// success); never synchronizes.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* delta, void* dq, void* dk, void* dv,
@@ -457,8 +1015,8 @@ extern "C" int repro_flash_attention_bwd(
     const void* kv_len, int64_t kv_len_value, int causal, int64_t window,
     float scale, int dtype, void* stream) {
   if (b <= 0 || h <= 0) return 0;
-  if (kvh <= 0 || h % kvh != 0 || sq > 2147483647LL || sk > 2147483647LL ||
-      h > 65535 || b > 65535 || window > 2147483647LL)
+  if (kvh <= 0 || h % kvh != 0 || sq <= 0 || sk <= 0 || sq > 2147483647LL ||
+      sk > 2147483647LL || h > 65535 || b > 65535 || window > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
@@ -482,8 +1040,5 @@ extern "C" int repro_flash_attention_bwd(
   p.causal = causal;
   p.window = window < 0 ? -1 : (int)window;
   p.scale = scale;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch<float>(p, d, b, kvh, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(p, d, b, kvh, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(p, dtype, d, b, kvh, (cudaStream_t)stream);
 }

@@ -9,10 +9,11 @@ K / V tiles through shared memory and keeps the running softmax state in
 registers; a KV head serves ``H // KVH`` query heads in place (no
 repeated K / V in memory).  bf16 runs both products on the tensor cores
 (``wgmma``, float32 accumulators) with K / V fed by TMA, and rounds the
-softmax weights P to bf16 before P.V (each weight within 2^-9 of itself);
-float32 runs both products on the tensor cores as 3xTF32 (``mma.sync``:
-each operand split into a TF32 part and a TF32 remainder, three products
-summed in float32), each product within 2^-20 of itself.
+softmax weights P to bf16 before P.V (bf16 keeps 8 significant bits, so
+each weight moves by at most 2^-8 of itself); float32 runs both products
+on the tensor cores as 3xTF32 (``mma.sync``: each operand split into a
+TF32 part and a TF32 remainder, three products summed in float32), each
+product within 2^-20 of itself.
 
 Semantics are the JAX kernel's (causal rows counted from 0) except for a
 row with no valid column (``kv_len = 0``, or a window that leaves a row
@@ -21,9 +22,21 @@ returns the mean of V over the tiles it visited there.
 
 Training asks the forward for each row's log-sum-exp as well
 (``return_lse=True``), and ``flash_attention_bwd_cuda`` takes it back with
-the output's gradient: three kernels (``kernels/csrc/flash_attention_bwd.cu``)
-recompute P from the lse and write dq, dk (summed over each KV head's
-query heads) and dv once each, in float32 arithmetic, with no atomics.
+the output's gradient: three kernels (``kernels/csrc/flash_attention_bwd.cu``:
+Delta = rowsum(dO o), then dK / dV per 64-key tile summed over each KV
+head's query heads, then dQ per 64-row query tile) recompute P from the lse
+and write dq, dk and dv once each, with no atomics, so two calls give the
+same bits.  This replaces a first version whose products ran as SIMT
+float32 loops.  bf16 runs all seven products a tile pair on ``wgmma`` with
+the tiles fed by TMA, and rounds P and dS to bf16 before the three
+gradient products (dV = P^T dO, dK = dS^T Q, dQ = dS K), where the plain
+backward keeps them in float32: a gradient moves by at most 2^-8 of its
+magnitude product A (``flash_attention_bwd_magnitudes``), and the card
+gate against the plain backward is 2^-7 (1 + |want|) + 2 * 2^-8 A.
+float32 runs every product as 3xTF32 on ``mma.sync`` (each within 2^-20
+of its magnitude product), gate 1e-5 (1 + |want|) + 2^-19 A.  Both routes
+are bounded by the tensor cores' rate on this card (five products' worth
+of work is the least; the split does seven).
 
 On a CPU tensor each wrapper takes its plain version (``ref.py``); on CUDA
 tensors it launches its kernel on the current stream or raises.
@@ -153,12 +166,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_cuda.launches = 0
 
 
-def _unit_last(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when its last stride is 1 (the backward kernels read
-    any other strides element by element), else a dense copy."""
-    return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
-
-
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len=None, *, causal: bool = True,
                              window: int | None = None):
     """(dq, dk, dv) of ``flash_attention_cuda(q, k, v, kv_len, causal=...,
@@ -166,7 +173,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len=None, *, causal: bool =
     output's gradient ``do`` (B, H, Sq, D).  Each gradient has its input's
     dtype, shape and, for a dense input, memory layout; dk and dv are
     summed over each KV head's query heads.  One call launches three
-    kernels on the current stream and counts one launch."""
+    kernels on the current stream and counts one launch; with no query row
+    or no key every gradient is 0 and nothing launches (TMA takes no empty
+    dimension)."""
     _check(q, k, v, window)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype} and do "
@@ -183,13 +192,14 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len=None, *, causal: bool =
                                        window=window)
     if device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {device}")
-    q, k, v, o, do = (_unit_last(t) for t in (q, k, v, o, do))
+    q, k, v, o, do = (_readable(t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
-    dq, dk, dv = (_unit_last(torch.empty_like(t)) for t in (q, k, v))
+    dq, dk, dv = (_readable(torch.empty_like(t)) for t in (q, k, v))
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    if dq.numel() == 0 and dk.numel() == 0:
-        return dq, dk, dv
+    if dq.numel() == 0 or dk.numel() == 0:
+        # no row or no key: every gradient is 0, and no kernel runs
+        return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=device)
     len_ptr, len_value, _len = _kv_len_args(kv_len, sk, device)
     lib, fn = _launcher("flash_attention_bwd", "repro_flash_attention_bwd", _BWD_ARGTYPES)

@@ -64,6 +64,21 @@ def flash_attention_lse_ref(q, k, v, kv_len=None, *, causal=True, window=None):
     return _attend(s, vf, q.dtype), torch.logsumexp(s, dim=-1)
 
 
+def _probs(q, k, v, lse, kv_len, causal, window):
+    """P = exp(s - lse), 0 where masked, and k / v repeated over each KV
+    head's query heads, in the accumulation type."""
+    s, kf, vf = _masked_scores(q, k, v, kv_len, causal, window)
+    lse = _acc(lse)
+    # a row with no valid column: every s is -inf, so P = exp(-inf - 0) = 0
+    return torch.exp(s - torch.where(torch.isinf(lse), 0.0, lse)[..., None]), kf, vf
+
+
+def _group_sum(x, kvh):
+    """(B, H, S, D) -> (B, KVH, S, D), summed over each KV head's group."""
+    b, h, s, d = x.shape
+    return x.reshape(b, kvh, h // kvh, s, d).sum(2)
+
+
 def flash_attention_bwd_ref(q, k, v, o, lse, do, kv_len=None, *, causal=True,
                             window=None):
     """(dq, dk, dv) of attention at the forward's ``o`` and ``lse``, given
@@ -75,21 +90,35 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, kv_len=None, *, causal=True,
         dQ = dS K D^-1/2, dK = dS^T Q D^-1/2,
 
     dK and dV summed over each KV head's group of query heads."""
-    b, h, sq, d = q.shape
-    kvh, sk = k.shape[1], k.shape[2]
-    s, kf, vf = _masked_scores(q, k, v, kv_len, causal, window)
-    lse = _acc(lse)
-    # a row with no valid column: every s is -inf, so P = exp(-inf - 0) = 0
-    p = torch.exp(s - torch.where(torch.isinf(lse), 0.0, lse)[..., None])
+    p, kf, vf = _probs(q, k, v, lse, kv_len, causal, window)
     dof = _acc(do)
     delta = (dof * _acc(o)).sum(-1)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
     ds = p * (dp - delta[..., None])
-    scale = d ** -0.5
+    scale = q.shape[-1] ** -0.5
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, _acc(q)) * scale
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
-    g = h // kvh
-    dk = dk.reshape(b, kvh, g, sk, d).sum(2)
-    dv = dv.reshape(b, kvh, g, sk, d).sum(2)
+    dk = _group_sum(torch.einsum("bhqk,bhqd->bhkd", ds, _acc(q)) * scale, k.shape[1])
+    dv = _group_sum(torch.einsum("bhqk,bhqd->bhkd", p, dof), k.shape[1])
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_magnitudes(q, k, v, o, lse, do, kv_len=None, *, causal=True,
+                                   window=None):
+    """(A_dq, A_dk, A_dv): the magnitude products of the backward's three
+    gradient products, in the accumulation type and the gradients' shapes,
+
+        A_dv = |P|^T |dO|,  A_dk = D^-1/2 |dS|^T |Q|,  A_dq = D^-1/2 |dS| |K|
+
+    (A_dk and A_dv summed over each KV head's query heads), with P and dS
+    as ``flash_attention_bwd_ref`` forms them.  Rounding P or dS to bf16
+    moves a gradient by at most 2^-8 of its A; a 3xTF32 product is within
+    2^-20 of it.  For tolerances in tests and checks only."""
+    p, kf, vf = _probs(q, k, v, lse, kv_len, causal, window)
+    dof = _acc(do)
+    delta = (dof * _acc(o)).sum(-1)
+    ds = (p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta[..., None])).abs()
+    scale = q.shape[-1] ** -0.5
+    a_dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf.abs()) * scale
+    a_dk = _group_sum(torch.einsum("bhqk,bhqd->bhkd", ds, _acc(q).abs()) * scale, k.shape[1])
+    a_dv = _group_sum(torch.einsum("bhqk,bhqd->bhkd", p, dof.abs()), k.shape[1])
+    return a_dq, a_dk, a_dv
