@@ -7,6 +7,24 @@
 // causal (rows counted from 0), j > i - window when a window is given. A
 // row with no valid column is 0. bf16 or float32 in, out in the input type.
 //
+// Head dims: any d with 8 <= d <= 256 and d % 8 == 0. The kernels are
+// instantiated at D = 16, 32, 64, 128 and 256, and d runs on the smallest
+// D >= d: columns d..D-1 of q, k and v read as zeros (TMA's out-of-bounds
+// fill on the bf16 route, whose maps have inner extent d; a masked
+// cp.async / load on the float32 route) and are never stored; the score
+// scale stays d^-1/2 (Params::scale). d = 96 therefore does the work of 128
+// (4/3 the operations, the bytes of d). At D = 256 the bf16 route keeps
+// 128 accumulators a thread and 160 KB of tiles (Q and two K / V stages);
+// the float32 route reads Q's fragments from device memory where they are
+// used, runs one K / V stage (two would need 272 KB) and sums P.V output
+// group by output group.
+//
+// attn_p_dtype (Params::p_round): the float32 route rounds P to bf16 or
+// float16 before P.V, as the JAX package's chunked attention casts it, while
+// the row sum keeps P unrounded (one uniform branch a tile, skipped for
+// float32). The bf16 route rounds P to bf16 whatever p_round says: float16
+// keeps 11 bits, so bf16's 8 bound it (2^-8 of each weight).
+//
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py,
 // flash_attention_pallas (def at :90, pallas_call at :121). The TPU kernel
 // pads q, k and v to 128-row blocks in memory and walks a (b, h, q-block,
@@ -41,11 +59,11 @@
 //               to bf16 is the A fragment) and V's (keys, D) tile as an
 //               MN-major B operand (the transpose bit, 16-bit types only).
 // Tiles are stored with the TMA swizzle that matches the wgmma
-// descriptors' (128 B rows at D = 64 and 128, 64 B at 32, 32 B at 16; D =
-// 128 is two 64-column panels). P is rounded to bf16 before P.V, a rounding
-// point the JAX kernel does not have: bf16 keeps 8 significant bits, so
-// rounding to nearest moves each weight by at most 2^-8 of itself and an
-// output by at most 2^-8 max|v| (2e-2 is the gate).
+// descriptors' (128 B rows at D = 64, 128 and 256, 64 B at 32, 32 B at 16;
+// D = 128 is two 64-column panels, D = 256 four). P is rounded to bf16
+// before P.V, a rounding point the JAX kernel does not have: bf16 keeps 8
+// significant bits, so rounding to nearest moves each weight by at most
+// 2^-8 of itself and an output by at most 2^-8 max|v| (2e-2 is the gate).
 // Tiles above the diagonal, outside the window or past kv_len are skipped.
 // Within one warpgroup the two products and the softmax run one after the
 // other; 4 CTAs an SM (94 registers, 41 KB of shared memory at D = 64)
@@ -124,6 +142,8 @@ struct Params {
   int causal;
   int window;                // < 0: no window
   float scale;
+  int d;                     // head dim read and written, 8 <= d <= D, d % 8 == 0
+  int p_round;               // P before P.V: 0 float32, 1 bf16, 2 float16 (round_p)
 };
 
 // The key tiles [begin, end) that rows [q0, q0 + kRows) can see.
@@ -165,12 +185,15 @@ __device__ __forceinline__ float q_elem(const float4 (&qr)[P][2], int kk, int e)
 // a phase over 2 keys), so its stride is 16 mod 32 floats; a V row is read
 // one float at a time (8 columns x 4 key pairs a warp), so its stride is 4
 // mod 32. Either way the B fragments' reads hit every bank once.
+// At D = 256 two stages (272 KB) exceed a block's shared memory: one
+// stage, loaded and then read.
 template <int D>
 struct TileF32 {
   static constexpr int kLdK = D % 32 == 16 ? D : D + 16;
   static constexpr int kLdV = D + 4;
+  static constexpr int kStages = D <= 128 ? kF32Stages : 1;
   static constexpr int kStage = kKeys * (kLdK + kLdV);   // floats
-  static constexpr int kSmem = kF32Stages * kStage * (int)sizeof(float);
+  static constexpr int kSmem = kStages * kStage * (int)sizeof(float);
 };
 
 template <int D>
@@ -180,6 +203,7 @@ flash_attention_f32(const Params p) {
   constexpr int KS = D / 8;               // k-steps of S = Q.K^T
   constexpr int C = D / 4;                // 16-byte chunks a row
   constexpr bool kQSplit = D <= 64;       // Q held split (else split per use)
+  constexpr bool kQRegs = D <= 128;       // Q held in registers (else read per use)
   constexpr int NJ = 4;                   // key groups (of 8) a pass of S
   constexpr int NO = D / 8 < 4 ? D / 8 : 4;  // output groups (of 8) a pass of P.V
   extern __shared__ float4 smem_f4[];
@@ -211,32 +235,36 @@ flash_attention_f32(const Params p) {
     for (int e = tid; e < kKeys * C; e += kThreadsF32) {
       const int j = e / C, c = e % C;
       const int key = k0 + j;
-      const bool ok = key < p.sk;
+      const bool ok = key < p.sk && 4 * c < p.d;  // columns d..D-1 read as 0
       cp_async16(ks + (uint32_t)((j * G::kLdK + 4 * c) * sizeof(float)),
                  ok ? kp + (int64_t)key * p.k_ss + 4 * c : kp, ok);
       cp_async16(vs + (uint32_t)((j * G::kLdV + 4 * c) * sizeof(float)),
                  ok ? vp + (int64_t)key * p.v_ss + 4 * c : vp, ok);
     }
   };
-  if (kt_begin < kt_end) load_tile(kt_begin, 0);
+  if (G::kStages > 1 && kt_begin < kt_end) load_tile(kt_begin, 0);
   cp_async_commit();
 
   // The dims of S's k-steps are permuted so that a thread's K fragment for
   // two k-steps is 4 consecutive floats: in each 16 dims 16 pp .. +15, k =
   // tq (+ 4) of step 2 pp + h holds dim 16 pp + 4 tq + 2 h (+ 1). Q's A
   // fragment follows: [kk][0] row r0, [1] row r0 + 8 at k = tq, [2] and
-  // [3] the same rows at k = tq + 4. Rows past sq are 0.
-  float4 qr[D / 16][2];
+  // [3] the same rows at k = tq + 4. Rows past sq and columns past d are
+  // 0. At D = 256 the 128 registers of Q would spill: its 16 dims of a
+  // pass are read from device memory (through L1) where they are used.
+  auto q_chunk = [&](int pp, int h) {
+    const int row = r0 + 8 * h, col = 16 * pp + 4 * tq;
+    return row < p.sq && col < p.d
+               ? *reinterpret_cast<const float4*>(qp + (int64_t)row * p.q_ss + col)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  float4 qr[kQRegs ? D / 16 : 1][2];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int pp = 0; pp < D / 16; ++pp)
+    for (int pp = 0; pp < D / 16; ++pp)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + 8 * h;
-      qr[pp][h] = row < p.sq
-                      ? *reinterpret_cast<const float4*>(qp + (int64_t)row * p.q_ss +
-                                                         16 * pp + 4 * tq)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+      for (int h = 0; h < 2; ++h) qr[pp][h] = q_chunk(pp, h);
+  }
   uint32_t qb[kQSplit ? KS : 1][4], qs[kQSplit ? KS : 1][4];
   if constexpr (kQSplit) {
 #pragma unroll
@@ -254,10 +282,17 @@ flash_attention_f32(const Params p) {
   float m_row[2] = {-INFINITY, -INFINITY}, l_row[2] = {0.f, 0.f};
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int st = (kt - kt_begin) & 1;
-    if (kt + 1 < kt_end) load_tile(kt + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait_prev();  // tile kt has landed
+    int st = 0;
+    if constexpr (G::kStages > 1) {
+      st = (kt - kt_begin) & 1;
+      if (kt + 1 < kt_end) load_tile(kt + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait_prev();  // tile kt has landed
+    } else {
+      load_tile(kt, 0);
+      cp_async_commit();
+      cp_async_wait_all();
+    }
     __syncthreads();
     const float* ks = smem + st * G::kStage;
     const float* vs = ks + kKeys * G::kLdK;
@@ -274,6 +309,11 @@ flash_attention_f32(const Params p) {
     for (int jg = 0; jg < 8; jg += NJ) {
 #pragma unroll
       for (int pp = 0; pp < D / 16; ++pp) {
+        float4 qv[2];   // rows r0, r0 + 8 of dims 16 pp + 4 tq .. + 3 (D = 256)
+        if constexpr (!kQRegs) {
+          qv[0] = q_chunk(pp, 0);
+          qv[1] = q_chunk(pp, 1);
+        }
         float4 kv[NJ];  // K[key 8 j + gq][16 pp + 4 tq .. + 3]
 #pragma unroll
         for (int i = 0; i < NJ; ++i)
@@ -288,8 +328,12 @@ flash_attention_f32(const Params p) {
             if constexpr (kQSplit) {
               ab[e] = qb[kk][e];
               as[e] = qs[kk][e];
-            } else {
+            } else if constexpr (kQRegs) {
               split_tf32(q_elem(qr, kk, e), ab[e], as[e]);
+            } else {
+              const float4 v = qv[e & 1];
+              const int c = 2 * h + (e >> 1);
+              split_tf32(c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w, ab[e], as[e]);
             }
           }
           uint32_t bb[NJ][2], bs[NJ][2];
@@ -347,6 +391,12 @@ flash_attention_f32(const Params p) {
       l_row[h] = l_row[h] * alpha[h] + sum;  // this thread's columns only
       m_row[h] = m_new;
     }
+    if (p.p_round != 0) {   // attn_p_dtype: P.V takes P rounded, the sum did not
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = round_p(s[j][e], p.p_round);
+    }
 
     // P . V of this tile, 8 keys a k-step, into accumulators of its own:
     // the tensor cores' float32 sums are not rounded to nearest, and in one
@@ -356,39 +406,74 @@ flash_attention_f32(const Params p) {
     // fragment as they lie:
     // k = tq holds key 2 tq, k = tq + 4 holds key 2 tq + 1, and V's B
     // fragment reads the same keys (b[0] = V[key 2 tq][n], b[1] = V[2 tq + 1][n]).
-    float ot[D / 8][4];
-#pragma unroll
-    for (int jn = 0; jn < D / 8; ++jn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ot[jn][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t ab[4], as[4];
-      split_tf32(s[j][0], ab[0], as[0]);   // row r0,     key 2 tq
-      split_tf32(s[j][2], ab[1], as[1]);   // row r0 + 8, key 2 tq
-      split_tf32(s[j][1], ab[2], as[2]);   // row r0,     key 2 tq + 1
-      split_tf32(s[j][3], ab[3], as[3]);   // row r0 + 8, key 2 tq + 1
-      const float* vr = vs + (8 * j + 2 * tq) * G::kLdV + gq;
+    // At D = 256 a tile's whole sum would take another 128 registers: the
+    // output groups go outermost, each summed over the 8 key steps into 16
+    // registers (the same products in the same order, so the same bits).
+    if constexpr (D > 128) {
 #pragma unroll
       for (int ng = 0; ng < D / 8; ng += NO) {
-        uint32_t bb[NO][2], bs[NO][2];
+        float ot[NO][4];
 #pragma unroll
-        for (int i = 0; i < NO; ++i) {
-          split_tf32(vr[8 * (ng + i)], bb[i][0], bs[i][0]);
-          split_tf32(vr[G::kLdV + 8 * (ng + i)], bb[i][1], bs[i][1]);
+        for (int i = 0; i < NO; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ot[i][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          uint32_t ab[4], as[4];
+          split_tf32(s[j][0], ab[0], as[0]);
+          split_tf32(s[j][2], ab[1], as[1]);
+          split_tf32(s[j][1], ab[2], as[2]);
+          split_tf32(s[j][3], ab[3], as[3]);
+          const float* vr = vs + (8 * j + 2 * tq) * G::kLdV + gq;
+          uint32_t bb[NO][2], bs[NO][2];
+#pragma unroll
+          for (int i = 0; i < NO; ++i) {
+            split_tf32(vr[8 * (ng + i)], bb[i][0], bs[i][0]);
+            split_tf32(vr[G::kLdV + 8 * (ng + i)], bb[i][1], bs[i][1]);
+          }
+          mma_3xtf32<NO>(ot, 0, ab, as, bb, bs);
         }
-        mma_3xtf32<NO>(ot, ng, ab, as, bb, bs);
+#pragma unroll
+        for (int i = 0; i < NO; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[ng + i][e] = o[ng + i][e] * alpha[e >> 1] + ot[i][e];
       }
+    } else {
+      float ot[D / 8][4];
+#pragma unroll
+      for (int jn = 0; jn < D / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ot[jn][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t ab[4], as[4];
+        split_tf32(s[j][0], ab[0], as[0]);   // row r0,     key 2 tq
+        split_tf32(s[j][2], ab[1], as[1]);   // row r0 + 8, key 2 tq
+        split_tf32(s[j][1], ab[2], as[2]);   // row r0,     key 2 tq + 1
+        split_tf32(s[j][3], ab[3], as[3]);   // row r0 + 8, key 2 tq + 1
+        const float* vr = vs + (8 * j + 2 * tq) * G::kLdV + gq;
+#pragma unroll
+        for (int ng = 0; ng < D / 8; ng += NO) {
+          uint32_t bb[NO][2], bs[NO][2];
+#pragma unroll
+          for (int i = 0; i < NO; ++i) {
+            split_tf32(vr[8 * (ng + i)], bb[i][0], bs[i][0]);
+            split_tf32(vr[G::kLdV + 8 * (ng + i)], bb[i][1], bs[i][1]);
+          }
+          mma_3xtf32<NO>(ot, ng, ab, as, bb, bs);
+        }
+      }
+#pragma unroll
+      for (int jn = 0; jn < D / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[jn][e] = o[jn][e] * alpha[e >> 1] + ot[jn][e];
     }
-#pragma unroll
-    for (int jn = 0; jn < D / 8; ++jn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[jn][e] = o[jn][e] * alpha[e >> 1] + ot[jn][e];
     __syncthreads();  // stage st is read; the next prefetch may overwrite it
   }
 
   // normalize and store: o[jn][e] is row r0 + 8 (e >> 1), column 8 jn +
-  // 2 tq + (e & 1); rows past sq are not written
+  // 2 tq + (e & 1); rows past sq and columns past d are not written
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float l = l_row[h];
@@ -402,7 +487,7 @@ flash_attention_f32(const Params p) {
     for (int jn = 0; jn < D / 8; ++jn) {
       float2 out = make_float2(0.f, 0.f);
       if (l > 0.f) out = make_float2(o[jn][2 * h] / l, o[jn][2 * h + 1] / l);
-      *reinterpret_cast<float2*>(orow + 8 * jn + 2 * tq) = out;
+      if (8 * jn < p.d) *reinterpret_cast<float2*>(orow + 8 * jn + 2 * tq) = out;
     }
   }
 }
@@ -586,7 +671,7 @@ flash_attention_bf16(const __grid_constant__ Params p,
     }
   }
 
-  // normalize and store: rows past sq are not written
+  // normalize and store: rows past sq and columns past d are not written
   __nv_bfloat16* op = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + hq * p.o_sh;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -601,7 +686,7 @@ flash_attention_bf16(const __grid_constant__ Params p,
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const uint32_t v = pack_bf16(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + c_lane) = v;
+      if (8 * j < p.d) *reinterpret_cast<uint32_t*>(orow + 8 * j + c_lane) = v;
     }
   }
 }
@@ -637,33 +722,33 @@ int launch_bf16(const Params& p, int64_t b, int64_t h, int64_t kvh,
   alignas(64) CUtensorMap mq, mk, mv;
   MapAxes axes;
   cudaError_t err;
-  if ((err = make_map<D>(&mq, axes.q, p.q, b, h, p.sq, p.q_sb, p.q_sh, p.q_ss)) != cudaSuccess ||
-      (err = make_map<D>(&mk, axes.k, p.k, b, kvh, p.sk, p.k_sb, p.k_sh, p.k_ss)) != cudaSuccess ||
-      (err = make_map<D>(&mv, axes.v, p.v, b, kvh, p.sk, p.v_sb, p.v_sh, p.v_ss)) != cudaSuccess)
+  if ((err = make_map<D>(&mq, axes.q, p.q, b, h, p.sq, p.q_sb, p.q_sh, p.q_ss, p.d)) !=
+          cudaSuccess ||
+      (err = make_map<D>(&mk, axes.k, p.k, b, kvh, p.sk, p.k_sb, p.k_sh, p.k_ss, p.d)) !=
+          cudaSuccess ||
+      (err = make_map<D>(&mv, axes.v, p.v, b, kvh, p.sk, p.v_sb, p.v_sh, p.v_ss, p.d)) !=
+          cudaSuccess)
     return (int)err;
   const dim3 grid((unsigned)((p.sq + kRows - 1) / kRows), (unsigned)h, (unsigned)b);
   flash_attention_bf16<D><<<grid, kThreadsTc, kSmemTc<D>, stream>>>(p, mq, mk, mv, axes);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const Params& p, int dtype, int64_t d, int64_t b, int64_t h, int64_t kvh,
-             cudaStream_t s) {
+// d runs on the smallest instantiation D >= d (16, 32, 64, 128, 256)
+int dispatch(const Params& p, int dtype, int64_t b, int64_t h, int64_t kvh, cudaStream_t s) {
+  const int d = p.d;
   if (dtype == 0) {
-    switch (d) {
-      case 16: return launch_f32<16>(p, b, h, s);
-      case 32: return launch_f32<32>(p, b, h, s);
-      case 64: return launch_f32<64>(p, b, h, s);
-      case 128: return launch_f32<128>(p, b, h, s);
-    }
-  } else if (dtype == 1) {
-    switch (d) {
-      case 16: return launch_bf16<16>(p, b, h, kvh, s);
-      case 32: return launch_bf16<32>(p, b, h, kvh, s);
-      case 64: return launch_bf16<64>(p, b, h, kvh, s);
-      case 128: return launch_bf16<128>(p, b, h, kvh, s);
-    }
+    if (d <= 16) return launch_f32<16>(p, b, h, s);
+    if (d <= 32) return launch_f32<32>(p, b, h, s);
+    if (d <= 64) return launch_f32<64>(p, b, h, s);
+    if (d <= 128) return launch_f32<128>(p, b, h, s);
+    return launch_f32<256>(p, b, h, s);
   }
-  return (int)cudaErrorInvalidValue;
+  if (d <= 16) return launch_bf16<16>(p, b, h, kvh, s);
+  if (d <= 32) return launch_bf16<32>(p, b, h, kvh, s);
+  if (d <= 64) return launch_bf16<64>(p, b, h, kvh, s);
+  if (d <= 128) return launch_bf16<128>(p, b, h, kvh, s);
+  return launch_bf16<256>(p, b, h, kvh, s);
 }
 
 }  // namespace
@@ -677,7 +762,8 @@ extern "C" const char* repro_error_string(int err) {
 // last stride is 1; float32 rows start on 16-byte boundaries; bf16 base
 // pointers and strides are multiples of 16 bytes, strides of dimensions
 // longer than 1 nonzero, as TMA reads them). dtype: 0 float32, 1 bf16. d:
-// 16, 32, 64 or 128. kv_len: a device pointer to an int32, or null to use
+// a multiple of 8 from 8 to 256. p_round: P before P.V in float32 (0), bf16
+// (1) or float16 (2). kv_len: a device pointer to an int32, or null to use
 // kv_len_value. window < 0: none. Every element of o is written, and of lse
 // ((b, h, sq) float32, contiguous) when it is not null. Returns
 // the launch's cudaError_t (0 on success); never synchronizes.
@@ -689,10 +775,11 @@ extern "C" int repro_flash_attention(
     int64_t v_sb, int64_t v_sh, int64_t v_ss,
     int64_t o_sb, int64_t o_sh, int64_t o_ss,
     const void* kv_len, int64_t kv_len_value, int causal, int64_t window,
-    float scale, int dtype, void* stream) {
+    float scale, int p_round, int dtype, void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0) return 0;
   if (kvh <= 0 || h % kvh != 0 || sq > 2147483647LL || sk > 2147483647LL ||
-      h > 65535 || b > 65535 || window > 2147483647LL)
+      h > 65535 || b > 65535 || window > 2147483647LL || d < 8 || d > 256 || d % 8 != 0 ||
+      p_round < 0 || p_round > 2 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
@@ -709,5 +796,7 @@ extern "C" int repro_flash_attention(
   p.causal = causal;
   p.window = window < 0 ? -1 : (int)window;
   p.scale = scale;
-  return dispatch(p, dtype, d, b, h, kvh, (cudaStream_t)stream);
+  p.d = (int)d;
+  p.p_round = p_round;
+  return dispatch(p, dtype, b, h, kvh, (cudaStream_t)stream);
 }

@@ -15,6 +15,22 @@
 // bytes, float32 rows on 16-byte boundaries; dq, dk, dv written in the input
 // type through their own strides.
 //
+// Head dims: any d with 8 <= d <= 256 and d % 8 == 0, on instantiations D =
+// 16, 32, 64, 128 and 256, d on the smallest D >= d, as in the forward:
+// columns d..D-1 of q, k, v, o and dO read as zeros (TMA's fill on the bf16
+// route; masked cp.async and Delta loads on the float32 route) and never
+// stored to dq, dk or dv; the scale stays d^-1/2. At D = 256 each output
+// tile is split over two blocks that own 128 columns each (Cols<D>) and
+// recompute the tile pair's scores (dK and dV of all 256 columns would be
+// 256 accumulators a thread): on the bf16 route with all tiles in shared
+// memory (194 KB); on the float32 route by 128-column panels (see
+// attn_bwd_dkdv_f32_wide).
+//
+// attn_p_dtype (Params::p_round): the float32 route rounds the recomputed
+// P to bf16 or float16 for dV = P^T dO, as the forward rounded it before
+// P.V; dS keeps P unrounded, as JAX's gradient of the cast does. The bf16
+// route rounds P to bf16 in any case.
+//
 // Replaces: nothing in Pallas. The JAX package trains through
 // attention_chunked (src/repro/models/attention.py:53-114, a lax.scan) and
 // XLA differentiates that scan; this kernel stands where XLA's generated VJP
@@ -138,6 +154,17 @@ struct Params {
   int causal;
   int window;                // < 0: no window
   float scale;
+  int d;                     // head dim read and written, 8 <= d <= D, d % 8 == 0
+  int p_round;               // P of dV = P^T dO: 0 float32, 1 bf16, 2 float16 (round_p)
+};
+
+// Output columns a block owns: all D up to 128; at D = 256 a block owns one
+// half (its accumulators would otherwise take 256 registers a thread) and
+// recomputes the tile pair's scores for it.
+template <int D>
+struct Cols {
+  static constexpr int kOwn = D <= 128 ? D : 128;
+  static constexpr int kSplit = D / kOwn;   // blocks a tile, one per column range
 };
 
 __device__ __forceinline__ int read_kv_len(const Params& p) {
@@ -207,17 +234,18 @@ __device__ __forceinline__ float dot_chunk(const __nv_bfloat16* x, const __nv_bf
   return acc;
 }
 
-// D_i = sum_d dO_i O_i over the rows of (b, h, sq): L = D x sizeof(T) / 16
-// lanes a row (2 to 32), each one 16-byte load of dO and of o, the row's
-// sum over its lanes by shuffles in a fixed order, so the result is
-// deterministic. Bound by its bytes.
+// D_i = sum_d dO_i O_i over the rows of (b, h, sq): L = min(D x sizeof(T)
+// / 16, 32) lanes a row, each one or two 16-byte loads of dO and of o
+// (chunks past d add 0), the row's sum over its lanes by shuffles in a
+// fixed order, so the result is deterministic. Bound by its bytes.
 template <typename T, int D>
 __global__ void __launch_bounds__(kDeltaThreads) attn_bwd_delta(const Params p,
                                                                 int64_t rows) {
   constexpr int kVec = 16 / (int)sizeof(T);  // elements a load
-  constexpr int L = D / kVec;                // lanes a row
+  constexpr int L = D / kVec < 32 ? D / kVec : 32;  // lanes a row
+  constexpr int kChunks = D / kVec / L;      // loads a lane
   const int64_t r = (int64_t)blockIdx.x * (kDeltaThreads / L) + threadIdx.x / L;
-  const int c = (int)(threadIdx.x % L) * kVec;
+  const int lane_c = (int)(threadIdx.x % L) * kVec;
   float acc = 0.f;
   if (r < rows) {
     const int64_t bh = r / p.sq;
@@ -225,11 +253,15 @@ __global__ void __launch_bounds__(kDeltaThreads) attn_bwd_delta(const Params p,
     const int b = (int)(bh / p.h), hq = (int)(bh % p.h);
     const T* o = static_cast<const T*>(p.o) + b * p.o_sb + hq * p.o_sh + i * p.o_ss;
     const T* g = static_cast<const T*>(p.dout) + b * p.do_sb + hq * p.do_sh + i * p.do_ss;
-    acc = dot_chunk(g + c, o + c);
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch) {
+      const int c = lane_c + ch * L * kVec;
+      if (c < p.d) acc += dot_chunk(g + c, o + c);
+    }
   }
 #pragma unroll
   for (int off = L / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (r < rows && c == 0) p.delta[r] = acc;
+  if (r < rows && lane_c == 0) p.delta[r] = acc;
 }
 
 // ---------------------------------------------------------- bf16 route
@@ -239,9 +271,10 @@ struct MapAxes {
   int q[3], k[3], v[3], dout[3];
 };
 
-// Shared memory of both bf16 kernels: two resident tiles, kStages pairs of
-// streamed tiles, (dK/dV only) kStages rows of lse and Delta, the barriers,
-// and 1 KB of slack to round the base up to the swizzle's 1,024-byte repeat.
+// Shared memory of both bf16 kernels (194 KB at D = 256): two resident
+// tiles, kStages pairs of streamed tiles, (dK/dV only) kStages rows of lse
+// and Delta, the barriers, and 1 KB of slack to round the base up to the
+// swizzle's 1,024-byte repeat.
 template <int D>
 struct SmemTc {
   static constexpr int kTiles = (2 + 2 * kStages) * Tile<D>::kBytes;
@@ -252,10 +285,11 @@ struct SmemTc {
 
 // bf16 stores of an m64nD accumulator fragment, rows [r0, r0 + 64) of a
 // (rows, D) matrix at `out` with row stride ss, scaled; rows at or past n
-// are not written
+// and columns at or past ncols are not written
 template <int D>
 __device__ __forceinline__ void store_fragment(__nv_bfloat16* out, int64_t ss, int r0, int n,
-                                               const float (&acc)[D / 2], float scale) {
+                                               int ncols, const float (&acc)[D / 2],
+                                               float scale) {
   const int lane = threadIdx.x & 31;
   const int row = r0 + 16 * (threadIdx.x >> 5) + (lane >> 2);
   const int col = 2 * (lane & 3);
@@ -265,8 +299,9 @@ __device__ __forceinline__ void store_fragment(__nv_bfloat16* out, int64_t ss, i
     __nv_bfloat16* dst = out + (int64_t)(row + 8 * h) * ss + col;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-          pack_bf16(acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
+      if (8 * j < ncols)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
   }
 }
 
@@ -278,9 +313,9 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]
     for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
 }
 
-// dK and dV of one 64-key tile of one KV head, summed over its query heads
-// (155 registers at D = 64, 2 blocks an SM; capped for 3 it spilled and was
-// 1.2 x slower)
+// dK and dV of one 64-key tile of one KV head, summed over its query heads,
+// in the block's Cols<D> columns (155 registers at D = 64, 2 blocks an SM;
+// capped for 3 it spilled and was 1.2 x slower)
 template <int D>
 __global__ void __launch_bounds__(kThreadsTc)
 attn_bwd_dkdv_tc(const __grid_constant__ Params p,
@@ -304,7 +339,11 @@ attn_bwd_dkdv_tc(const __grid_constant__ Params p,
   const uint32_t bar_full = bars + 8;                       // [kStages]
   const uint32_t bar_empty = bars + 8 + 8 * kStages;        // [kStages]
 
-  const int k0 = blockIdx.x * kKeys, hk = blockIdx.y, b = blockIdx.z;
+  using C = Cols<D>;
+  const int k0 = blockIdx.x / C::kSplit * kKeys, hk = blockIdx.y, b = blockIdx.z;
+  const int c0 = blockIdx.x % C::kSplit * C::kOwn;   // the block's first output column
+  // the output products' B operands start at column c0's panel
+  const uint32_t own = (uint32_t)(c0 / G::kPanelCols * G::kPanelBytes);
   const int kvl = read_kv_len(p);
   int qt_begin, qt_end;
   query_tiles(p, k0, kvl, qt_begin, qt_end);
@@ -365,9 +404,9 @@ attn_bwd_dkdv_tc(const __grid_constant__ Params p,
   const int key0 = k0 + w * 16 + (lane >> 2);  // this thread's keys: key0, key0 + 8
   const int c_lane = 2 * (lane & 3);           // its first query row in each 8
   const float scale_log2 = p.scale * kLog2e;
-  float dk[D / 2], dv[D / 2];
+  float dk[C::kOwn / 2], dv[C::kOwn / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < C::kOwn / 2; ++i) dk[i] = dv[i] = 0.f;
 
   if (steps > 0) mbar_wait(bar_kv, 0);
   int stage = 0;
@@ -422,9 +461,11 @@ attn_bwd_dkdv_tc(const __grid_constant__ Params p,
     fence_regs(dk);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dv, a_p[kk], desc_mn_major<D>(do_tile, kk), 1);
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(dv, a_p[kk], desc_mn_major<D>(do_tile + own, kk), 1);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dk, a_ds[kk], desc_mn_major<D>(q_tile, kk), 1);
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(dk, a_ds[kk], desc_mn_major<D>(q_tile + own, kk), 1);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dv);
@@ -436,10 +477,10 @@ attn_bwd_dkdv_tc(const __grid_constant__ Params p,
     }
   }
 
-  store_fragment<D>(static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + hk * p.dk_sh, p.dk_ss,
-                    k0, p.sk, dk, p.scale);
-  store_fragment<D>(static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + hk * p.dv_sh, p.dv_ss,
-                    k0, p.sk, dv, 1.f);
+  store_fragment<C::kOwn>(static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + hk * p.dk_sh + c0,
+                          p.dk_ss, k0, p.sk, p.d - c0, dk, p.scale);
+  store_fragment<C::kOwn>(static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + hk * p.dv_sh + c0,
+                          p.dv_ss, k0, p.sk, p.d - c0, dv, 1.f);
 }
 
 // dQ of one 64-row query tile of one head
@@ -465,7 +506,10 @@ attn_bwd_dq_tc(const __grid_constant__ Params p,
   const uint32_t bar_empty = bars + 8 + 8 * kStages;        // [kStages]
 
   // the heaviest causal tiles (the last rows) start first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  using C = Cols<D>;
+  const int q0 = (gridDim.x / C::kSplit - 1 - blockIdx.x / C::kSplit) * kRows;
+  const int c0 = blockIdx.x % C::kSplit * C::kOwn;   // the block's first output column
+  const uint32_t own = (uint32_t)(c0 / G::kPanelCols * G::kPanelBytes);
   const int hq = blockIdx.y, b = blockIdx.z;
   const int hk = hq / p.group;
   const int kvl = read_kv_len(p);
@@ -518,9 +562,9 @@ attn_bwd_dq_tc(const __grid_constant__ Params p,
     lse2[h] = row < p.sq ? p.lse[row0 + row] * kLog2e : 0.f;
     dlt[h] = row < p.sq ? p.delta[row0 + row] : 0.f;
   }
-  float dq[D / 2];
+  float dq[C::kOwn / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < C::kOwn / 2; ++i) dq[i] = 0.f;
 
   if (kt_begin < kt_end) mbar_wait(bar_q, 0);
   int stage = 0;
@@ -567,7 +611,7 @@ attn_bwd_dq_tc(const __grid_constant__ Params p,
     fence_regs(dq);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dq, a[kk], desc_mn_major<D>(k_tile, kk), 1);
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dq, a[kk], desc_mn_major<D>(k_tile + own, kk), 1);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dq);
@@ -578,8 +622,8 @@ attn_bwd_dq_tc(const __grid_constant__ Params p,
     }
   }
 
-  store_fragment<D>(static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + hq * p.dq_sh, p.dq_ss,
-                    q0, p.sq, dq, p.scale);
+  store_fragment<C::kOwn>(static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + hq * p.dq_sh + c0,
+                          p.dq_ss, q0, p.sq, p.d - c0, dq, p.scale);
 }
 
 // ------------------------------------------------------- float32 route
@@ -598,18 +642,29 @@ struct SmemF32 {
 };
 
 // rows [r0, r0 + 64) of a (rows, D) float32 matrix with row stride ss into a
-// [64][D + 4] tile at dst, 16 bytes a copy; rows at or past n zero-filled
+// [64][D + 4] tile at dst, 16 bytes a copy; rows at or past n and columns
+// at or past ncols zero-filled
 template <int D>
 __device__ __forceinline__ void load_tile_f32(uint32_t dst, const float* src, int64_t ss,
-                                              int r0, int n) {
+                                              int r0, int n, int ncols) {
   constexpr int C = D / 4;  // 16-byte chunks a row
   for (int e = threadIdx.x; e < kRows * C; e += kThreadsF32) {
     const int r = e / C, c = e % C;
     const int row = r0 + r;
-    const bool ok = row < n;
+    const bool ok = row < n && 4 * c < ncols;
     cp_async16(dst + (uint32_t)((r * SmemF32<D>::kLd + 4 * c) * sizeof(float)),
                ok ? src + (int64_t)row * ss + 4 * c : src, ok);
   }
+}
+
+// P of a (16 x 64) fragment rounded as attn_p_dtype asks (mode 0: kept),
+// one uniform branch for the whole fragment
+__device__ __forceinline__ void round_all(float (&x)[8][4], int mode) {
+  if (mode == 0) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = round_p(x[j][e], mode);
 }
 
 // A (16 rows from `x`, row stride ld, dims 8 kk ..) of the m16n8k8 fragment, split
@@ -623,11 +678,11 @@ __device__ __forceinline__ void a_frag(const float* x, int ld, int kk, int g, in
 }
 
 // acc (16 x 64, 8 groups of 8 columns) = X . Y^T over D for the 16 rows of
-// X at x and the 64 rows of Y at y, both [.][D + 4] tiles
-template <int D>
+// X at x and the 64 rows of Y at y, both tiles of row stride LD
+template <int D, int LD = SmemF32<D>::kLd>
 __device__ __forceinline__ void product_nt(float (&acc)[8][4], const float* x, const float* y,
                                            int g, int t) {
-  constexpr int ld = SmemF32<D>::kLd;
+  constexpr int ld = LD;
   constexpr int NJ = 4;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -692,9 +747,10 @@ __device__ __forceinline__ void product_an(float (&out)[D / 8][4], const float (
 }
 
 // float32 stores of a warp's (16 x D) fragment, rows r0 + g and r0 + g + 8
-// of a (rows, D) matrix at `out`, scaled; rows at or past n are not written
+// of a (rows, D) matrix at `out`, scaled; rows at or past n and columns at
+// or past ncols are not written
 template <int D>
-__device__ __forceinline__ void store_f32(float* out, int64_t ss, int r0, int n,
+__device__ __forceinline__ void store_f32(float* out, int64_t ss, int r0, int n, int ncols,
                                           const float (&acc)[D / 8][4], float scale, int g,
                                           int t) {
 #pragma unroll
@@ -704,8 +760,9 @@ __device__ __forceinline__ void store_f32(float* out, int64_t ss, int r0, int n,
     float* dst = out + (int64_t)row * ss + 2 * t;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(dst + 8 * j) =
-          make_float2(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
+      if (8 * j < ncols)
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
   }
 }
 
@@ -736,10 +793,10 @@ attn_bwd_dkdv_f32(const Params p) {
     const int hq = hk * p.group + s / nq, q0 = (qt_begin + s % nq) * kRows;
     const uint32_t qs = smem_base + (uint32_t)((2 + 2 * st) * S::kTile * sizeof(float));
     load_tile_f32<D>(qs, static_cast<const float*>(p.q) + b * p.q_sb + hq * p.q_sh, p.q_ss,
-                     q0, p.sq);
+                     q0, p.sq, p.d);
     load_tile_f32<D>(qs + (uint32_t)(S::kTile * sizeof(float)),
                      static_cast<const float*>(p.dout) + b * p.do_sb + hq * p.do_sh, p.do_ss,
-                     q0, p.sq);
+                     q0, p.sq, p.d);
     if (tid < 2 * kRows) {
       const int i = tid % kRows, row = q0 + i;
       const bool ok = row < p.sq;
@@ -751,10 +808,10 @@ attn_bwd_dkdv_f32(const Params p) {
   };
   if (steps > 0) {
     load_tile_f32<D>(smem_base, static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh,
-                     p.k_ss, k0, p.sk);
+                     p.k_ss, k0, p.sk, p.d);
     load_tile_f32<D>(smem_base + (uint32_t)(S::kTile * sizeof(float)),
                      static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0,
-                     p.sk);
+                     p.sk, p.d);
     load_step(0, 0);
   }
   cp_async_commit();
@@ -796,15 +853,16 @@ attn_bwd_dkdv_f32(const Params p) {
                      (e & 1) ? dl.y : dl.x);
       }
     }
+    round_all(sp, p.p_round);          // dV's P as the forward rounded it; dS did not
     product_an<D>(dv, sp, dos, g, t);  // dV += P^T . dO
     product_an<D>(dk, dp, qs, g, t);   // dK += dS^T . Q
     __syncthreads();  // stage st is read; the next prefetch may overwrite it
   }
 
   store_f32<D>(static_cast<float*>(p.dk) + b * p.dk_sb + hk * p.dk_sh, p.dk_ss, k0 + 16 * w,
-               p.sk, dk, p.scale, g, t);
+               p.sk, p.d, dk, p.scale, g, t);
   store_f32<D>(static_cast<float*>(p.dv) + b * p.dv_sb + hk * p.dv_sh, p.dv_ss, k0 + 16 * w,
-               p.sk, dv, 1.f, g, t);
+               p.sk, p.d, dv, 1.f, g, t);
 }
 
 template <int D>
@@ -833,15 +891,16 @@ attn_bwd_dq_f32(const Params p) {
   const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
   auto load_keys = [&](int kt, int st) {
     const uint32_t ks = smem_base + (uint32_t)((2 + 2 * st) * S::kTile * sizeof(float));
-    load_tile_f32<D>(ks, kp, p.k_ss, kt * kKeys, p.sk);
-    load_tile_f32<D>(ks + (uint32_t)(S::kTile * sizeof(float)), vp, p.v_ss, kt * kKeys, p.sk);
+    load_tile_f32<D>(ks, kp, p.k_ss, kt * kKeys, p.sk, p.d);
+    load_tile_f32<D>(ks + (uint32_t)(S::kTile * sizeof(float)), vp, p.v_ss, kt * kKeys, p.sk,
+                     p.d);
   };
   if (kt_begin < kt_end) {
     load_tile_f32<D>(smem_base, static_cast<const float*>(p.q) + b * p.q_sb + hq * p.q_sh,
-                     p.q_ss, q0, p.sq);
+                     p.q_ss, q0, p.sq, p.d);
     load_tile_f32<D>(smem_base + (uint32_t)(S::kTile * sizeof(float)),
                      static_cast<const float*>(p.dout) + b * p.do_sb + hq * p.do_sh, p.do_ss,
-                     q0, p.sq);
+                     q0, p.sq, p.d);
     load_keys(kt_begin, 0);
   }
   cp_async_commit();
@@ -891,16 +950,259 @@ attn_bwd_dq_f32(const Params p) {
   }
 
   store_f32<D>(static_cast<float*>(p.dq) + b * p.dq_sb + hq * p.dq_sh, p.dq_ss, q0 + 16 * w,
-               p.sq, dq, p.scale, g, t);
+               p.sq, p.d, dq, p.scale, g, t);
+}
+
+// ------------------------------------------- float32 route at D = 256
+// Four [64][D + 4] float32 tiles take 266 KB, more than a block has, and
+// dK and dV of all 256 columns would take 256 registers a thread. So a
+// block owns one 128-column half of its outputs (Cols<D>), and each tile
+// pair is streamed as 128-column panels of K, V, Q and dO, one panel of
+// each in shared memory (133 KB), loaded and then read: S^T and dP^T sum
+// over the panels (the block's own panel last, so that its Q and dO are in
+// place for the two gradient products). Every 64 dims of S^T and dP^T go
+// to fresh accumulators added in float32, as P.V's tiles are in the
+// forward: the tensor cores' float32 sums do not round to nearest, so a
+// chain's error grows faster than its length, and one chain over all 256
+// dims came to 1.3 x the stated bound on the card. Slow (nothing overlaps,
+// K and V are read again for every step) but right; PERF.md records its
+// time.
+constexpr int kPanel = 128;   // dims a panel
+
+using SmemWide = SmemF32<kPanel>;
+constexpr int kWideSmem = 4 * SmemWide::kTile * 4 + SmemWide::kRowFloats * 4;
+
+// acc += X . Y^T over one panel (rows of X at x, of Y at y), 64 dims at a
+// time into fresh accumulators added in float32
+__device__ __forceinline__ void panel_nt(float (&acc)[8][4], const float* x, const float* y,
+                                         int g, int t) {
+#pragma unroll
+  for (int c = 0; c < kPanel; c += 64) {
+    float part[8][4];
+    product_nt<64, SmemWide::kLd>(part, x + c, y + c, g, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+  }
+}
+
+// the panel `panel` of rows [r0, r0 + 64) of a (rows, d) matrix into a tile
+__device__ __forceinline__ void load_panel(uint32_t dst, const float* src, int64_t ss, int r0,
+                                           int n, int panel, int d) {
+  load_tile_f32<kPanel>(dst, src + panel * kPanel, ss, r0, n, d - panel * kPanel);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32)
+attn_bwd_dkdv_f32_wide(const Params p) {
+  using C = Cols<D>;
+  constexpr int ld = SmemWide::kLd;
+  extern __shared__ float4 smem_f4[];
+  float* const smem = reinterpret_cast<float*>(smem_f4);
+  const uint32_t smem_base = smem_u32(smem);
+  // K, V, Q, dO panels, then the step's (lse, Delta) rows
+  const float* const s_k = smem;
+  const float* const s_v = smem + SmemWide::kTile;
+  const float* const s_q = smem + 2 * SmemWide::kTile;
+  const float* const s_do = smem + 3 * SmemWide::kTile;
+  const float* const s_rows = smem + 4 * SmemWide::kTile;
+  const uint32_t at = (uint32_t)(SmemWide::kTile * sizeof(float));
+
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x / C::kSplit * kKeys, hk = blockIdx.y, b = blockIdx.z;
+  const int half = blockIdx.x % C::kSplit;
+  const int kvl = read_kv_len(p);
+  int qt_begin, qt_end;
+  query_tiles(p, k0, kvl, qt_begin, qt_end);
+  const int nq = qt_end - qt_begin;
+  const int steps = p.group * nq;
+  const int key0 = k0 + 16 * w + g;          // this thread's keys: key0, key0 + 8
+  const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  const float scale_log2 = p.scale * kLog2e;
+  float dk[kPanel / 8][4], dv[kPanel / 8][4];
+#pragma unroll
+  for (int j = 0; j < kPanel / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int s = 0; s < steps; ++s) {
+    const int hq = hk * p.group + s / nq, q0 = (qt_begin + s % nq) * kRows;
+    const float* qp = static_cast<const float*>(p.q) + b * p.q_sb + hq * p.q_sh;
+    const float* dop = static_cast<const float*>(p.dout) + b * p.do_sb + hq * p.do_sh;
+    float sp[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sp[j][e] = dp[j][e] = 0.f;
+    for (int pi = 0; pi < C::kSplit; ++pi) {
+      const int panel = (half + 1 + pi) % C::kSplit;   // the own half last
+      __syncthreads();   // the previous panel is read
+      load_panel(smem_base, kp, p.k_ss, k0, p.sk, panel, p.d);
+      load_panel(smem_base + at, vp, p.v_ss, k0, p.sk, panel, p.d);
+      load_panel(smem_base + 2 * at, qp, p.q_ss, q0, p.sq, panel, p.d);
+      load_panel(smem_base + 3 * at, dop, p.do_ss, q0, p.sq, panel, p.d);
+      if (pi == 0 && tid < 2 * kRows) {
+        const int i = tid % kRows, row = q0 + i;
+        const bool ok = row < p.sq;
+        const float* src = (tid < kRows ? p.lse : p.delta) + ((int64_t)b * p.h + hq) * p.sq;
+        cp_async4(smem_base + 4 * at + (uint32_t)(tid * sizeof(float)), ok ? src + row : src,
+                  ok);
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      panel_nt(sp, s_k + 16 * w * ld, s_q, g, t);
+      panel_nt(dp, s_v + 16 * w * ld, s_do, g, t);
+    }
+    const bool full = full_tile(p, q0, k0, kvl);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(s_rows + 8 * j + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(s_rows + kRows + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + 8 * (e >> 1);
+        const int row = q0 + 8 * j + 2 * t + (e & 1);
+        const bool ok = full || valid(p, row, key, kvl);
+        softmax_grad(sp[j][e], dp[j][e], ok, scale_log2, ((e & 1) ? l2.y : l2.x) * kLog2e,
+                     (e & 1) ? dl.y : dl.x);
+      }
+    }
+    round_all(sp, p.p_round);
+    product_an<kPanel>(dv, sp, s_do, g, t);  // dV += P^T . dO, own columns
+    product_an<kPanel>(dk, dp, s_q, g, t);   // dK += dS^T . Q
+  }
+
+  const int c0 = half * kPanel;
+  store_f32<kPanel>(static_cast<float*>(p.dk) + b * p.dk_sb + hk * p.dk_sh + c0, p.dk_ss,
+                    k0 + 16 * w, p.sk, p.d - c0, dk, p.scale, g, t);
+  store_f32<kPanel>(static_cast<float*>(p.dv) + b * p.dv_sb + hk * p.dv_sh + c0, p.dv_ss,
+                    k0 + 16 * w, p.sk, p.d - c0, dv, 1.f, g, t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32)
+attn_bwd_dq_f32_wide(const Params p) {
+  using C = Cols<D>;
+  constexpr int ld = SmemWide::kLd;
+  extern __shared__ float4 smem_f4[];
+  float* const smem = reinterpret_cast<float*>(smem_f4);
+  const uint32_t smem_base = smem_u32(smem);
+  // Q, dO, K, V panels
+  const float* const s_q = smem;
+  const float* const s_do = smem + SmemWide::kTile;
+  const float* const s_k = smem + 2 * SmemWide::kTile;
+  const float* const s_v = smem + 3 * SmemWide::kTile;
+  const uint32_t at = (uint32_t)(SmemWide::kTile * sizeof(float));
+
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the heaviest causal tiles (the last rows) start first
+  const int q0 = (gridDim.x / C::kSplit - 1 - blockIdx.x / C::kSplit) * kRows;
+  const int half = blockIdx.x % C::kSplit;
+  const int hq = blockIdx.y, b = blockIdx.z;
+  const int hk = hq / p.group;
+  const int kvl = read_kv_len(p);
+  int kt_begin, kt_end;
+  key_tiles(p, q0, kvl, kt_begin, kt_end);
+  const int r0 = q0 + 16 * w + g;           // this thread's rows: r0, r0 + 8
+  const float* qp = static_cast<const float*>(p.q) + b * p.q_sb + hq * p.q_sh;
+  const float* dop = static_cast<const float*>(p.dout) + b * p.do_sb + hq * p.do_sh;
+  const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  const float scale_log2 = p.scale * kLog2e;
+  const int64_t row0 = ((int64_t)b * p.h + hq) * p.sq;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    lse2[h] = row < p.sq ? p.lse[row0 + row] * kLog2e : 0.f;
+    dlt[h] = row < p.sq ? p.delta[row0 + row] : 0.f;
+  }
+  float dq[kPanel / 8][4];
+#pragma unroll
+  for (int j = 0; j < kPanel / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kKeys;
+    float sp[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sp[j][e] = dp[j][e] = 0.f;
+    for (int pi = 0; pi < C::kSplit; ++pi) {
+      const int panel = (half + 1 + pi) % C::kSplit;   // the own half last
+      __syncthreads();   // the previous panel is read
+      load_panel(smem_base, qp, p.q_ss, q0, p.sq, panel, p.d);
+      load_panel(smem_base + at, dop, p.do_ss, q0, p.sq, panel, p.d);
+      load_panel(smem_base + 2 * at, kp, p.k_ss, k0, p.sk, panel, p.d);
+      load_panel(smem_base + 3 * at, vp, p.v_ss, k0, p.sk, panel, p.d);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      panel_nt(sp, s_q + 16 * w * ld, s_k, g, t);
+      panel_nt(dp, s_do + 16 * w * ld, s_v, g, t);
+    }
+    const bool full = full_tile(p, q0, k0, kvl);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + 8 * (e >> 1);
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        const bool ok = full || valid(p, row, col, kvl);
+        softmax_grad(sp[j][e], dp[j][e], ok, scale_log2, lse2[e >> 1], dlt[e >> 1]);
+      }
+    product_an<kPanel>(dq, dp, s_k, g, t);   // dQ += dS . K, own columns
+  }
+
+  const int c0 = half * kPanel;
+  store_f32<kPanel>(static_cast<float*>(p.dq) + b * p.dq_sb + hq * p.dq_sh + c0, p.dq_ss,
+                    q0 + 16 * w, p.sq, p.d - c0, dq, p.scale, g, t);
 }
 
 // --------------------------------------------------------------- host
 template <typename T, int D>
 int launch_delta(const Params& p, int64_t b, cudaStream_t stream) {
-  constexpr int kRowsPerBlock = kDeltaThreads / (D * (int)sizeof(T) / 16);
+  constexpr int kLanes = D * (int)sizeof(T) / 16 < 32 ? D * (int)sizeof(T) / 16 : 32;
+  constexpr int kRowsPerBlock = kDeltaThreads / kLanes;
   const int64_t rows = b * p.h * (int64_t)p.sq;
   const int64_t blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   attn_bwd_delta<T, D><<<(unsigned)blocks, kDeltaThreads, 0, stream>>>(p, rows);
+  return (int)cudaGetLastError();
+}
+
+// D = 256: the panel-streaming kernels, two blocks (column halves) a tile
+int launch_f32_wide(const Params& p, int64_t b, int64_t kvh, cudaStream_t stream) {
+  constexpr int D = 256;
+  using C = Cols<D>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_f32_wide<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           kWideSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(attn_bwd_dq_f32_wide<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  int err = launch_delta<float, D>(p, b, stream);
+  if (err != 0) return err;
+  const dim3 kv_grid((unsigned)((p.sk + kKeys - 1) / kKeys * C::kSplit), (unsigned)kvh,
+                     (unsigned)b);
+  attn_bwd_dkdv_f32_wide<D><<<kv_grid, kThreadsF32, kWideSmem, stream>>>(p);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  const dim3 q_grid((unsigned)((p.sq + kRows - 1) / kRows * C::kSplit), (unsigned)p.h,
+                    (unsigned)b);
+  attn_bwd_dq_f32_wide<D><<<q_grid, kThreadsF32, kWideSmem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -933,6 +1235,7 @@ int launch_f32(const Params& p, int64_t b, int64_t kvh, cudaStream_t stream) {
 template <int D>
 int launch_tc(const Params& p, int64_t b, int64_t kvh, cudaStream_t stream) {
   using S = SmemTc<D>;
+  using C = Cols<D>;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_tc<D>,
@@ -948,39 +1251,42 @@ int launch_tc(const Params& p, int64_t b, int64_t kvh, cudaStream_t stream) {
   MapAxes axes;
   cudaError_t e;
   const int64_t h = p.h;
-  if ((e = make_map<D>(&mq, axes.q, p.q, b, h, p.sq, p.q_sb, p.q_sh, p.q_ss)) != cudaSuccess ||
-      (e = make_map<D>(&mk, axes.k, p.k, b, kvh, p.sk, p.k_sb, p.k_sh, p.k_ss)) != cudaSuccess ||
-      (e = make_map<D>(&mv, axes.v, p.v, b, kvh, p.sk, p.v_sb, p.v_sh, p.v_ss)) != cudaSuccess ||
-      (e = make_map<D>(&mdo, axes.dout, p.dout, b, h, p.sq, p.do_sb, p.do_sh, p.do_ss)) !=
+  if ((e = make_map<D>(&mq, axes.q, p.q, b, h, p.sq, p.q_sb, p.q_sh, p.q_ss, p.d)) !=
+          cudaSuccess ||
+      (e = make_map<D>(&mk, axes.k, p.k, b, kvh, p.sk, p.k_sb, p.k_sh, p.k_ss, p.d)) !=
+          cudaSuccess ||
+      (e = make_map<D>(&mv, axes.v, p.v, b, kvh, p.sk, p.v_sb, p.v_sh, p.v_ss, p.d)) !=
+          cudaSuccess ||
+      (e = make_map<D>(&mdo, axes.dout, p.dout, b, h, p.sq, p.do_sb, p.do_sh, p.do_ss, p.d)) !=
           cudaSuccess)
     return (int)e;
   int err = launch_delta<__nv_bfloat16, D>(p, b, stream);
   if (err != 0) return err;
-  const dim3 kv_grid((unsigned)((p.sk + kKeys - 1) / kKeys), (unsigned)kvh, (unsigned)b);
+  const dim3 kv_grid((unsigned)((p.sk + kKeys - 1) / kKeys * C::kSplit), (unsigned)kvh,
+                     (unsigned)b);
   attn_bwd_dkdv_tc<D><<<kv_grid, kThreadsTc, S::kDkDv, stream>>>(p, mq, mk, mv, mdo, axes);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  const dim3 q_grid((unsigned)((p.sq + kRows - 1) / kRows), (unsigned)p.h, (unsigned)b);
+  const dim3 q_grid((unsigned)((p.sq + kRows - 1) / kRows * C::kSplit), (unsigned)p.h,
+                    (unsigned)b);
   attn_bwd_dq_tc<D><<<q_grid, kThreadsTc, S::kDq, stream>>>(p, mq, mk, mv, mdo, axes);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const Params& p, int dtype, int64_t d, int64_t b, int64_t kvh, cudaStream_t s) {
+// d runs on the smallest instantiation D >= d (16, 32, 64, 128, 256)
+int dispatch(const Params& p, int dtype, int64_t b, int64_t kvh, cudaStream_t s) {
+  const int d = p.d;
   if (dtype == 0) {
-    switch (d) {
-      case 16: return launch_f32<16>(p, b, kvh, s);
-      case 32: return launch_f32<32>(p, b, kvh, s);
-      case 64: return launch_f32<64>(p, b, kvh, s);
-      case 128: return launch_f32<128>(p, b, kvh, s);
-    }
-  } else if (dtype == 1) {
-    switch (d) {
-      case 16: return launch_tc<16>(p, b, kvh, s);
-      case 32: return launch_tc<32>(p, b, kvh, s);
-      case 64: return launch_tc<64>(p, b, kvh, s);
-      case 128: return launch_tc<128>(p, b, kvh, s);
-    }
+    if (d <= 16) return launch_f32<16>(p, b, kvh, s);
+    if (d <= 32) return launch_f32<32>(p, b, kvh, s);
+    if (d <= 64) return launch_f32<64>(p, b, kvh, s);
+    if (d <= 128) return launch_f32<128>(p, b, kvh, s);
+    return launch_f32_wide(p, b, kvh, s);
   }
-  return (int)cudaErrorInvalidValue;
+  if (d <= 16) return launch_tc<16>(p, b, kvh, s);
+  if (d <= 32) return launch_tc<32>(p, b, kvh, s);
+  if (d <= 64) return launch_tc<64>(p, b, kvh, s);
+  if (d <= 128) return launch_tc<128>(p, b, kvh, s);
+  return launch_tc<256>(p, b, kvh, s);
 }
 
 }  // namespace
@@ -995,9 +1301,10 @@ extern "C" const char* repro_error_string(int err) {
 // pointers and strides are multiples of 16 bytes, strides of dimensions
 // longer than 1 nonzero, as TMA reads them); lse and delta (b, h, sq)
 // float32, contiguous (delta is scratch the call overwrites). dtype: 0
-// float32, 1 bf16 (q, k, v, o, dout and the outputs alike). d: 16, 32, 64
-// or 128. sq and sk > 0. kv_len: a device pointer to an int32, or null to
-// use kv_len_value. window < 0: none. Every element of dq, dk and dv is
+// float32, 1 bf16 (q, k, v, o, dout and the outputs alike). d: a multiple
+// of 8 from 8 to 256. p_round: P of dV = P^T dO in float32 (0), bf16 (1)
+// or float16 (2), as the forward rounded it. sq and sk > 0. kv_len: a
+// device pointer to an int32, or null to use kv_len_value. window < 0: none. Every element of dq, dk and dv is
 // written. Three kernels on `stream`; returns the first launch error (0 on
 // success); never synchronizes.
 extern "C" int repro_flash_attention_bwd(
@@ -1013,10 +1320,11 @@ extern "C" int repro_flash_attention_bwd(
     int64_t dk_sb, int64_t dk_sh, int64_t dk_ss,
     int64_t dv_sb, int64_t dv_sh, int64_t dv_ss,
     const void* kv_len, int64_t kv_len_value, int causal, int64_t window,
-    float scale, int dtype, void* stream) {
+    float scale, int p_round, int dtype, void* stream) {
   if (b <= 0 || h <= 0) return 0;
   if (kvh <= 0 || h % kvh != 0 || sq <= 0 || sk <= 0 || sq > 2147483647LL ||
-      sk > 2147483647LL || h > 65535 || b > 65535 || window > 2147483647LL)
+      sk > 2147483647LL || h > 65535 || b > 65535 || window > 2147483647LL || d < 8 ||
+      d > 256 || d % 8 != 0 || p_round < 0 || p_round > 2 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
@@ -1040,5 +1348,7 @@ extern "C" int repro_flash_attention_bwd(
   p.causal = causal;
   p.window = window < 0 ? -1 : (int)window;
   p.scale = scale;
-  return dispatch(p, dtype, d, b, kvh, (cudaStream_t)stream);
+  p.d = (int)d;
+  p.p_round = p_round;
+  return dispatch(p, dtype, b, kvh, (cudaStream_t)stream);
 }

@@ -6,14 +6,19 @@
 // built on the host.
 //
 // A tile is 64 rows of D bf16 columns as TMA writes it, with the swizzle
-// whose span is the tile's row (D <= 64) or as two 64-column panels of
-// 128-byte rows (D = 128). The same tile serves as a K-major operand (its
-// columns are the product's depth: Q or K in Q.K^T) and as an MN-major B
-// operand (its rows are the depth: V in P.V), so one load feeds both.
+// whose span is the tile's row (D <= 64) or as 64-column panels of
+// 128-byte rows (two at D = 128, four at D = 256). A head dim d below the
+// instantiation D is read through a map whose inner extent is d: TMA fills
+// columns d..D-1 of every box with zeros (and counts their bytes), so the
+// kernels compute on a zero-padded tile and store only columns below d.
+// The same tile serves as a K-major operand (its columns are the product's
+// depth: Q or K in Q.K^T) and as an MN-major B operand (its rows are the
+// depth: V in P.V), so one load feeds both.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,6 +87,18 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------ P rounding
+// P rounded to a 16-bit type before P.V (attn_p_dtype): 0 keeps float32,
+// 1 rounds to bf16, 2 to float16, each to nearest even as a cast does
+__device__ __forceinline__ float round_p(float x, int mode) {
+  if (mode == 1) return __bfloat162float(__float2bfloat16_rn(x));
+  if (mode == 2) return __half2float(__float2half_rn(x));
+  return x;
+}
 
 // ------------------------------------------------- bf16 tiles and wgmma
 // Shared-memory geometry of one 64-row bf16 tile of D columns.
@@ -89,7 +106,7 @@ template <int D>
 struct Tile {
   static constexpr int kPanelCols = D < 64 ? D : 64;
   static constexpr int kRowBytes = kPanelCols * 2;              // 32, 64, 128
-  static constexpr int kPanels = D / kPanelCols;                // 1 or 2
+  static constexpr int kPanels = D / kPanelCols;                // 1, 2 or 4
   static constexpr int kPanelBytes = kTileRows * kRowBytes;
   static constexpr int kBytes = kPanels * kPanelBytes;          // 64 x D x 2
   // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
@@ -116,7 +133,8 @@ __device__ __forceinline__ uint64_t desc_k_major(uint32_t base, int kk) {
 }
 
 // A tile as the MN-major B operand (V of P.V) at the 16-row step kk: LBO =
-// the next 64-column panel (D = 128), SBO = 8 rows.
+// the next 64-column panel (D >= 128), SBO = 8 rows. A product narrower
+// than the tile starts at a later panel's base.
 template <int D>
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t base, int kk) {
   using G = Tile<D>;
@@ -301,6 +319,65 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// O (64 x 256) += P (64 x 16, registers) . V (16 x 256, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -328,13 +405,15 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a (b, h, s, D) bf16 view with element strides (sb, sh,
-// ss) and a unit last stride: dimension 0 is D, dimensions 1-3 are row,
-// head and batch sorted by stride (a dimension of size 1 last), boxes of
-// (64 or D) columns x 64 rows, zero fill past the edges.
+// The tensor map of a (b, h, s, d) bf16 view with element strides (sb, sh,
+// ss) and a unit last stride, d <= D: dimension 0 is d, dimensions 1-3 are
+// row, head and batch sorted by stride (a dimension of size 1 last), boxes
+// of (64 or D) columns x 64 rows, zero fill past the edges (rows past s,
+// columns d..D-1).
 template <int D>
 cudaError_t make_map(CUtensorMap* map, int axes[3], const void* ptr, int64_t b,
-                     int64_t h, int64_t s, int64_t sb, int64_t sh, int64_t ss) {
+                     int64_t h, int64_t s, int64_t sb, int64_t sh, int64_t ss,
+                     int64_t d) {
   using G = Tile<D>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
@@ -347,9 +426,10 @@ cudaError_t make_map(CUtensorMap* map, int axes[3], const void* ptr, int64_t b,
       order[j] = order[j - 1];
       order[j - 1] = tmp;
     }
-  cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
+  if (d < 1 || d > D) return cudaErrorInvalidValue;
+  cuuint64_t dims[4] = {(cuuint64_t)d, 0, 0, 0};
   cuuint64_t strides[3];
-  uint64_t extent = 2 * D;  // bytes spanned so far
+  uint64_t extent = 2 * (uint64_t)d;  // bytes spanned so far
   for (int i = 0; i < 3; ++i) {
     const int a = order[i];
     axes[a] = i;

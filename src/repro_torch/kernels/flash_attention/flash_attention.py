@@ -15,6 +15,17 @@ on the tensor cores as 3xTF32 (``mma.sync``: each operand split into a
 TF32 part and a TF32 remainder, three products summed in float32), each
 product within 2^-20 of itself.
 
+Head dims: any ``d`` with ``8 <= d <= 256`` and ``d % 8 == 0``
+(``head_dim_ok``), as the JAX kernel states head_dim <= 256; the kernels
+are instantiated at 16, 32, 64, 128 and 256 and ``d`` runs on the smallest
+one at least ``d``, its columns past ``d`` read as zeros and never stored,
+the scale ``d ** -0.5``.  ``p_dtype`` (``attn_p_dtype``) bfloat16 or
+float16 rounds P to that type before P.V on the float32 route, the row
+sum keeping P unrounded, as the JAX package's chunked attention does; the
+backward rounds the recomputed P the same way for dV = P^T dO.  The bf16
+route rounds P to bf16 whatever ``p_dtype`` says (float16's 11 bits are
+finer than bf16's 8, so the bf16 bound covers it).
+
 Semantics are the JAX kernel's (causal rows counted from 0) except for a
 row with no valid column (``kv_len = 0``, or a window that leaves a row
 nothing): it is 0 here, as in the JAX package's ``ref.py``; the TPU kernel
@@ -53,11 +64,24 @@ import torch
 from .. import _build
 from .ref import flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+P_ROUND = {None: 0, torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _TAIL = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
-         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def head_dim_ok(d: int) -> bool:
+    """Whether the kernels take head dim ``d``: a multiple of 8 from 8 to 256."""
+    return 8 <= d <= 256 and d % 8 == 0
+
+
+def p_round(p_dtype) -> int:
+    """The kernels' code for ``p_dtype``; raises on a type they cannot round to."""
+    if p_dtype not in P_ROUND:
+        raise NotImplementedError(f"flash_attention: p_dtype {p_dtype}; the kernels "
+                                  f"round P to one of {tuple(P_ROUND)}")
+    return P_ROUND[p_dtype]
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 18 + _TAIL
 _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 30 + _TAIL
 
@@ -88,7 +112,7 @@ def _readable(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def _check(q, k, v, window):
+def _check(q, k, v, window, p_dtype=None):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be (B, H, S, D)")
     b, h, _, d = q.shape
@@ -100,8 +124,10 @@ def _check(q, k, v, window):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
                         f"the kernel takes one of {tuple(DTYPES)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d}; the kernel takes {HEAD_DIMS}")
+    if not head_dim_ok(d):
+        raise ValueError(f"flash_attention: head_dim {d}; the kernels take a multiple "
+                         f"of 8 from 8 to 256")
+    p_round(p_dtype)
     if not (q.device == k.device == v.device):
         raise ValueError(f"flash_attention: inputs on {q.device}, {k.device}, {v.device}")
     if window is not None and window < 0:
@@ -123,7 +149,8 @@ def _kv_len_args(kv_len, sk: int, device):
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_len=None, *, causal: bool = True,
-                         window: int | None = None, return_lse: bool = False):
+                         window: int | None = None, return_lse: bool = False,
+                         p_dtype=None):
     """(B, H, Sq, D) attention output in q's dtype (see module docstring);
     with ``return_lse`` also each row's log-sum-exp of the scaled scores,
     (B, H, Sq) float32, -inf for a row with no valid column.
@@ -132,12 +159,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the card without a host sync.  The output has q's memory layout when q
     is dense (a (B, S, H, D) buffer viewed as (B, H, S, D) stays one).
     """
-    _check(q, k, v, window)
+    _check(q, k, v, window, p_dtype)
     device = q.device
+    kw = dict(causal=causal, window=window, p_dtype=p_dtype)
     if device.type == "cpu":
         if return_lse:
-            return flash_attention_lse_ref(q, k, v, kv_len, causal=causal, window=window)
-        return flash_attention_ref(q, k, v, kv_len, causal=causal, window=window)
+            return flash_attention_lse_ref(q, k, v, kv_len, **kw)
+        return flash_attention_ref(q, k, v, kv_len, **kw)
     if device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {device}")
     q, k, v = _readable(q), _readable(k), _readable(v)
@@ -156,7 +184,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  b, h, kvh, sq, sk, d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
                  len_ptr, len_value, int(bool(causal)),
-                 -1 if window is None else int(window), d ** -0.5,
+                 -1 if window is None else int(window), d ** -0.5, p_round(p_dtype),
                  DTYPES[q.dtype], _build.stream_of(out))
     _build.check(lib, err, "flash_attention")
     flash_attention_cuda.launches += 1
@@ -167,7 +195,7 @@ flash_attention_cuda.launches = 0
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len=None, *, causal: bool = True,
-                             window: int | None = None):
+                             window: int | None = None, p_dtype=None):
     """(dq, dk, dv) of ``flash_attention_cuda(q, k, v, kv_len, causal=...,
     window=...)`` at its output ``o`` and log-sum-exp ``lse``, given the
     output's gradient ``do`` (B, H, Sq, D).  Each gradient has its input's
@@ -176,7 +204,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len=None, *, causal: bool =
     kernels on the current stream and counts one launch; with no query row
     or no key every gradient is 0 and nothing launches (TMA takes no empty
     dimension)."""
-    _check(q, k, v, window)
+    _check(q, k, v, window, p_dtype)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype} and do "
                          f"{tuple(do.shape)} {do.dtype} must match q {tuple(q.shape)} "
@@ -189,7 +217,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len=None, *, causal: bool =
         raise ValueError("flash_attention_bwd: inputs on different devices")
     if device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, kv_len, causal=causal,
-                                       window=window)
+                                       window=window, p_dtype=p_dtype)
     if device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {device}")
     q, k, v, o, do = (_readable(t) for t in (q, k, v, o, do))
@@ -210,7 +238,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len=None, *, causal: bool =
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
                  *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
                  len_ptr, len_value, int(bool(causal)),
-                 -1 if window is None else int(window), d ** -0.5,
+                 -1 if window is None else int(window), d ** -0.5, p_round(p_dtype),
                  DTYPES[q.dtype], _build.stream_of(dq))
     _build.check(lib, err, "flash_attention_bwd")
     flash_attention_bwd_cuda.launches += 1

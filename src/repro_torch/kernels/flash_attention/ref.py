@@ -41,27 +41,43 @@ def _masked_scores(q, k, v, kv_len, causal, window):
     return s.masked_fill(~mask, float("-inf")), kf, vf
 
 
-def _attend(s, vf, dtype):
-    """softmax(s) . v in ``dtype``; a row with no valid column is 0."""
-    p = torch.softmax(s, dim=-1)
-    p = torch.where(torch.isnan(p), 0.0, p)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(dtype)
+def _rounded(p, p_dtype):
+    """P rounded to ``p_dtype`` and back (``attn_p_dtype``), or P itself."""
+    if p_dtype is None or p_dtype == torch.float32:
+        return p
+    return p.to(p_dtype).to(p.dtype)
+
+
+def _attend(s, vf, dtype, p_dtype=None):
+    """softmax(s) . v in ``dtype``; a row with no valid column is 0.  With
+    ``p_dtype``, exp(s - max) is rounded to it before the product and the
+    row sum taken unrounded, the kernels' rounding point."""
+    if p_dtype is None or p_dtype == torch.float32:
+        p = torch.softmax(s, dim=-1)
+        p = torch.where(torch.isnan(p), 0.0, p)
+        return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(dtype)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - torch.where(torch.isinf(m), 0.0, m))
+    l = e.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", _rounded(e, p_dtype), vf)
+    return torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0).to(dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_len=None, *, causal: bool = True,
-                        window: int | None = None) -> torch.Tensor:
+                        window: int | None = None, p_dtype=None) -> torch.Tensor:
     """q (B, H, Sq, D), k / v (B, KVH, Sk, D) -> (B, H, Sq, D) in q's dtype."""
     s, _, vf = _masked_scores(q, k, v, kv_len, causal, window)
-    return _attend(s, vf, q.dtype)
+    return _attend(s, vf, q.dtype, p_dtype)
 
 
-def flash_attention_lse_ref(q, k, v, kv_len=None, *, causal=True, window=None):
+def flash_attention_lse_ref(q, k, v, kv_len=None, *, causal=True, window=None,
+                            p_dtype=None):
     """``(flash_attention_ref(...), lse)``: the output and each row's
     log-sum-exp of the scaled scores, (B, H, Sq) in the accumulation type
     (-inf for a row with no valid column)."""
     s, _, vf = _masked_scores(q, k, v, kv_len, causal, window)
-    return _attend(s, vf, q.dtype), torch.logsumexp(s, dim=-1)
+    return _attend(s, vf, q.dtype, p_dtype), torch.logsumexp(s, dim=-1)
 
 
 def _probs(q, k, v, lse, kv_len, causal, window):
@@ -80,7 +96,7 @@ def _group_sum(x, kvh):
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, kv_len=None, *, causal=True,
-                            window=None):
+                            window=None, p_dtype=None):
     """(dq, dk, dv) of attention at the forward's ``o`` and ``lse``, given
     the output's gradient ``do``: the backward kernel's formulas with a
     materialized P, dq / dk / dv in the inputs' dtypes and shapes.
@@ -89,7 +105,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, kv_len=None, *, causal=True,
         dV = P^T dO, dP = dO V^T, dS = P (dP - Delta),
         dQ = dS K D^-1/2, dK = dS^T Q D^-1/2,
 
-    dK and dV summed over each KV head's group of query heads."""
+    dK and dV summed over each KV head's group of query heads; with
+    ``p_dtype`` dV takes P rounded to it, as the forward's P.V did."""
     p, kf, vf = _probs(q, k, v, lse, kv_len, causal, window)
     dof = _acc(do)
     delta = (dof * _acc(o)).sum(-1)
@@ -98,7 +115,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, kv_len=None, *, causal=True,
     scale = q.shape[-1] ** -0.5
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
     dk = _group_sum(torch.einsum("bhqk,bhqd->bhkd", ds, _acc(q)) * scale, k.shape[1])
-    dv = _group_sum(torch.einsum("bhqk,bhqd->bhkd", p, dof), k.shape[1])
+    dv = _group_sum(torch.einsum("bhqk,bhqd->bhkd", _rounded(p, p_dtype), dof), k.shape[1])
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

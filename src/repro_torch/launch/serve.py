@@ -5,7 +5,9 @@
 
 The flags and printed lines are the JAX package's ``repro.launch.serve``;
 ``--device`` (default ``cuda``) names where the model runs.  A checkpoint
-directory written by the JAX package's trainer restores as it is.
+directory written by the JAX package's trainer restores as it is.  The
+dense and MoE families serve (``--arch qwen3-moe-30b-a3b``, ``--arch
+mixtral-8x7b``).
 """
 from __future__ import annotations
 

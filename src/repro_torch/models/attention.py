@@ -16,7 +16,9 @@ Dispatch of ``attention(impl=...)`` goes by the tensors' device:
   as the JAX package's ``"pallas"`` takes ``ref.py`` off a TPU.
 
 On a CUDA tensor the kernel launches or raises; nothing moves a CUDA
-tensor onto a plain path.
+tensor onto a plain path.  ``p_dtype`` (``attn_p_dtype``) bfloat16 or
+float16 reaches the kernel, which rounds P to it before P.V; any other
+type raises with the type named.
 """
 from __future__ import annotations
 
@@ -109,13 +111,13 @@ def attention_decode(q, k_cache, v_cache, kv_len, *, window=None):
     return o.reshape(b, 1, h, d).to(q.dtype)
 
 
-def _flash(q, k, v, *, causal, window, kv_len):
+def _flash(q, k, v, *, causal, window, kv_len, p_dtype=None):
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError(f"causal attention with {q.shape[1]} query rows over "
                          f"{k.shape[1]} keys: the flash-attention kernel counts "
                          f"causal rows from 0, the model from sk - sq")
     o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                             kv_len, causal=causal, window=window)
+                             kv_len, causal=causal, window=window, p_dtype=p_dtype)
     return o.transpose(1, 2)
 
 
@@ -127,11 +129,8 @@ def attention(q, k, v, *, impl="chunked", causal=True, window=None,
         return _flash(q, k, v, causal=causal, window=window, kv_len=kv_len)
     if impl == "chunked":
         if backend.resolve(q.device) == "cuda":
-            if p_dtype is not None:
-                raise NotImplementedError(
-                    "the flash-attention kernel keeps P in float32; "
-                    "attn_p_dtype other than float32 has no kernel yet")
-            return _flash(q, k, v, causal=causal, window=window, kv_len=kv_len)
+            return _flash(q, k, v, causal=causal, window=window, kv_len=kv_len,
+                          p_dtype=p_dtype)
         return attention_chunked(q, k, v, causal=causal, window=window,
                                  kv_len=kv_len, chunk=chunk, p_dtype=p_dtype)
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -29,8 +29,10 @@ def _tensor(a) -> torch.Tensor:
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """The port's ``state_dict`` of a dense model from the JAX parameter
-    pytree (nested dicts of numpy arrays or anything ``np.asarray`` takes)."""
+    """The port's ``state_dict`` of a dense or MoE model from the JAX
+    parameter pytree (nested dicts of numpy arrays or anything
+    ``np.asarray`` takes): ``["layers"]["moe"]["gate"]`` (L, E, D, F) becomes
+    ``layers.{i}.moe.gate`` (E, D, F), bitwise."""
     state = {}
     for name, leaf in tree.items():
         if name == "layers":

@@ -1,11 +1,12 @@
-"""Shared layers: RMSNorm, RoPE, SwiGLU MLP, GQA attention block.
+"""Shared layers: RMSNorm, RoPE, SwiGLU MLP, MoE, GQA attention block.
 
 Parameters come as mappings of tensors (a block's ``nn.ParameterDict``),
 named as in the JAX package.  The rounding points are the JAX package's:
 inputs cast to the compute dtype before every product, RMSNorm and RoPE in
 float32 and cast back, the K / V cache in bf16 whatever the compute dtype.
 Plain products stay ``torch.matmul``, as the JAX package leaves them to
-XLA.  The MoE and cross-attention parts arrive with their families.
+XLA, the MoE's batched expert products included.  The cross-attention
+parts arrive with their family.
 """
 from __future__ import annotations
 
@@ -56,6 +57,112 @@ def mlp_apply(p, x, compute_dtype):
     g = x @ p["gate"].to(dt)
     u = x @ p["up"].to(dt)
     return (F.silu(g) * u) @ p["down"].to(dt)
+
+
+def moe_init(c: Creator, cfg: ModelConfig):
+    D, E = cfg.d_model, cfg.num_experts
+    F_ = cfg.moe_d_ff or cfg.d_ff
+    return {
+        "router": c("moe.router", (D, E), ("embed", None)),
+        "gate": c("moe.gate", (E, D, F_), ("expert", "embed", "mlp")),
+        "up": c("moe.up", (E, D, F_), ("expert", "embed", "mlp")),
+        "down": c("moe.down", (E, F_, D), ("expert", "mlp", "embed")),
+    }
+
+
+def moe_apply(p, x, cfg: ModelConfig, mesh=None):
+    """MoE front door: the dense dispatch, or expert parallelism over
+    ``mesh`` (``distributed.mesh.Mesh``) when ``cfg.moe_impl ==
+    "shard_map"``, as the JAX package's ``moe_apply`` chooses."""
+    if cfg.moe_impl == "shard_map":
+        from .moe_ep import moe_apply_ep
+        return moe_apply_ep(p, x, cfg, mesh)
+    return moe_apply_dense(p, x, cfg)
+
+
+def top_k_lower_first(logits, k: int):
+    """(values, indices) of the k largest entries of each row, ties broken
+    by the lower index first as ``jax.lax.top_k`` breaks them (``torch.topk``
+    promises no order among equal values): a stable descending sort."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(xt, router, cfg: ModelConfig):
+    """Router of (T, D) tokens: float32 gates (T, K), softmax over the top k
+    logits, and their expert ids (T, K).  The logits are computed in the
+    compute dtype and cast to float32, as in the JAX package."""
+    dt = torch_dtype(cfg.compute_dtype)
+    logits = (xt @ router.to(dt)).float()
+    gates, idx = top_k_lower_first(logits, cfg.num_experts_per_tok)
+    return torch.softmax(gates, dim=-1), idx
+
+
+def capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots per expert: ``max(8, int(capacity_factor * T * K / E))``."""
+    return max(8, int(cfg.capacity_factor * tokens * cfg.num_experts_per_tok
+                      / cfg.num_experts))
+
+
+def dispatch_slots(expert, num: int, cap: int, mine=None):
+    """Each (token, k) row's slot in its expert's capacity buffer: the
+    exclusive running count of earlier rows sent to the same expert (of
+    ``num``); rows at or past ``cap``, and rows not ``mine``, are dropped.
+    Returns (slot clamped to ``cap - 1`` where dropped, keep)."""
+    onehot = F.one_hot(expert, num).to(torch.int32)
+    if mine is not None:
+        onehot = onehot * mine[:, None]
+    pos = torch.cumsum(onehot, dim=0) - onehot
+    slot = pos.gather(1, expert[:, None])[:, 0]
+    keep = slot < cap
+    if mine is not None:
+        keep = keep & mine
+    return torch.where(keep, slot, cap - 1), keep
+
+
+def run_experts(xt, expert, slot, keep, cap: int, gate, up, down, dt):
+    """Each (token, k) row's expert output, (T*K, D) in ``dt``, 0 where the
+    row was dropped: the kept rows written into an (E, cap, D) buffer (each
+    (expert, slot) at most once, so an exact write in any order), the
+    SwiGLU experts as three batched products over the expert dim, and the
+    rows gathered back.  ``expert`` / ``slot`` / ``keep`` are per row, rows
+    in (token, k) order."""
+    E, K = gate.shape[0], expert.shape[0] // xt.shape[0]
+    kept = torch.arange(expert.shape[0], device=xt.device)[keep]
+    disp = torch.zeros((E, cap, xt.shape[1]), dtype=dt, device=xt.device)
+    disp[expert[kept], slot[kept]] = xt[kept // K]
+    g = torch.bmm(disp, gate.to(dt))
+    u = torch.bmm(disp, up.to(dt))
+    out = torch.bmm(F.silu(g) * u, down.to(dt))
+    return torch.where(keep[:, None], out[expert, slot], 0)
+
+
+def moe_apply_dense(p, x, cfg: ModelConfig):
+    """Capacity-bounded scatter dispatch with static shapes, as the JAX
+    package's ``moe_apply_dense``: tokens flattened to (T, D), routed top-k,
+    written into an (E, C, D) buffer (C = ``capacity``), run through the
+    experts as batched products, and combined with the router weights.
+    Tokens past an expert's capacity are dropped (their row adds 0).
+
+    The combine folds each token's K contributions in k order (the JAX
+    package's scatter-add onto zeros over ``src = repeat(arange(T), K)``),
+    not with ``index_add_``, whose order on a card is unspecified."""
+    dt = torch_dtype(cfg.compute_dtype)
+    b, s, D = x.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    T = b * s
+    C = capacity(cfg, T)
+    xt = x.reshape(T, D).to(dt)
+    gates, idx = route(xt, p["router"], cfg)
+    flat_e = idx.reshape(-1)                                   # (T*K,)
+    slot, keep = dispatch_slots(flat_e, E, C)
+    gathered = run_experts(xt, flat_e, slot, keep, C, p["gate"], p["up"], p["down"], dt)
+    w = gates.reshape(-1)[:, None].to(dt)
+    contrib = (gathered * w).reshape(T, K, D)
+    combined = torch.zeros((T, D), dtype=dt, device=x.device)
+    for k in range(K):
+        combined = combined + contrib[:, k]
+    return combined.reshape(b, s, D)
 
 
 # ------------------------------------------------------- attention block

@@ -1,12 +1,15 @@
-"""Model API of the dense family: init / forward / prefill / decode.
+"""Model API of the dense and MoE families: init / forward / prefill / decode.
 
 ``init_params`` builds a ``Model`` (an ``nn.Module`` holding the
 parameters, on the creator's device, with one ``Block`` per layer); the
 entry points are functions of ``(cfg, model, inputs)`` as in the JAX
 package, so the same weights can run under another configuration
 (``attn_impl="ref"``, another compute dtype).  Layers run in a Python
-loop.  Families other than ``dense`` raise ``NotImplementedError`` until
-their modules are ported.
+loop.  The ``moe`` family serves with the dense family's cache layout, as
+the JAX package's ``("dense", "moe", "vlm")`` branches do; its experts run
+on one device, or over the shards of a ``distributed.mesh.Mesh`` passed as
+``mesh`` when ``cfg.moe_impl == "shard_map"``.  Other families raise
+``NotImplementedError`` until their modules are ported.
 
 ``forward`` is differentiable (the parameters take gradients; each block
 runs under ``cfg.remat_policy``, ``transformer.block_remat``); ``prefill``
@@ -26,12 +29,15 @@ from .module import Creator, parameter
 from .transformer import Block, block_apply, block_decode, block_remat
 
 
+PORTED_FAMILIES = ("dense", "moe")
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, creator: Creator):
         super().__init__()
-        if cfg.family != "dense" or cfg.num_experts:
+        if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r} is not ported yet; "
-                                      f"the port serves dense models")
+                                      f"the port serves {PORTED_FAMILIES}")
         D, V = cfg.d_model, cfg.vocab_size
         self.embed = parameter(creator("embed", (V, D), ("vocab", "embed"), scale=1.0))
         self.final_norm = parameter(creator("final_norm", (D,), (None,), scale="zeros"))
@@ -57,7 +63,8 @@ def _head(cfg, params, h):
     return (h.to(dt) @ w.to(dt)).to(torch_dtype(cfg.logit_dtype))
 
 
-def forward(cfg: ModelConfig, params: Model, tokens, *, collect_cache: bool = False):
+def forward(cfg: ModelConfig, params: Model, tokens, *, collect_cache: bool = False,
+            mesh=None):
     """Causal-LM forward. Returns logits, or (logits, cache) for prefill."""
     h = _embed(cfg, params, tokens)
     S = h.shape[1]
@@ -66,11 +73,11 @@ def forward(cfg: ModelConfig, params: Model, tokens, *, collect_cache: bool = Fa
     for blk, kind in zip(params.layers, cfg.layer_kinds()):
         if collect_cache:
             h, (k, v) = block_apply(blk, h, cfg, kind=kind, positions=positions,
-                                    collect=True)
+                                    collect=True, mesh=mesh)
             ks.append(k)
             vs.append(v)
         else:
-            h = block_remat(blk, h, cfg, kind=kind, positions=positions)
+            h = block_remat(blk, h, cfg, kind=kind, positions=positions, mesh=mesh)
     logits = _head(cfg, params, h)
     if collect_cache:
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "pos": S}
@@ -88,14 +95,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict[
 
 
 @torch.no_grad()
-def prefill(cfg: ModelConfig, params: Model, tokens):
+def prefill(cfg: ModelConfig, params: Model, tokens, mesh=None):
     """Process a prompt; returns (last-token logits, cache at len(prompt))."""
-    logits, cache = forward(cfg, params, tokens, collect_cache=True)
+    logits, cache = forward(cfg, params, tokens, collect_cache=True, mesh=mesh)
     return logits[:, -1], cache
 
 
 @torch.no_grad()
-def decode_step(cfg: ModelConfig, params: Model, cache, tokens):
+def decode_step(cfg: ModelConfig, params: Model, cache, tokens, mesh=None):
     """One token for every sequence. tokens: (B, 1). Returns (logits, cache).
 
     The K / V of this step are written into ``cache`` in place; the
@@ -103,6 +110,7 @@ def decode_step(cfg: ModelConfig, params: Model, cache, tokens):
     pos = cache["pos"]
     h = _embed(cfg, params, tokens)
     for i, (blk, kind) in enumerate(zip(params.layers, cfg.layer_kinds())):
-        h = block_decode(blk, h, cfg, cache["k"][i], cache["v"][i], pos, kind=kind)
+        h = block_decode(blk, h, cfg, cache["k"][i], cache["v"][i], pos, kind=kind,
+                         mesh=mesh)
     logits = _head(cfg, params, h)
     return logits[:, 0], {**cache, "pos": pos + 1}

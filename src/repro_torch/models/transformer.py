@@ -1,11 +1,14 @@
-"""Dense transformer blocks, one ``nn.Module`` per layer.
+"""Dense and MoE transformer blocks, one ``nn.Module`` per layer.
 
 The JAX package scans over stacked layers and selects each layer's window
 and RoPE theta inside the scan from a traced ``kind``; the port loops over
 its layers in Python and knows each layer's kind statically
 (``cfg.layer_kinds()``), so the window reaches attention as a Python
-``int | None``.  The MoE, hybrid and xLSTM blocks arrive with their
-families.
+``int | None``.  A block of a config with ``num_experts`` holds ``moe``
+(router and experts, named as the JAX package's ``block_init``) in place
+of ``mlp``; ``mesh`` (a ``distributed.mesh.Mesh``) reaches the MoE for
+expert parallelism (``cfg.moe_impl == "shard_map"``).  The hybrid and
+xLSTM blocks arrive with their families.
 
 ``block_remat`` applies ``cfg.remat_policy`` as the JAX package's
 ``_remat`` does around its scan body, through ``torch.utils.checkpoint``
@@ -31,18 +34,27 @@ from .module import Creator, parameter
 
 
 class Block(nn.Module):
-    """rmsnorm -> GQA attention -> residual -> rmsnorm -> SwiGLU -> residual."""
+    """rmsnorm -> GQA attention -> residual -> rmsnorm -> SwiGLU or MoE ->
+    residual."""
 
     def __init__(self, c: Creator, cfg: ModelConfig):
         super().__init__()
-        if cfg.num_experts:
-            raise NotImplementedError("MoE blocks are not ported yet")
         self.ln1 = parameter(c("ln1", (cfg.d_model,), (None,), scale="zeros"))
         self.attn = nn.ParameterDict(
             {k: parameter(t) for k, t in L.attn_init(c, cfg).items()})
         self.ln2 = parameter(c("ln2", (cfg.d_model,), (None,), scale="zeros"))
-        self.mlp = nn.ParameterDict(
-            {k: parameter(t) for k, t in L.mlp_init(c, cfg).items()})
+        if cfg.num_experts:
+            self.moe = nn.ParameterDict(
+                {k: parameter(t) for k, t in L.moe_init(c, cfg).items()})
+        else:
+            self.mlp = nn.ParameterDict(
+                {k: parameter(t) for k, t in L.mlp_init(c, cfg).items()})
+
+
+def _ffn(p: Block, x, cfg: ModelConfig, mesh):
+    if cfg.num_experts:
+        return L.moe_apply(p.moe, x, cfg, mesh)
+    return L.mlp_apply(p.mlp, x, cfg.compute_dtype)
 
 
 def layer_window_theta(cfg: ModelConfig, kind: int):
@@ -53,7 +65,7 @@ def layer_window_theta(cfg: ModelConfig, kind: int):
 
 
 def block_apply(p: Block, h, cfg: ModelConfig, *, kind: int, positions,
-                kv_len=None, causal=True, collect=False):
+                kv_len=None, causal=True, collect=False, mesh=None):
     window, theta = layer_window_theta(cfg, kind)
     a = L.attn_apply(p.attn, L.rmsnorm(h, p.ln1), cfg, positions=positions,
                      theta=theta, causal=causal, window=window, kv_len=kv_len,
@@ -61,7 +73,7 @@ def block_apply(p: Block, h, cfg: ModelConfig, *, kind: int, positions,
     if collect:
         a, kv = a
     h = h + a
-    h = h + L.mlp_apply(p.mlp, L.rmsnorm(h, p.ln2), cfg.compute_dtype)
+    h = h + _ffn(p, L.rmsnorm(h, p.ln2), cfg, mesh)
     return (h, kv) if collect else h
 
 
@@ -74,9 +86,9 @@ def _save_dots(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def block_remat(p: Block, h, cfg: ModelConfig, *, kind: int, positions):
+def block_remat(p: Block, h, cfg: ModelConfig, *, kind: int, positions, mesh=None):
     """``block_apply`` under ``cfg.remat_policy`` (see the module note)."""
-    fn = functools.partial(block_apply, cfg=cfg, kind=kind, positions=positions)
+    fn = functools.partial(block_apply, cfg=cfg, kind=kind, positions=positions, mesh=mesh)
     policy = cfg.remat_policy
     if policy == "none" or not torch.is_grad_enabled():
         return fn(p, h)
@@ -89,10 +101,10 @@ def block_remat(p: Block, h, cfg: ModelConfig, *, kind: int, positions):
 
 
 def block_decode(p: Block, h, cfg: ModelConfig, cache_k, cache_v, pos: int, *,
-                 kind: int):
+                 kind: int, mesh=None):
     """One decode step of one block; writes K / V at ``pos`` in place."""
     window, theta = layer_window_theta(cfg, kind)
     a = L.attn_decode_apply(p.attn, L.rmsnorm(h, p.ln1), cfg, cache_k, cache_v,
                             pos, theta=theta, window=window)
     h = h + a
-    return h + L.mlp_apply(p.mlp, L.rmsnorm(h, p.ln2), cfg.compute_dtype)
+    return h + _ffn(p, L.rmsnorm(h, p.ln2), cfg, mesh)

@@ -38,11 +38,13 @@ class GenerationResult:
 class Engine:
     """``params_or_model`` is a ``Model`` (moved to ``device``) or a
     ``state_dict`` (``models.convert.params_from_jax``), loaded into a new
-    model on ``device``."""
+    model on ``device``.  ``mesh`` (``distributed.mesh.Mesh``) shards a MoE
+    model's experts when ``cfg.moe_impl == "shard_map"``."""
 
     def __init__(self, cfg: ModelConfig, params_or_model, max_len: int = 512,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = torch.device(device)
         if isinstance(params_or_model, Mapping):
             model = Mdl.init_params(cfg, Empty(cfg.param_dtype, self.device))
@@ -57,7 +59,7 @@ class Engine:
         """(last-token logits, cache preallocated at ``max(max_len, prompt
         length)``)."""
         tokens = torch.as_tensor(prompts, device=self.device).long()
-        logits, cache = Mdl.prefill(self.cfg, self.model, tokens)
+        logits, cache = Mdl.prefill(self.cfg, self.model, tokens, mesh=self.mesh)
         s = cache["pos"]
         full = Mdl.init_cache(self.cfg, tokens.shape[0], max(self.max_len, s),
                               self.device)
@@ -69,7 +71,7 @@ class Engine:
     @torch.inference_mode()
     def decode(self, cache, tok):
         """One step: ``tok`` (B, 1) -> (logits (B, V), cache)."""
-        return Mdl.decode_step(self.cfg, self.model, cache, tok)
+        return Mdl.decode_step(self.cfg, self.model, cache, tok, mesh=self.mesh)
 
     @torch.inference_mode()
     def generate(self, prompts, steps: int, *, greedy: bool = True,

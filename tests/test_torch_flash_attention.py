@@ -375,13 +375,76 @@ def test_flash_attention_window_leaving_a_row_nothing_is_zero():
     assert got[:, :, :10].abs().sum() > 0
 
 
-@pytest.mark.parametrize("d,dtype,exc", [(48, torch.float32, ValueError),
-                                         (256, torch.bfloat16, ValueError),
+@pytest.mark.parametrize("d,dtype,exc", [(100, torch.float32, ValueError),
+                                         (512, torch.bfloat16, ValueError),
                                          (64, torch.float16, TypeError)])
 def test_flash_attention_wrapper_refuses_what_the_kernel_does_not_take(d, dtype, exc):
     q = torch.zeros((1, 2, 8, d), dtype=dtype)
     with pytest.raises(exc):
         flash_attention_cuda(q, q, q)
+
+
+@pytest.mark.parametrize("d", [8, 96, 112, 136, 256])
+def test_check_takes_every_head_dim_the_kernels_take(d):
+    """Multiples of 8 from 8 to 256 pass ``_check`` (the kernels run d on
+    the smallest instantiation at least d); on CPU tensors the wrapper then
+    takes the plain version."""
+    from repro_torch.kernels.flash_attention.flash_attention import _check, head_dim_ok
+
+    assert head_dim_ok(d)
+    q = torch.zeros((1, 2, 8, d))
+    _check(q, q, q, None)
+    assert tuple(flash_attention_cuda(q, q, q).shape) == (1, 2, 8, d)
+
+
+@pytest.mark.parametrize("d", [4, 100, 260, 512])
+def test_check_refuses_head_dims_outside_the_rule(d):
+    from repro_torch.kernels.flash_attention.flash_attention import _check, head_dim_ok
+
+    assert not head_dim_ok(d)
+    q = torch.zeros((1, 2, 8, d))
+    with pytest.raises(ValueError, match="head_dim"):
+        _check(q, q, q, None)
+
+
+def test_check_refuses_a_p_dtype_the_kernels_cannot_round_to():
+    q = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(NotImplementedError, match="float64"):
+        flash_attention_cuda(q, q, q, p_dtype=torch.float64)
+    for ok in (None, torch.float32, torch.bfloat16, torch.float16):
+        flash_attention_cuda(q, q, q, p_dtype=ok)
+
+
+@pytest.mark.parametrize("p_dtype,unit", [("bfloat16", 2.0 ** -8), ("float16", 2.0 ** -11)])
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal,win", SHAPES[:3], ids=lambda v: str(v))
+def test_p_dtype_plain_version_stays_within_its_bound_of_jax(p_dtype, unit, b, h, kvh, sq,
+                                                             sk, d, causal, win):
+    """``flash_attention_ref(p_dtype=...)`` rounds exp(s - max) before P.V,
+    JAX's chunked attention exp(s - running max): each rounding moves an
+    output by at most u max|v| (u = 2^-8 bf16, 2^-11 float16), so the two
+    stay within 2 u max|v| (plus float32 noise, 2e-5) of each other; the
+    plain backward's dV takes the rounded P."""
+    arrs = _qkv(7, b, h, kvh, sq, sk, d)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrs, "float32")
+    pdt = getattr(torch, p_dtype)
+    got = flash_attention_ref(tq, tk, tv, causal=causal, window=win, p_dtype=pdt)
+    want = jattn.attention_chunked(jnp.swapaxes(jq, 1, 2), jnp.swapaxes(jk, 1, 2),
+                                   jnp.swapaxes(jv, 1, 2), causal=causal, window=win,
+                                   chunk=64, p_dtype=getattr(jnp, p_dtype))
+    bound = 2 * unit * float(np.abs(arrs[2]).max()) + 2e-5
+    assert float(np.abs(got.numpy() - np.swapaxes(np.asarray(want), 1, 2)).max()) <= bound
+    exact = flash_attention_ref(tq, tk, tv, causal=causal, window=win)
+    assert float((got - exact).abs().max()) <= bound
+    assert not torch.equal(got, exact)
+    # the backward rounds P for dV only
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref, flash_attention_lse_ref
+
+    o, lse = flash_attention_lse_ref(tq, tk, tv, causal=causal, window=win, p_dtype=pdt)
+    do = torch.from_numpy(np.random.default_rng(8).standard_normal(tq.shape).astype(np.float32))
+    dq, dk, dv = flash_attention_bwd_ref(tq, tk, tv, o, lse, do, causal=causal, window=win,
+                                         p_dtype=pdt)
+    dq0, dk0, dv0 = flash_attention_bwd_ref(tq, tk, tv, o, lse, do, causal=causal, window=win)
+    assert torch.equal(dq, dq0) and torch.equal(dk, dk0) and not torch.equal(dv, dv0)
 
 
 # --------------------------------------------------------- model level
@@ -416,6 +479,19 @@ def test_model_attention_chunked_p_dtype_matches_jax():
     (jq, jk, jv), (tq, tk, tv) = _both(arrs, "float32")
     want = jattn.attention_chunked(jq, jk, jv, chunk=16, p_dtype=jnp.bfloat16)
     got = tattn.attention_chunked(tq, tk, tv, chunk=16, p_dtype=torch.bfloat16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("p_dtype", ["bfloat16", "float16"])
+def test_model_attention_p_dtype_through_the_plain_path_matches_jax(p_dtype):
+    """``attention(impl="chunked", p_dtype=...)`` on CPU tensors is the
+    plain chunked scan, JAX's ``attention`` with the same ``p_dtype``."""
+    arrs = _model_qkv(11, 2, 40, 40, 4, 2, 16)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrs, "float32")
+    want = jattn.attention(jq, jk, jv, impl="chunked", chunk=16, window=12,
+                           p_dtype=getattr(jnp, p_dtype))
+    got = tattn.attention(tq, tk, tv, impl="chunked", chunk=16, window=12,
+                          p_dtype=getattr(torch, p_dtype))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 

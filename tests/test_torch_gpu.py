@@ -1127,7 +1127,7 @@ def test_flash_attention_strided_views_and_dispatch(cuda):
                                                  vt.contiguous(), window=20))
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 112, 128, 256])
 def test_flash_attention_bf16_every_head_dim(cuda, d):
     """The tensor-core route at each head dim: GQA over ragged keys (sk =
     150, two full 64-key tiles and a zero-filled tail), causal and not, a
@@ -1152,7 +1152,7 @@ def test_flash_attention_bf16_every_head_dim(cuda, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 112, 128, 256])
 def test_flash_attention_strided_views_every_head_dim(cuda, d, dtype):
     """(B, S, H, D) buffers viewed as (B, H, S, D) at each head dim, read in
     place (TMA reads the view's strides on the bf16 route), GQA, a window;
@@ -1198,8 +1198,8 @@ def test_flash_attention_cuda_graph_replay(cuda, dtype):
         assert float((out.float() - want.float()).abs().max()) <= FLASH_ATOL[dtype]
 
 
-@pytest.mark.parametrize("d,dtype,exc", [(48, torch.float32, ValueError),
-                                         (256, torch.bfloat16, ValueError),
+@pytest.mark.parametrize("d,dtype,exc", [(100, torch.float32, ValueError),
+                                         (512, torch.bfloat16, ValueError),
                                          (64, torch.float16, TypeError)])
 def test_flash_attention_refuses_unsupported_inputs(cuda, d, dtype, exc):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -1239,6 +1239,37 @@ def test_reduced_engine_on_card_equals_cpu(cuda):
     assert flash_attention_cuda.launches == before + 2 * cfg.num_layers
     np.testing.assert_array_equal(got.tokens, want.tokens)
     np.testing.assert_allclose(got.prefill_logits, want.prefill_logits, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x7b"])
+def test_reduced_moe_engine_on_card_equals_cpu(cuda, arch):
+    """The reduced MoE configs (f32) served on the card -- the kernel once a
+    prefill layer, none in decode -- give the CPU run's greedy tokens, and
+    expert parallelism over 2 and 4 shards of the card the dense run's."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.distributed.mesh import mesh_for
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.module import Initializer
+    from repro_torch.serve.engine import Engine
+
+    cfg = reduced_config(get_config(arch))
+    model = Mdl.init_params(cfg, Initializer(torch.Generator().manual_seed(0),
+                                             cfg.param_dtype))
+    prompts = np.random.default_rng(1).integers(3, cfg.vocab_size, (4, 12)).astype(np.int32)
+    want = Engine(cfg, model, max_len=64, device="cpu").generate(prompts, 8)
+    card = Engine(cfg, model, max_len=64, device=cuda)
+    before = flash_attention_cuda.launches
+    got = card.generate(prompts, 8)
+    assert flash_attention_cuda.launches == before + cfg.num_layers
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_allclose(got.prefill_logits, want.prefill_logits, atol=1e-3)
+    ep_cfg = cfg.with_overrides(moe_impl="shard_map")
+    for n in (2, 4):
+        ep = Engine(ep_cfg, card.model, max_len=64, device=cuda,
+                    mesh=mesh_for(n, cuda)).generate(prompts, 8)
+        np.testing.assert_array_equal(ep.tokens, got.tokens)
+        np.testing.assert_allclose(ep.prefill_logits, got.prefill_logits, atol=1e-4)
 
 
 def _query_log(tmp_path, n_cases=20_000, group_rows=8_192):
@@ -1593,7 +1624,7 @@ def test_flash_attention_bwd_kernel_equals_plain(cuda, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 112, 128, 256])
 def test_flash_attention_function_gradients_on_card(cuda, d, dtype):
     """``FlashAttention`` on (B, S, H, D) views (GQA, a window): gradients
     against autograd through the plain forward within 5e-5 (float32) /
@@ -1619,6 +1650,44 @@ def test_flash_attention_function_gradients_on_card(cuda, d, dtype):
     for a, p in zip(leaves, plain):
         assert a.grad.transpose(1, 2).is_contiguous()
         assert _rel(a.grad, p.grad) <= FLASH_GRAD_RTOL[dtype]
+
+
+@pytest.mark.parametrize("p_dtype,unit", [(torch.bfloat16, 2.0 ** -8),
+                                          (torch.float16, 2.0 ** -11)], ids=str)
+@pytest.mark.parametrize("d", [64, 96, 256])
+def test_flash_attention_p_dtype_on_card(cuda, d, p_dtype, unit):
+    """``p_dtype`` on the float32 route: the forward within 2 u max|v| + 2e-5
+    of the plain version with the same ``p_dtype`` (both round P, at other
+    maxima), the backward within the float32 bound with 2 u added to dV's
+    magnitude term, and the model's chunked attention passing it on."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_magnitudes,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_cuda,
+                                                     flash_attention_ref)
+    from repro_torch.models import attention as A
+
+    gen = torch.Generator(device=cuda).manual_seed(d + 3)
+    q, k, v = _flash_inputs(gen, 1, 4, 2, 150, 150, d, torch.float32, cuda)
+    got = flash_attention_cuda(q, k, v, causal=True, p_dtype=p_dtype)
+    want = flash_attention_ref(q, k, v, causal=True, p_dtype=p_dtype)
+    assert float((got - want).abs().max()) <= 2 * unit * float(v.abs().max()) + 2e-5
+    o, lse = flash_attention_cuda(q, k, v, causal=True, p_dtype=p_dtype, return_lse=True)
+    do = torch.randn(q.shape, generator=gen, device=cuda)
+    grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, p_dtype=p_dtype)
+    wants = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, p_dtype=p_dtype)
+    mags = flash_attention_bwd_magnitudes(q, k, v, o, lse, do, causal=True)
+    for x, y, m, extra in zip(grads, wants, mags, (0.0, 0.0, 2 * unit)):
+        tol = 1e-5 * (1 + y.abs()) + (2.0 ** -19 + extra) * m
+        assert bool(((x - y).abs() <= tol).all())
+    before = flash_attention_cuda.launches
+    qm, km, vm = (t.transpose(1, 2) for t in (q, k, v))
+    out = A.attention(qm, km, vm, impl="chunked", p_dtype=p_dtype)
+    assert flash_attention_cuda.launches == before + 1
+    plain = A.attention_chunked(qm, km, vm, p_dtype=p_dtype)
+    assert float((out - plain).abs().max()) <= 2 * unit * float(v.abs().max()) + 2e-5
+    with pytest.raises(NotImplementedError):
+        A.attention(qm, km, vm, impl="chunked", p_dtype=torch.float64)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)

@@ -258,7 +258,7 @@ def test_initializer_draws_truncated_fan_in_normal():
 
 def test_other_families_are_not_ported_yet():
     with pytest.raises(NotImplementedError):
-        Mdl.init_params(reduced_config(get_config("mixtral-8x7b")), Empty(device="cpu"))
+        Mdl.init_params(reduced_config(get_config("zamba2-7b")), Empty(device="cpu"))
 
 
 def test_checkpoint_written_by_jax_restores_to_the_same_logits(jax_model, tmp_path):
