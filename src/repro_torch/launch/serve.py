@@ -6,8 +6,11 @@
 The flags and printed lines are the JAX package's ``repro.launch.serve``;
 ``--device`` (default ``cuda``) names where the model runs.  A checkpoint
 directory written by the JAX package's trainer restores as it is.  The
-dense and MoE families serve (``--arch qwen3-moe-30b-a3b``, ``--arch
-mixtral-8x7b``).
+dense, MoE, hybrid and ssm families serve (``--arch qwen3-moe-30b-a3b``,
+``mixtral-8x7b``, ``zamba2-7b``, ``xlstm-1.3b``).  ``whisper-medium`` and
+``internvl2-2b`` need a frontend (encoder frames / patch embeddings) that
+this launcher does not make: they raise a ``ValueError`` naming it, where
+the JAX package's launcher fails an ``assert``.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ from repro_torch.models.module import Initializer
 from repro_torch.serve.engine import Engine
 from repro_torch.train.checkpoint import CheckpointManager
 
+FRONTENDS = {"audio": "encoder frame embeddings", "vlm": "patch embeddings"}
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -43,6 +48,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
+    if cfg.family in FRONTENDS:
+        raise ValueError(f"--arch {args.arch}: the {cfg.family} family needs a frontend "
+                         f"({FRONTENDS[cfg.family]}), which this launcher does not make; "
+                         f"pass one to serve.engine.Engine.generate(..., frontend=)")
     device = torch.device(args.device)
     model = Mdl.init_params(cfg, Initializer(
         torch.Generator(device=device).manual_seed(args.seed), cfg.param_dtype))

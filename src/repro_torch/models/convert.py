@@ -1,11 +1,12 @@
 """Carry the JAX package's parameters over to the port.
 
-The JAX model keeps each per-layer leaf stacked on a leading ``layers``
-axis (``{"layers": {"attn": {"wq": (L, D, Hd)}}}``); the port keeps one
-``Block`` per layer.  ``params_from_jax`` unstacks that axis into the
-port's ``state_dict`` names (``layers.3.attn.wq``) and keeps every value
+The JAX model keeps each per-layer leaf stacked on a leading axis
+(``{"layers": {"attn": {"wq": (L, D, Hd)}}}``, and ``enc_layers``,
+``groups``); the port keeps one module per layer.  ``params_from_jax``
+unstacks those axes into the port's ``state_dict`` names
+(``layers.3.attn.wq``, ``groups.1.mlstm.4.up``) and keeps every value
 bitwise.  ``params_to_jax`` is its inverse: the per-layer leaves stacked
-back on the leading ``layers`` axis, bitwise.  ``opt_to_jax`` /
+back, bitwise.  ``opt_to_jax`` /
 ``opt_from_jax`` carry the AdamW state (``m`` and ``v`` keyed like the
 parameters, ``step``) across the same way, so either package resumes the
 other's training.  Checkpoints written by the JAX package name their
@@ -28,29 +29,56 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
-def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """The port's ``state_dict`` of a dense or MoE model from the JAX
-    parameter pytree (nested dicts of numpy arrays or anything
-    ``np.asarray`` takes): ``["layers"]["moe"]["gate"]`` (L, E, D, F) becomes
-    ``layers.{i}.moe.gate`` (E, D, F), bitwise."""
-    state = {}
-    for name, leaf in tree.items():
-        if name == "layers":
-            continue
+# The JAX parameter groups stacked on a leading axis, each mapped to the
+# groups stacked again inside it: the xLSTM's mLSTM blocks sit on a second
+# axis, (G, n_m, ...), beside their norms, one (G, n_m, D) leaf.
+STACKED = {"layers": {}, "enc_layers": {}, "groups": {"mlstm": {}}}
+
+
+def _walk(state, prefix, node, stacked):
+    for key, leaf in node.items():
+        if key in stacked:
+            arrs = _leaves(leaf)
+            n = next(iter(arrs.values())).shape[0]
+            for i in range(n):
+                _walk(state, f"{prefix}{key}.{i}.", _nest({k: a[i] for k, a in arrs.items()}),
+                      stacked[key])
+        elif isinstance(leaf, Mapping):
+            _walk(state, f"{prefix}{key}.", leaf, {})
+        else:
+            state[prefix + key] = _tensor(leaf)
+
+
+def _leaves(node, prefix=()):
+    out = {}
+    for key, leaf in node.items():
         if isinstance(leaf, Mapping):
-            raise ValueError(f"unexpected parameter group {name!r}")
-        state[name] = _tensor(leaf)
+            out.update(_leaves(leaf, (*prefix, key)))
+        else:
+            out[(*prefix, key)] = np.asarray(leaf)
+    return out
 
-    def walk(prefix, node):
-        for key, leaf in node.items():
-            if isinstance(leaf, Mapping):
-                walk(f"{prefix}{key}.", leaf)
-                continue
-            arr = np.asarray(leaf)
-            for i in range(arr.shape[0]):
-                state[f"layers.{i}.{prefix}{key}"] = _tensor(arr[i])
 
-    walk("", tree.get("layers", {}))
+def _nest(flat):
+    out: dict = {}
+    for path, leaf in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The port's ``state_dict`` from the JAX parameter pytree (nested dicts
+    of numpy arrays or anything ``np.asarray`` takes), bitwise: each group
+    of ``STACKED`` unstacked into a module list (``["layers"]["moe"]["gate"]``
+    (L, E, D, F) becomes ``layers.{i}.moe.gate`` (E, D, F);
+    ``["groups"]["mlstm"]["up"]`` (G, n_m, ...) becomes
+    ``groups.{g}.mlstm.{j}.up``), every other leaf kept whole
+    (``shared.attn.wq``, ``enc_norm``)."""
+    state: dict[str, torch.Tensor] = {}
+    _walk(state, "", tree, STACKED)
     return state
 
 
@@ -58,31 +86,34 @@ def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
+def _stack(name, by_index: dict) -> np.ndarray:
+    """The leaves keyed by their module-list indices, stacked on as many
+    leading axes as there are indices."""
+    if list(by_index) == [()]:
+        return _host(by_index[()])
+    firsts = sorted({i[0] for i in by_index})
+    if firsts != list(range(len(firsts))):
+        raise ValueError(f"layers of {name!r} are not 0..{len(firsts) - 1}")
+    return np.stack([_stack(name, {i[1:]: t for i, t in by_index.items() if i[0] == f})
+                     for f in firsts])
+
+
 def params_to_jax(params) -> dict:
     """The JAX parameter pytree (nested dicts of numpy arrays) of a ``Model``
     or of a mapping keyed by the port's parameter names (a ``state_dict``,
-    or AdamW's ``m`` / ``v``): ``layers.{i}.attn.wq`` leaves stacked in
-    layer order into ``["layers"]["attn"]["wq"]``, every value bitwise."""
+    or AdamW's ``m`` / ``v``): the inverse of ``params_from_jax``.  Each
+    index of a module list in a name is a stacked axis, in the order of the
+    name (``groups.{g}.mlstm.{j}.up`` -> ``["groups"]["mlstm"]["up"][g, j]``),
+    every value bitwise."""
     if isinstance(params, torch.nn.Module):
         params = dict(params.named_parameters())
-    out: dict = {}
-    layers: dict[str, dict[int, Any]] = {}
+    leaves: dict[tuple, dict[tuple, Any]] = {}
     for name, t in params.items():
-        head, _, rest = name.partition(".")
-        if head == "layers":
-            i, _, leaf = rest.partition(".")
-            layers.setdefault(leaf, {})[int(i)] = t
-        else:
-            out[name] = _host(t)
-    for leaf, by_layer in layers.items():
-        if sorted(by_layer) != list(range(len(by_layer))):
-            raise ValueError(f"layers of {leaf!r} are not 0..{len(by_layer) - 1}")
-        node = out.setdefault("layers", {})
-        *groups, key = leaf.split(".")
-        for g in groups:
-            node = node.setdefault(g, {})
-        node[key] = np.stack([_host(by_layer[i]) for i in range(len(by_layer))])
-    return out
+        parts = name.split(".")
+        path = tuple(p for p in parts if not p.isdigit())
+        leaves.setdefault(path, {})[tuple(int(p) for p in parts if p.isdigit())] = t
+    return _nest({path: _stack(".".join(path), by_index)
+                  for path, by_index in leaves.items()})
 
 
 def opt_to_jax(opt: Mapping[str, Any]) -> dict:

@@ -3,10 +3,10 @@
 Parameters come as mappings of tensors (a block's ``nn.ParameterDict``),
 named as in the JAX package.  The rounding points are the JAX package's:
 inputs cast to the compute dtype before every product, RMSNorm and RoPE in
-float32 and cast back, the K / V cache in bf16 whatever the compute dtype.
+float32 and cast back, the K / V cache in ``CACHE_DTYPE`` (bf16, as the JAX
+package keeps it) whatever the compute dtype.
 Plain products stay ``torch.matmul``, as the JAX package leaves them to
-XLA, the MoE's batched expert products included.  The cross-attention
-parts arrive with their family.
+XLA, the MoE's batched expert products included.
 """
 from __future__ import annotations
 
@@ -16,6 +16,10 @@ import torch.nn.functional as F
 from .attention import attention, attention_decode
 from .config import ModelConfig
 from .module import Creator
+
+
+# the dtype of every cached K / V, the JAX package's bf16
+CACHE_DTYPE = torch.bfloat16
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -199,8 +203,30 @@ def attn_apply(p, x, cfg: ModelConfig, *, positions, theta, causal=True,
     b, s = o.shape[:2]
     out = o.reshape(b, s, -1) @ p["wo"].to(torch_dtype(cfg.compute_dtype))
     if collect:
-        return out, (k.to(torch.bfloat16), v.to(torch.bfloat16))
+        return out, (k.to(CACHE_DTYPE), v.to(CACHE_DTYPE))
     return out
+
+
+def attn_apply_cross(p, x, enc_h, cfg: ModelConfig, kv: tuple | None = None):
+    """Cross attention: queries from x, keys / values from the encoder
+    output ``enc_h`` (or a precomputed (k, v) pair, the bf16 cache of a
+    prefill).  No RoPE, not causal; on a CUDA tensor ``attention`` reaches
+    the flash-attention kernel.  The kernel takes one dtype, so a cached
+    bf16 (k, v) is widened to float32 queries' dtype, which is exact (the
+    JAX package's attention widens every operand to float32)."""
+    dt = torch_dtype(cfg.compute_dtype)
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x.to(dt) @ p["wq"].to(dt)).reshape(b, s, cfg.num_heads, hd)
+    if kv is None:
+        e = enc_h.to(dt)
+        k = (e @ p["wk"].to(dt)).reshape(b, -1, cfg.num_kv_heads, hd)
+        v = (e @ p["wv"].to(dt)).reshape(b, -1, cfg.num_kv_heads, hd)
+    else:
+        k, v = kv
+    o = attention(q, k.to(q.dtype), v.to(q.dtype), impl=cfg.attn_impl, causal=False,
+                  window=None, chunk=cfg.attn_chunk)
+    return o.reshape(b, s, -1) @ p["wo"].to(dt)
 
 
 def attn_decode_apply(p, x, cfg: ModelConfig, cache_k, cache_v, pos: int, *,

@@ -7,8 +7,9 @@ logical ``axes`` name what each dimension is (``"embed"``, ``"vocab"``,
 
 * ``Initializer`` -- truncated-normal fan-in init (the JAX package's
   distribution: a standard normal cut at +-2, times ``fan_in ** -0.5`` or
-  the given scale) drawn from one ``torch.Generator``, on its device.  It
-  gives the same distribution, not JAX's bits.
+  the given scale; ``"zeros"`` / ``"ones"`` constant) drawn from one
+  ``torch.Generator``, on its device.  It gives the same distribution, not
+  JAX's bits.
 * ``Empty`` -- uninitialized tensors, for a model whose values are loaded
   next (``load_state_dict``).
 
@@ -37,6 +38,8 @@ class Initializer(Creator):
         dtype = getattr(torch, dtype or self.dtype)
         if scale == "zeros":
             return torch.zeros(shape, dtype=dtype, device=self.device)
+        if scale == "ones":
+            return torch.ones(shape, dtype=dtype, device=self.device)
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = (1.0 / max(fan_in, 1)) ** 0.5 if scale is None else scale
         t = torch.empty(shape, dtype=torch.float32, device=self.device)

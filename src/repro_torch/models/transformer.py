@@ -1,4 +1,4 @@
-"""Dense and MoE transformer blocks, one ``nn.Module`` per layer.
+"""Transformer blocks of every family, one ``nn.Module`` per layer.
 
 The JAX package scans over stacked layers and selects each layer's window
 and RoPE theta inside the scan from a traced ``kind``; the port loops over
@@ -7,8 +7,13 @@ its layers in Python and knows each layer's kind statically
 ``int | None``.  A block of a config with ``num_experts`` holds ``moe``
 (router and experts, named as the JAX package's ``block_init``) in place
 of ``mlp``; ``mesh`` (a ``distributed.mesh.Mesh``) reaches the MoE for
-expert parallelism (``cfg.moe_impl == "shard_map"``).  The hybrid and
-xLSTM blocks arrive with their families.
+expert parallelism (``cfg.moe_impl == "shard_map"``).  The other
+families' blocks hold their parameters under the JAX package's names:
+``HybridBlock`` (zamba2's Mamba2 layer), ``SharedAttn`` (its one attention
++ MLP block, shared by every group), ``XLSTMGroup`` (``slstm_every - 1``
+mLSTM blocks, their norms as one ``(n_m, D)`` parameter, then one sLSTM
+block) and ``DecBlock`` (Whisper's decoder: self attention, cross
+attention, MLP).
 
 ``block_remat`` applies ``cfg.remat_policy`` as the JAX package's
 ``_remat`` does around its scan body, through ``torch.utils.checkpoint``
@@ -29,8 +34,14 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from . import layers as L
+from . import mamba2 as M
+from . import xlstm as X
 from .config import ModelConfig
 from .module import Creator, parameter
+
+
+def _dict(params: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: parameter(t) for k, t in params.items()})
 
 
 class Block(nn.Module):
@@ -40,15 +51,60 @@ class Block(nn.Module):
     def __init__(self, c: Creator, cfg: ModelConfig):
         super().__init__()
         self.ln1 = parameter(c("ln1", (cfg.d_model,), (None,), scale="zeros"))
-        self.attn = nn.ParameterDict(
-            {k: parameter(t) for k, t in L.attn_init(c, cfg).items()})
+        self.attn = _dict(L.attn_init(c, cfg))
         self.ln2 = parameter(c("ln2", (cfg.d_model,), (None,), scale="zeros"))
         if cfg.num_experts:
-            self.moe = nn.ParameterDict(
-                {k: parameter(t) for k, t in L.moe_init(c, cfg).items()})
+            self.moe = _dict(L.moe_init(c, cfg))
         else:
-            self.mlp = nn.ParameterDict(
-                {k: parameter(t) for k, t in L.mlp_init(c, cfg).items()})
+            self.mlp = _dict(L.mlp_init(c, cfg))
+
+
+class HybridBlock(nn.Module):
+    """rmsnorm -> Mamba2 mixer -> residual (zamba2's backbone layer)."""
+
+    def __init__(self, c: Creator, cfg: ModelConfig):
+        super().__init__()
+        self.ln = parameter(c("ln", (cfg.d_model,), (None,), scale="zeros"))
+        self.mamba = _dict(M.mamba2_init(c, cfg))
+
+
+class SharedAttn(nn.Module):
+    """zamba2's shared block: rmsnorm -> attention -> residual -> rmsnorm ->
+    SwiGLU -> residual, one set of weights for every group."""
+
+    def __init__(self, c: Creator, cfg: ModelConfig):
+        super().__init__()
+        self.ln1 = parameter(c("sln1", (cfg.d_model,), (None,), scale="zeros"))
+        self.attn = _dict(L.attn_init(c, cfg, prefix="shared_attn"))
+        self.ln2 = parameter(c("sln2", (cfg.d_model,), (None,), scale="zeros"))
+        self.mlp = _dict(L.mlp_init(c, cfg))
+
+
+class XLSTMGroup(nn.Module):
+    """One group: ``slstm_every - 1`` mLSTM blocks, then one sLSTM block."""
+
+    def __init__(self, c: Creator, cfg: ModelConfig):
+        super().__init__()
+        n_m = cfg.slstm_every - 1
+        self.mlstm_ln = parameter(c("gln", (n_m, cfg.d_model), ("layers", None),
+                                    scale="zeros"))
+        self.mlstm = nn.ModuleList(_dict(X.mlstm_init(c, cfg)) for _ in range(n_m))
+        self.slstm_ln = parameter(c("sln", (cfg.d_model,), (None,), scale="zeros"))
+        self.slstm = _dict(X.slstm_init(c, cfg))
+
+
+class DecBlock(nn.Module):
+    """Whisper's decoder block: self attention, cross attention over the
+    encoder output, SwiGLU, each behind an rmsnorm and a residual."""
+
+    def __init__(self, c: Creator, cfg: ModelConfig):
+        super().__init__()
+        self.ln1 = parameter(c("ln1", (cfg.d_model,), (None,), scale="zeros"))
+        self.attn = _dict(L.attn_init(c, cfg))
+        self.lnx = parameter(c("lnx", (cfg.d_model,), (None,), scale="zeros"))
+        self.xattn = _dict(L.attn_init(c, cfg, prefix="xattn"))
+        self.ln2 = parameter(c("ln2", (cfg.d_model,), (None,), scale="zeros"))
+        self.mlp = _dict(L.mlp_init(c, cfg))
 
 
 def _ffn(p: Block, x, cfg: ModelConfig, mesh):

@@ -3,17 +3,24 @@
 Prefill runs the whole prompt through the model (on a card, each layer's
 attention is the flash-attention kernel) and copies its bf16 K / V into a
 cache preallocated at ``max(max_len, prompt length)``; each decode step
-then writes one position of that cache in place.  Tokens stay on the
-device until the loop ends.
+then writes one position of that cache in place.  The other entries of a
+family's cache (``models.model.init_cache``) are not grown, as in the JAX
+package's ``_grow_cache``: recurrent states are O(1), and Whisper's cross
+K / V keep ``enc_seq`` rows.  The vlm and audio families take a
+``frontend`` (patch embeddings / encoder frames, ``(B, n, d_model)``) at
+prefill.  Tokens stay on the device until the loop ends.
 
 Past the cache the shapes are the JAX package's: a prompt longer than
 ``max_len`` keeps a cache of its own length, and a decode step at a
 position past the cache writes its K / V onto the last slot (as
 ``dynamic_update_slice`` clamps there) while attending over every slot
 and taking RoPE at its true position.  So tokens past the cache are
-computed on an overwritten last slot, exactly as in JAX.  Sampling draws from ``torch.multinomial`` with the caller's
-generator: the same distribution as the JAX package's
-``jax.random.categorical``, not its bits.
+computed on an overwritten last slot, exactly as in JAX, with no error.
+A vlm prompt's cache holds its ``num_patches`` patch positions before its
+tokens, so its ``max_len`` counts them too: ``num_patches + prompt length
++ steps`` keeps every decode step in the cache.  Sampling draws from
+``torch.multinomial`` with the caller's generator: the same distribution
+as the JAX package's ``jax.random.categorical``, not its bits.
 """
 from __future__ import annotations
 
@@ -39,7 +46,10 @@ class Engine:
     """``params_or_model`` is a ``Model`` (moved to ``device``) or a
     ``state_dict`` (``models.convert.params_from_jax``), loaded into a new
     model on ``device``.  ``mesh`` (``distributed.mesh.Mesh``) shards a MoE
-    model's experts when ``cfg.moe_impl == "shard_map"``."""
+    model's experts when ``cfg.moe_impl == "shard_map"``.  ``max_len`` is
+    the cache's positions: for the vlm family, the patch prefix's
+    ``num_patches`` are among them (past the cache, decode overwrites its
+    last slot, as the module docstring says)."""
 
     def __init__(self, cfg: ModelConfig, params_or_model, max_len: int = 512,
                  device="cuda", mesh=None):
@@ -55,17 +65,21 @@ class Engine:
         self.max_len = max_len
 
     @torch.inference_mode()
-    def prefill(self, prompts):
-        """(last-token logits, cache preallocated at ``max(max_len, prompt
-        length)``)."""
+    def prefill(self, prompts, frontend=None):
+        """(last-token logits, cache with its K / V preallocated at
+        ``max(max_len, prompt length)``)."""
         tokens = torch.as_tensor(prompts, device=self.device).long()
-        logits, cache = Mdl.prefill(self.cfg, self.model, tokens, mesh=self.mesh)
-        s = cache["pos"]
-        full = Mdl.init_cache(self.cfg, tokens.shape[0], max(self.max_len, s),
-                              self.device)
-        full["k"][:, :, :s] = cache["k"]
-        full["v"][:, :, :s] = cache["v"]
-        full["pos"] = s
+        if frontend is not None:
+            frontend = torch.as_tensor(frontend, device=self.device)
+        logits, cache = Mdl.prefill(self.cfg, self.model, tokens, frontend=frontend,
+                                    mesh=self.mesh)
+        full = dict(cache)
+        for name in ("k", "v"):
+            if name in cache:
+                t = cache[name]
+                s = t.shape[2]
+                full[name] = t.new_zeros((*t.shape[:2], max(self.max_len, s), *t.shape[3:]))
+                full[name][:, :, :s] = t
         return logits, full
 
     @torch.inference_mode()
@@ -74,9 +88,9 @@ class Engine:
         return Mdl.decode_step(self.cfg, self.model, cache, tok, mesh=self.mesh)
 
     @torch.inference_mode()
-    def generate(self, prompts, steps: int, *, greedy: bool = True,
+    def generate(self, prompts, steps: int, *, frontend=None, greedy: bool = True,
                  generator: torch.Generator | None = None) -> GenerationResult:
-        logits, cache = self.prefill(prompts)
+        logits, cache = self.prefill(prompts, frontend)
         toks = []
         tok = logits.argmax(-1)[:, None]
         for _ in range(steps):

@@ -1056,7 +1056,10 @@ FLASH_SHAPES = [(1, 4, 2, 128, 128, 64, True, None),
                 (1, 4, 2, 200, 200, 16, True, None),      # GQA over ragged keys
                 (2, 6, 2, 130, 130, 128, True, 48),
                 (8, 12, 12, 12, 12, 64, True, None),      # eventlm-100m prefill, (a)
-                (8, 12, 12, 1000, 1000, 64, True, None)]  # and (b)
+                (8, 12, 12, 1000, 1000, 64, True, None),  # and (b)
+                (2, 16, 16, 12, 1500, 64, False, None),   # whisper: cross attention,
+                (2, 16, 16, 1, 1500, 64, False, None),    # its decode step
+                (2, 16, 16, 1500, 1500, 64, False, None)]  # and the encoder
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -1270,6 +1273,82 @@ def test_reduced_moe_engine_on_card_equals_cpu(cuda, arch):
                     mesh=mesh_for(n, cuda)).generate(prompts, 8)
         np.testing.assert_array_equal(ep.tokens, got.tokens)
         np.testing.assert_allclose(ep.prefill_logits, got.prefill_logits, atol=1e-4)
+
+
+FAMILY_LAUNCHES = {"zamba2-7b": (2, 0), "xlstm-1.3b": (0, 0), "whisper-medium": (10, 4),
+                   "internvl2-2b": (4, 0)}
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_LAUNCHES))
+def test_reduced_family_engine_on_card_equals_cpu(cuda, arch):
+    """The reduced hybrid, ssm, audio and vlm configs (f32) served on the
+    card give the CPU run's greedy tokens, with the kernel launched as the
+    family says (hybrid once a group, ssm never, audio for the encoder, the
+    decoder's self and cross attention a prefill and its cross attention a
+    decode step, vlm once a layer), and ``forward`` within 1e-3."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.module import Initializer
+    from repro_torch.serve.engine import Engine
+
+    cfg = reduced_config(get_config(arch))
+    model = Mdl.init_params(cfg, Initializer(torch.Generator().manual_seed(0),
+                                             cfg.param_dtype))
+    prompts = np.random.default_rng(2).integers(3, cfg.vocab_size, (4, 12)).astype(np.int32)
+    n = {"audio": cfg.enc_seq, "vlm": cfg.num_patches}.get(cfg.family)
+    fe = (torch.randn((4, n, cfg.d_model), generator=torch.Generator().manual_seed(9)) * 0.1
+          if n else None)
+    want = Engine(cfg, model, max_len=64, device="cpu").generate(prompts, 8, frontend=fe)
+    toks = torch.from_numpy(prompts)
+    with torch.inference_mode():
+        want_fwd = Mdl.forward(cfg, model, toks, frontend=fe).numpy()
+    card = Engine(cfg, model, max_len=64, device=cuda)       # moves model to the card
+    per_prefill, per_step = FAMILY_LAUNCHES[arch]
+    before = flash_attention_cuda.launches
+    logits, cache = card.prefill(prompts, fe)
+    assert flash_attention_cuda.launches == before + per_prefill
+    card.decode(cache, logits.argmax(-1)[:, None])
+    assert flash_attention_cuda.launches == before + per_prefill + per_step
+    got = card.generate(prompts, 8, frontend=fe)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_allclose(got.prefill_logits, want.prefill_logits, atol=1e-3)
+    with torch.inference_mode():
+        got_fwd = Mdl.forward(cfg, card.model, toks.to(cuda),
+                              frontend=None if fe is None else fe.to(cuda))
+    np.testing.assert_allclose(got_fwd.cpu().numpy(), want_fwd, atol=1e-3)
+
+
+@pytest.mark.parametrize("mixer", ["mamba2", "mlstm", "slstm"])
+def test_mixers_on_card_equal_cpu(cuda, mixer):
+    """Each recurrent mixer, chunked with its state and then one step, on
+    the card within 1e-4 of the CPU (float32, (2, 300) tokens over 16-token
+    chunks)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.module import Initializer
+
+    arch = "zamba2-7b" if mixer == "mamba2" else "xlstm-1.3b"
+    cfg = reduced_config(get_config(arch))
+    init, apply, step = {
+        "mamba2": (M.mamba2_init, lambda p, u: M.mamba2_apply(p, u, cfg, return_state=True),
+                   M.mamba2_step),
+        "mlstm": (X.mlstm_init, lambda p, u: X.mlstm_apply(p, u, cfg, return_state=True),
+                  X.mlstm_step),
+        "slstm": (X.slstm_init, lambda p, u: X.slstm_apply(p, u, cfg), X.slstm_step)}[mixer]
+    p = init(Initializer(torch.Generator().manual_seed(1)), cfg)
+    gen = torch.Generator().manual_seed(2)
+    u = torch.randn((2, 300, cfg.d_model), generator=gen)
+    v = torch.randn((2, 1, cfg.d_model), generator=gen)
+    pc = {k: t.to(cuda) for k, t in p.items()}
+    y, st = apply(p, u)
+    z, st2 = step(p, v, st, cfg)
+    yc, stc = apply(pc, u.to(cuda))
+    zc, st2c = step(pc, v.to(cuda), stc, cfg)
+    for got, want in [(yc, y), (zc, z), *((stc[k], st[k]) for k in st),
+                      *((st2c[k], st2[k]) for k in st2)]:
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
 
 
 def _query_log(tmp_path, n_cases=20_000, group_rows=8_192):

@@ -256,9 +256,10 @@ def test_initializer_draws_truncated_fan_in_normal():
     assert all(p.requires_grad for p in model.parameters())    # training differentiates them
 
 
-def test_other_families_are_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        Mdl.init_params(reduced_config(get_config("zamba2-7b")), Empty(device="cpu"))
+def test_unknown_family_raises_value_error():
+    cfg = reduced_config(get_config(ARCH)).with_overrides(family="retnet")
+    with pytest.raises(ValueError, match="retnet"):
+        Mdl.init_params(cfg, Empty(device="cpu"))
 
 
 def test_checkpoint_written_by_jax_restores_to_the_same_logits(jax_model, tmp_path):
