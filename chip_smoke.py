@@ -14,8 +14,9 @@ over the paper's Table-6 level-L1 log (10^6 cases, ~7x10^6 events, 26
 activities, timestamps) written as an EDF file with 524,288-row groups and
 streamed from disk onto the card, the query layer, the ``Dataset`` facade,
 its sharded engine and the mining service over that file, the EventLM
-serving and training paths, the MoE family's serving and the serving of
-the four other families:
+serving and training paths, the MoE family's serving, the serving of the
+four other families and the training of the moe, hybrid, ssm, audio and
+vlm families:
 
 * ``main_path`` — the out-of-core DFG.  It must equal, bitwise, the same
   stream through the plain versions on the CPU, the whole-log DFG on the
@@ -178,6 +179,25 @@ the four other families:
   and resumed giving the same next step; TF32 off.  It reports tokens/s,
   a synchronized step's forward / backward / optimizer milliseconds, peak
   memory and a step's idle share.
+* ``family_train_path`` — the moe, hybrid, ssm, audio and vlm families
+  trained at full width with depth cut (``FAMILY_TRAIN_RUNS``: qwen3-moe 2
+  of 48 layers, mixtral 1 of 32, zamba2 13 of 81, xlstm 16 of 48, whisper
+  24 + 24 and internvl2 24), random weights from seed 0, stub frontends as
+  in ``families_path``, 10 steps at batch (a) (8 x 128 tokens from
+  ``launch.train.make_data``) with the launcher's ``OptConfig``, in bf16
+  and float32 compute under remat "full".  Gates: (1) step 0's loss and
+  every parameter's gradient against the same model, batch and MoE routes
+  with ``attn_impl="ref"`` (``TRAIN_LOSS_ATOL`` / ``TRAIN_GRAD_RTOL``; the
+  reference run takes the kernel run's expert ids, ``recorded_routes``, and
+  the tokens whose own top k differs are counted); (2) layer 0's mixers or
+  MoE in float32 under autograd, card against CPU, and ``moe_apply_ep`` at
+  1 / 2 / 4 / 8 shards against the dense dispatch (``mixer_check``);
+  (3) every loss and grad norm finite, the mean of the last 5 losses below
+  the first 5's; (4) launches exact each step: the forward kernel twice an
+  attention call and the backward kernel once; (5) a second backward on
+  step 0's batch bitwise the first; (6) TF32 off.  It reports tokens/s, a
+  synchronized step's forward / backward / optimizer ms, peak memory, a
+  step's idle share and the phase's seconds.
 
 The flash-attention check also holds the backward: the forward's
 log-sum-exp against ``flash_attention_lse_ref`` (``FLASH_LSE_ATOL``), the
@@ -188,7 +208,8 @@ bitwise equal to the first, and ``FlashAttention.apply``'s
 gradients against autograd through ``flash_attention_ref``
 (``FLASH_GRAD_RTOL``), at ``FLASH_SHAPES``, on (B, S, H, D) views at
 every head dim, and at the (B, S, H, D) views ``train_path`` gives it
-(``TRAIN_RUNS``' batch and sequence lengths), in float32 and bf16.
+(``TRAIN_RUNS``' batch and sequence lengths) and at the calls
+``family_train_path`` makes (``FAMILY_TRAIN_SHAPES``), in float32 and bf16.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after, and must show its kernels.
@@ -209,7 +230,10 @@ plain versions (``check_flash``, ``check_flash_bwd``), times them
 (``time_flash_attention``) and stops, without the ``ok`` line; ``--serve``
 builds the same two, runs ``serve_path`` and ``moe_path`` and stops,
 without the ``ok`` line; ``--families`` builds the same two, runs
-``families_path`` and stops, without the ``ok`` line.  A copy of this script placed at the root of another checkout (a
+``families_path`` and stops, without the ``ok`` line; ``--train-families``
+builds the same two, holds both at ``FAMILY_TRAIN_SHAPES``, runs
+``family_train_path`` and stops, without the ``ok`` line.  A copy of this
+script placed at the root of another checkout (a
 parent commit unpacked with ``git archive``) times that checkout's kernels
 with the same code.
 
@@ -220,6 +244,8 @@ visible, and it imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -352,7 +378,16 @@ FLASH_TIMED_WHISPER = (("whisper_enc", 8, 16, 16, 1_500, 1_500, 64),
 # 2^-8 A; c = 2 covers that with the tensor cores' float32 sums, and the
 # outputs' own bf16 roundings, one bf16 ulp apart, 2^-7 (1 + |want|).
 # float32: every product 3xTF32, within 2^-20 of its magnitude product, S
-# and dP carrying theirs into P and dS: 1e-5 (1 + |want|) + 2^-19 A.
+# and dP carrying theirs into P and dS: 1e-5 (1 + |want|) + 2^-19 A, with A
+# taken with dp_error (flash_attention_bwd_magnitudes): dS = P (dP - Delta)
+# cancels, so dP's and Delta's errors, fractions of |dO| |V|^T and
+# sum |dO| |o|, reach dQ and dK through P times those, not through |dS|.
+# Stated after the family shapes' first run failed without it: at (8, 32,
+# 4, 128, 128, 128) and (8, 16, 16, 128, 128, 64), causal, the kernel was
+# 1.21 and 1.015 x the bound without it (rel err 1.35e-5, 1.02e-5: a
+# causal row's first key has dS = 0 exactly, so its A_dq was 0 and only
+# 1e-5 (1 + |want|) held it); the plain float32 backward alone is 0.25 x
+# that old bound on the CPU at the first shape.
 # FlashAttention.apply against autograd through the plain forward: the
 # forward's own error enters through Delta = dO . o (float32 3xTF32 within
 # 2^-20; bf16 P within 2^-8).
@@ -457,6 +492,48 @@ FAMILY_FLASH_SHAPES = ((8, 32, 32, 12, 12, 112, True, None),
                        (8, 16, 16, 12, 1_500, 64, False, None),
                        (8, 16, 16, 1, 1_500, 64, False, None),
                        (8, 16, 8, 268, 268, 128, True, None))
+# (arch, layers) of family_train_path, full width with depth cut: qwen3 2
+# of 48 layers, mixtral 1 of 32, zamba2 13 of 81 (two groups of 6 and one
+# tail layer, as served), xlstm 16 of 48 (two groups), whisper 24 + 24 and
+# internvl2 24, uncut; each trained FAMILY_TRAIN_STEPS steps at batch (a),
+# FAMILY_TRAIN_BATCH, in bf16 and float32 compute under remat "full"
+FAMILY_TRAIN_RUNS = (("qwen3-moe-30b-a3b", 2), ("mixtral-8x7b", 1), ("zamba2-7b", 13),
+                     ("xlstm-1.3b", 16), ("whisper-medium", 24), ("internvl2-2b", 24))
+FAMILY_TRAIN_BATCH = (8, 128)
+FAMILY_TRAIN_STEPS = 10
+# (B, H, KVH, Sq, Sk, D, causal, window) of the attention calls those runs
+# make: qwen3, mixtral (window 4,096), zamba2's shared attention (d 112 on
+# the 128 instantiation), whisper's encoder (1,500 frames, a ragged last
+# tile of 28 keys), decoder self attention and cross attention, internvl2
+# over 256 patches + 128 tokens; check_flash_shapes (forward) and
+# check_flash_bwd_shapes hold both kernels at them, in both dtypes
+FAMILY_TRAIN_SHAPES = ((8, 32, 4, 128, 128, 128, True, None),
+                       (8, 32, 8, 128, 128, 128, True, 4_096),
+                       (8, 32, 32, 128, 128, 112, True, None),
+                       (8, 16, 16, 1_500, 1_500, 64, False, None),
+                       (8, 16, 16, 128, 128, 64, True, None),
+                       (8, 16, 16, 128, 1_500, 64, False, None),
+                       (8, 16, 8, 384, 384, 128, True, None))
+# (label, B, H, KVH, Sq, Sk, D, causal) of the backward rows timed at
+# family_train_path's shapes: 9b.112 (zamba2), 9b.128 (qwen3) and 9b.x
+# (whisper's encoder and cross attention)
+FLASH_TIMED_TRAIN = (("d112", 8, 32, 32, 128, 128, 112, True),
+                     ("d128", 8, 32, 4, 128, 128, 128, True),
+                     ("whisper_enc", 8, 16, 16, 1_500, 1_500, 64, False),
+                     ("whisper_cross", 8, 16, 16, 128, 1_500, 64, False))
+# gate 2 of family_train_path: layer 0's mixers and MoE in float32 under
+# autograd on MIXER_TOKENS, the card against the CPU.  Outputs within
+# MIXER_RTOL of their largest magnitude, as in families_path; each input's
+# and parameter's gradient within MIXER_GRAD_RTOL of its largest magnitude:
+# a gradient chains two products summed in other orders, the backward of
+# the mixer's projections (depth up to 7,168, zamba2's d_inner) and the sum
+# over the 600 tokens, each within depth x 2^-24 of its magnitude product
+# in the worst case: (7,168 + 600) 2^-24 ~ 4.6e-4 < 1e-3.  The MoE runs the
+# card's routes on both sides (recorded_routes): the CPU's own routes may
+# differ at near ties, which moe_layer_check's forward gate already
+# covers.  Expert parallelism: each gradient within MOE_EP_ATOL x max(1,
+# its largest magnitude) of the dense dispatch's on the card.
+MIXER_GRAD_RTOL = 1e-3
 SWEEP_GROUPS = (1, 2, 4, 7, 14)      # row groups each dispatch-sweep band covers
 SWEEP_REPEATS = 3
 APPEND_ROWS = 524_288                # new cases appended after L1's tail
@@ -832,7 +909,8 @@ def check_flash_shapes(torch, shapes, entry, gen) -> dict:
 
 def check_flash(torch, out) -> None:
     """The flash-attention kernel against its plain version on the card
-    (``hold_flash``): at ``FLASH_SHAPES`` (``check_flash_shapes``), with
+    (``hold_flash``): at ``FLASH_SHAPES`` and ``FAMILY_TRAIN_SHAPES``
+    (``check_flash_shapes``), with
     ``p_dtype`` on the float32 route, then, at every head dim, the model's
     (B, S, H, D) buffers viewed as (B, H, S, D) (read in place, GQA, a
     window), and a CUDA-graph capture replayed after ``kv_len`` changed on
@@ -845,6 +923,7 @@ def check_flash(torch, out) -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     entry = out["flash_attention"]
     check_flash_shapes(torch, FLASH_SHAPES, entry, gen)
+    check_flash_shapes(torch, FAMILY_TRAIN_SHAPES, entry, gen)
     for d in FLASH_HEAD_DIMS:
         for p_dtype, unit in P_DTYPE_UNIT.items():
             # attn_p_dtype on the float32 route (the bf16 route rounds P to bf16)
@@ -905,6 +984,82 @@ def bwd_bound_ratio(got, want, mag, dtype: str, extra_mag: float = 0.0) -> float
     return float(((got.float() - want).abs() / tol).max())
 
 
+def hold_flash_bwd(torch, entry, q, k, v, do, kv_len, causal, win, dtype, what,
+                   p_dtype=None, group="shapes"):
+    """The backward kernel against its plain version at one case (see
+    ``check_flash_bwd``), recorded in ``entry``; returns its gradients.  In
+    float32 ``entry["float32_bound_ratio"][group]`` also keeps the largest
+    ratio to the bound without ``dp_error``, which is not held."""
+    from repro_torch.kernels import flash_attention as fa
+
+    kw = dict(causal=causal, window=win)
+    if p_dtype is not None:
+        kw["p_dtype"] = getattr(torch, p_dtype)
+    o, lse = fa.flash_attention_cuda(q, k, v, kv_len, return_lse=True, **kw)
+    _, lse_ref = fa.flash_attention_lse_ref(q, k, v, kv_len, **kw)
+    fin = torch.isfinite(lse_ref)
+    lse_err = float((lse[fin] - lse_ref[fin]).abs().max()) if bool(fin.any()) else 0.0
+    if not (torch.equal(torch.isfinite(lse), fin) and lse_err <= FLASH_LSE_ATOL):
+        raise AssertionError(f"flash_attention lse != plain at {what}: {lse_err}")
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len, **kw)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len, **kw)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"flash_attention_bwd at {what}: two calls on the same "
+                             f"inputs differ")
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, kv_len, **kw)
+    mag = fa.flash_attention_bwd_magnitudes(q, k, v, o, lse, do, kv_len,
+                                            causal=causal, window=win,
+                                            dp_error=dtype == "float32")
+    extra = (0.0, 0.0, 2 * P_DTYPE_UNIT[p_dtype]) if p_dtype else (0.0,) * 3
+    for x, y in zip(got, want):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"flash_attention_bwd at {what}: {x.dtype} "
+                                 f"{tuple(x.shape)} != plain {y.dtype} {tuple(y.shape)}")
+    err = max(rel_err(x, y) for x, y in zip(got, want))
+    ratio = max(bwd_bound_ratio(x, y, m, dtype, c)
+                for x, y, m, c in zip(got, want, mag, extra))
+    abs_err = max(float((x.float() - y.float()).abs().max()) if y.numel() else 0.0
+                  for x, y in zip(got, want))
+    if not ratio <= 1.0:
+        raise AssertionError(f"flash_attention_bwd kernel != plain version at "
+                             f"{what}: {ratio} x its bound (rel err {err})")
+    if dtype == "float32":
+        mag = fa.flash_attention_bwd_magnitudes(q, k, v, o, lse, do, kv_len,
+                                                causal=causal, window=win)
+        without = max(bwd_bound_ratio(x, y, m, dtype, c)
+                      for x, y, m, c in zip(got, want, mag, extra))
+        seen = entry.setdefault("float32_bound_ratio", {}).setdefault(
+            group, {"with_dp_error": 0.0, "without_dp_error": 0.0})
+        seen["with_dp_error"] = max(seen["with_dp_error"], ratio)
+        seen["without_dp_error"] = max(seen["without_dp_error"], without)
+    del mag
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    fa.ops.flash_attention(*leaves, kv_len, **kw).backward(do)
+    if p_dtype is not None:
+        # the autograd function passes p_dtype on: the same kernels on the
+        # same inputs give the direct calls' bits
+        fn_err = 0.0
+        if not all(torch.equal(a.grad, x) for a, x in zip(leaves, got)):
+            raise AssertionError(f"FlashAttention gradients != the kernels' at {what}")
+    else:
+        plain = [t.detach().requires_grad_() for t in (q, k, v)]
+        fa.flash_attention_ref(*plain, kv_len, **kw).backward(do)
+        fn_err = max(rel_err(a.grad, b.grad) for a, b in zip(leaves, plain))
+    if not fn_err <= FLASH_GRAD_RTOL[dtype]:
+        raise AssertionError(f"FlashAttention gradients != autograd of the plain "
+                             f"forward at {what}: rel err {fn_err}")
+    if (isinstance(kv_len, torch.Tensor) and int(kv_len) == 0
+            and any(bool(x.any()) for x in (*got, *(a.grad for a in leaves)))):
+        raise AssertionError(f"flash_attention_bwd at {what}: rows with no valid "
+                             f"column have gradients")
+    entry["cases"] += 1
+    entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
+    for key, val in ((f"max_rel_err_{dtype}", err), (f"apply_max_rel_err_{dtype}", fn_err),
+                     (f"max_bound_ratio_{dtype}", ratio), ("lse_max_abs_err", lse_err)):
+        entry[key] = max(entry.get(key, 0.0), val)
+    return got
+
+
 def check_flash_bwd(torch, out) -> None:
     """The backward kernel at ``FLASH_SHAPES`` in float32 and bf16 (``kv_len``
     as an int, as a 0-d int32 tensor on the card, and 0, whose gradients
@@ -918,71 +1073,17 @@ def check_flash_bwd(torch, out) -> None:
     ``FlashAttention.apply``'s gradients against autograd through
     ``flash_attention_ref`` (``FLASH_GRAD_RTOL``).  Then float32 with
     ``p_dtype`` bf16 and float16 (dV's magnitude term gains 2 u,
-    ``P_DTYPE_UNIT``).  Last, the shapes ``train_path`` gives the kernel,
-    in both dtypes."""
+    ``P_DTYPE_UNIT``).  Last, the shapes ``train_path`` and
+    ``family_train_path`` give the kernel, in both dtypes
+    (``check_flash_bwd_shapes``)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     entry = out["flash_attention_bwd"]
 
-    def hold(q, k, v, do, kv_len, causal, win, dtype, what, p_dtype=None):
-        kw = dict(causal=causal, window=win)
-        if p_dtype is not None:
-            kw["p_dtype"] = getattr(torch, p_dtype)
-        o, lse = fa.flash_attention_cuda(q, k, v, kv_len, return_lse=True, **kw)
-        _, lse_ref = fa.flash_attention_lse_ref(q, k, v, kv_len, **kw)
-        fin = torch.isfinite(lse_ref)
-        lse_err = float((lse[fin] - lse_ref[fin]).abs().max()) if bool(fin.any()) else 0.0
-        if not (torch.equal(torch.isfinite(lse), fin) and lse_err <= FLASH_LSE_ATOL):
-            raise AssertionError(f"flash_attention lse != plain at {what}: {lse_err}")
-        got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len, **kw)
-        again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len, **kw)
-        if not all(torch.equal(x, y) for x, y in zip(got, again)):
-            raise AssertionError(f"flash_attention_bwd at {what}: two calls on the same "
-                                 f"inputs differ")
-        want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, kv_len, **kw)
-        mag = fa.flash_attention_bwd_magnitudes(q, k, v, o, lse, do, kv_len,
-                                                causal=causal, window=win)
-        extra = (0.0, 0.0, 2 * P_DTYPE_UNIT[p_dtype]) if p_dtype else (0.0,) * 3
-        for x, y in zip(got, want):
-            if x.dtype != y.dtype or x.shape != y.shape:
-                raise AssertionError(f"flash_attention_bwd at {what}: {x.dtype} "
-                                     f"{tuple(x.shape)} != plain {y.dtype} {tuple(y.shape)}")
-        err = max(rel_err(x, y) for x, y in zip(got, want))
-        ratio = max(bwd_bound_ratio(x, y, m, dtype, c)
-                    for x, y, m, c in zip(got, want, mag, extra))
-        abs_err = max(float((x.float() - y.float()).abs().max()) if y.numel() else 0.0
-                      for x, y in zip(got, want))
-        if not ratio <= 1.0:
-            raise AssertionError(f"flash_attention_bwd kernel != plain version at "
-                                 f"{what}: {ratio} x its bound (rel err {err})")
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        fa.ops.flash_attention(*leaves, kv_len, **kw).backward(do)
-        if p_dtype is not None:
-            # the autograd function passes p_dtype on: the same kernels on the
-            # same inputs give the direct calls' bits
-            fn_err = 0.0
-            if not all(torch.equal(a.grad, x) for a, x in zip(leaves, got)):
-                raise AssertionError(f"FlashAttention gradients != the kernels' at {what}")
-        else:
-            plain = [t.detach().requires_grad_() for t in (q, k, v)]
-            fa.flash_attention_ref(*plain, kv_len, **kw).backward(do)
-            fn_err = max(rel_err(a.grad, b.grad) for a, b in zip(leaves, plain))
-        if not fn_err <= FLASH_GRAD_RTOL[dtype]:
-            raise AssertionError(f"FlashAttention gradients != autograd of the plain "
-                                 f"forward at {what}: rel err {fn_err}")
-        if (isinstance(kv_len, torch.Tensor) and int(kv_len) == 0
-                and any(bool(x.any()) for x in (*got, *(a.grad for a in leaves)))):
-            raise AssertionError(f"flash_attention_bwd at {what}: rows with no valid "
-                                 f"column have gradients")
-        entry["cases"] += 1
-        entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
-        for key, val in ((f"max_rel_err_{dtype}", err), (f"apply_max_rel_err_{dtype}", fn_err),
-                         (f"max_bound_ratio_{dtype}", ratio), ("lse_max_abs_err", lse_err)):
-            entry[key] = max(entry.get(key, 0.0), val)
-        return got
+    def hold(*args, **kwargs):
+        return hold_flash_bwd(torch, entry, *args, **kwargs)
 
     for b, h, kvh, sq, sk, d, causal, win in FLASH_SHAPES:
         for dtype in ("float32", "bfloat16"):
@@ -1005,7 +1106,7 @@ def check_flash_bwd(torch, out) -> None:
             q, k, v, do = (torch.randn((1, heads, 150, d), generator=gen, device=dev)
                            for heads in (4, 2, 2, 4))
             hold(q, k, v, do, None, True, None, "float32",
-                 f"p_dtype={p_dtype} D={d} float32", p_dtype=p_dtype)
+                 f"p_dtype={p_dtype} D={d} float32", p_dtype=p_dtype, group="p_dtype")
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
 
@@ -1014,23 +1115,38 @@ def check_flash_bwd(torch, out) -> None:
                         .to(dt).transpose(1, 2))
 
             q, k, v, do = view(6), view(3), view(3), view(6)
-            got = hold(q, k, v, do, None, True, 20, dtype, f"(B, S, H, D) views D={d} {dtype}")
+            got = hold(q, k, v, do, None, True, 20, dtype, f"(B, S, H, D) views D={d} {dtype}",
+                       group="views")
             if not all(x.transpose(1, 2).is_contiguous() for x in got):
                 raise AssertionError(f"flash_attention_bwd D={d} {dtype}: the gradients "
                                      f"lost the (B, S, H, D) layout of their inputs")
     # the shapes train_path gives the kernel: eventlm-100m's (B, S, 12, 64)
-    # projections viewed as (B, H, S, D), causal, no window, every key valid
+    # projections viewed as (B, H, S, D), causal, no window, every key valid;
+    # then family_train_path's (FAMILY_TRAIN_SHAPES)
     cfg = get_config(TRAIN_ARCH)
-    for _, b, s, _ in TRAIN_RUNS:
+    check_flash_bwd_shapes(
+        torch, tuple((b, cfg.num_heads, cfg.num_kv_heads, s, s, cfg.head_dim, True, None)
+                     for _, b, s, _ in TRAIN_RUNS), entry, gen, "train_path")
+    check_flash_bwd_shapes(torch, FAMILY_TRAIN_SHAPES, entry, gen, "family_train_path")
+
+
+def check_flash_bwd_shapes(torch, shapes, entry, gen, path: str) -> None:
+    """``hold_flash_bwd`` at each (B, H, KVH, Sq, Sk, D, causal, window) of
+    ``shapes`` that ``path`` gives the kernel, on the model's (B, S, H, D)
+    buffers viewed as (B, H, S, D), every key valid, in both dtypes."""
+    for b, h, kvh, sq, sk, d, causal, win in shapes:
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
-            q, k, v, do = (torch.randn((b, s, heads, cfg.head_dim), generator=gen, device=dev)
-                           .to(dt).transpose(1, 2)
-                           for heads in (cfg.num_heads, cfg.num_kv_heads,
-                                         cfg.num_kv_heads, cfg.num_heads))
-            hold(q, k, v, do, None, True, None, dtype,
-                 f"train_path (B, S, H, D) views B={b} S={s} {dtype}")
+            q, do = (torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dt)
+                     .transpose(1, 2) for _ in range(2))
+            k, v = (torch.randn((b, sk, kvh, d), generator=gen, device="cuda").to(dt)
+                    .transpose(1, 2) for _ in range(2))
+            hold_flash_bwd(torch, entry, q, k, v, do, None, causal, win, dtype,
+                           f"{path} (B, S, H, D) views B={b} H={h} KVH={kvh} Sq={sq} "
+                           f"Sk={sk} D={d} causal={causal} window={win} {dtype}",
+                           group=path)
             entry["train_shapes"] = entry.get("train_shapes", 0) + 1
+            del q, k, v, do
 
 
 def bench_graph(n: int, density: float = 0.25, seed: int | None = None):
@@ -2106,6 +2222,9 @@ def time_flash_attention(torch) -> dict:
     for label, b, h, kvh, sq, sk, d in FLASH_TIMED_WHISPER:
         rows.update(time_flash_shape(torch, b, h, kvh, sk, d, "_" + label, sq=sq,
                                      causal=False))
+    for label, b, h, kvh, sq, sk, d, causal in FLASH_TIMED_TRAIN:
+        rows.update(time_flash_attention_bwd(torch, b, h, kvh, sk, d, "_" + label, sq=sq,
+                                             causal=causal))
     torch.cuda.synchronize()
     return rows
 
@@ -2168,7 +2287,8 @@ def time_flash_shape(torch, b, h, kvh, s, d, suffix: str, *, sq=None,
     return rows
 
 
-def time_flash_attention_bwd(torch, b, h, kvh, s, d, suffix: str) -> dict:
+def time_flash_attention_bwd(torch, b, h, kvh, s, d, suffix: str, *, sq=None,
+                             causal: bool = True) -> dict:
     """The backward kernel at ``FLASH_TIMED``, causal, in bf16 and float32:
     one call (three kernel nodes), and each node's device time from a
     profile of five calls (``nodes_ms``: Delta, dK/dV, dQ; None where the
@@ -2183,33 +2303,35 @@ def time_flash_attention_bwd(torch, b, h, kvh, s, d, suffix: str) -> dict:
     products of the backward over the causal pairs: at the bf16 tensor-core
     rate (bf16), or as three TF32 products each (float32;
     ``simt_bound_ms`` the same operations once each on the SIMT cores).
-    At (B, H, KVH, S, D), keys ending in ``suffix``."""
+    At (B, H, KVH, S, D), keys ending in ``suffix``; ``sq`` queries (default
+    ``s``) and, with ``causal`` False, all Sq x S pairs."""
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    pairs = s * (s + 1) // 2
+    sq = s if sq is None else sq
+    pairs = s * (s + 1) // 2 if causal else sq * s
     ops = 5 * 2 * d * pairs * b * h
     rows = {}
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        q, do = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(dt)
+        q, do = (torch.randn((b, h, sq, d), generator=gen, device="cuda").to(dt)
                  for _ in range(2))
         k, v = (torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(dt)
                 for _ in range(2))
-        o, lse = fa.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
 
         def kern(q=q, k=k, v=v, o=o, lse=lse, do=do):
-            return fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+            return fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
 
         def plain(q=q, k=k, v=v, o=o, lse=lse, do=do):
-            return fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+            return fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
 
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             sdpa_out = torch.nn.functional.scaled_dot_product_attention(
-                *leaves, is_causal=True, enable_gqa=kvh != h)
+                *leaves, is_causal=causal, enable_gqa=kvh != h)
         torch.cuda.current_stream().wait_stream(side)
 
         def library(out=sdpa_out, leaves=leaves, do=do):
@@ -2232,8 +2354,9 @@ def time_flash_attention_bwd(torch, b, h, kvh, s, d, suffix: str) -> dict:
             lib_graph_error = None
         except RuntimeError as e:   # a capture the autograd call does not allow
             lib_graph, lib_graph_error = None, str(e).splitlines()[0]
-        nbytes = 4 * (b * h + b * kvh) * s * d * q.element_size()
-        row = {"B": b, "H": h, "KVH": kvh, "S": s, "D": d, "dtype": dtype, "causal": True,
+        nbytes = 4 * (b * h * sq + b * kvh * s) * d * q.element_size()
+        row = {"B": b, "H": h, "KVH": kvh, "S": s, "Sq": sq, "D": d, "dtype": dtype,
+               "causal": causal,
                "instantiation": instantiation(d),
                "padded_ops_share": 1 - d / instantiation(d),
                "ms": time_ms(torch, lambda i: kern(), 1, iters=20),
@@ -2711,49 +2834,105 @@ def rel_to_max(got, want) -> float:
     return float((got.cpu() - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-def mixer_check(torch, cfg, model) -> dict:
-    """Gate 3: layer 0's mixers in float32 on ``MIXER_TOKENS`` random
-    tokens (seed ``SEED``): the chunked apply with its state, then one step
-    from that state, on the card against the CPU on the same inputs, each
-    output and state within ``MIXER_RTOL`` of its largest magnitude."""
+def mixer_check(torch, cfg, model, grad: bool = False) -> dict:
+    """Layer 0's mixers in float32 on ``MIXER_TOKENS`` random tokens (seed
+    ``SEED``), on the card against the CPU on the same inputs, each result
+    within a bound relative to its largest magnitude.  Gate 3 of
+    ``families_path``: the chunked apply with its state, then one step from
+    that state, each output and state within ``MIXER_RTOL``.  With
+    ``grad``, gate 2 of ``family_train_path``: the apply under autograd
+    with a random cotangent, the MoE (moe) too, on the card's routes on
+    both sides (``recorded_routes``); the output within ``MIXER_RTOL`` and
+    the gradient of the input and of every parameter within
+    ``MIXER_GRAD_RTOL``; then ``moe_apply_ep`` on ``MOE_EP_SHARDS`` shards
+    of the card against the dense dispatch's gradients there
+    (``MOE_EP_ATOL`` x max(1, the largest magnitude))."""
+    from repro_torch.distributed.mesh import mesh_for
+    from repro_torch.models import layers as L
     from repro_torch.models import mamba2 as M
     from repro_torch.models import xlstm as X
+    from repro_torch.models.moe_ep import moe_apply_ep
 
     c = cfg.with_overrides(compute_dtype="float32")
     gen = torch.Generator().manual_seed(SEED)
     b, s = MIXER_TOKENS
     u = torch.randn((b, s, c.d_model), generator=gen)
-    v = torch.randn((b, 1, c.d_model), generator=gen)
+    # the step's token, or the cotangent
+    v = torch.randn((b, s if grad else 1, c.d_model), generator=gen)
+    # (name, parameters, apply -> (output, state), step)
     if cfg.family == "hybrid":
         mixers = (("mamba2", model.layers[0].mamba,
                    lambda p, x: M.mamba2_apply(p, x, c, return_state=True), M.mamba2_step),)
-    else:
+    elif cfg.family == "ssm":
         grp = model.groups[0]
         mixers = (("mlstm", grp.mlstm[0],
                    lambda p, x: X.mlstm_apply(p, x, c, return_state=True), X.mlstm_step),
                   ("slstm", grp.slstm, lambda p, x: X.slstm_apply(p, x, c), X.slstm_step))
+    else:
+        mixers = (("moe", model.layers[0].moe,
+                   lambda p, x: (L.moe_apply_dense(p, x, c), {}), None),)
+
+    def serve(apply, step, p, dev):
+        with torch.inference_mode():
+            y, st = apply(p, u.to(dev))
+            z, st2 = step(p, v.to(dev), st, c)
+        return {"apply": y, "step": z, **{f"state_{k}": t for k, t in st.items()},
+                **{f"step_state_{k}": t for k, t in st2.items()}}
+
+    def train(apply, p, dev):
+        leaves = {k: t.detach().clone().requires_grad_() for k, t in p.items()}
+        x = u.to(dev).clone().requires_grad_()
+        y = apply(leaves, x)[0]
+        (y * v.to(dev)).sum().backward()
+        return {"output": y.detach(), "grad_input": x.grad,
+                **{f"grad_{k}": t.grad for k, t in leaves.items()}}
+
+    what = "family_train_path" if grad else "families_path"
     out = {}
-    with torch.inference_mode():
-        for name, p_gpu, apply, step in mixers:
-            p_cpu = {k: t.detach().cpu() for k, t in p_gpu.items()}
+    for name, p_gpu, apply, step in mixers:
+        run = functools.partial(train, apply) if grad else functools.partial(serve, apply, step)
+        p_cpu = {k: t.detach().cpu() for k, t in p_gpu.items()}
+        with recorded_routes(torch) as log:
             t0 = time.perf_counter()
-            y_g, st_g = apply(p_gpu, u.cuda())
-            z_g, st2_g = step(p_gpu, v.cuda(), st_g, c)
+            got = run(p_gpu, "cuda")
             torch.cuda.synchronize()
             card_s = time.perf_counter() - t0
+        with recorded_routes(torch, replay=log) as rlog:
             t0 = time.perf_counter()
-            y_c, st_c = apply(p_cpu, u)
-            z_c, st2_c = step(p_cpu, v, st_c, c)
+            want = run(p_cpu, "cpu")
             cpu_s = time.perf_counter() - t0
-            errs = {"apply": rel_to_max(y_g, y_c), "step": rel_to_max(z_g, z_c)}
-            errs.update({f"state_{k}": rel_to_max(st_g[k], st_c[k]) for k in st_c})
-            errs.update({f"step_state_{k}": rel_to_max(st2_g[k], st2_c[k]) for k in st2_c})
-            worst = max(errs.values())
-            if not worst <= MIXER_RTOL or not bool(torch.isfinite(y_g).all()):
-                raise AssertionError(f"families_path {cfg.name} {name} on the card != CPU: "
-                                     f"{errs}")
-            out[name] = {"rel_err": errs, "card_s": card_s, "cpu_s": cpu_s}
-    return {"tokens": [b, s], "rtol": MIXER_RTOL, **out}
+        errs = {k: rel_to_max(got[k], want[k]) for k in want}
+        bad = {k: e for k, e in errs.items()
+               if not e <= (MIXER_GRAD_RTOL if k.startswith("grad_") else MIXER_RTOL)}
+        finite = all(bool(torch.isfinite(t).all()) for t in got.values())
+        if bad or not finite:
+            raise AssertionError(f"{what} {cfg.name} {name} on the card != CPU: {bad}, "
+                                 f"finite {finite}")
+        entry = {"rel_err": errs, "card_s": card_s, "cpu_s": cpu_s}
+        if name == "moe":
+            entry["cpu_routes"] = {k: rlog[k] for k in ("tokens", "differ", "differ_decisive")}
+            ep = []
+            c_ep = c.with_overrides(moe_impl="shard_map")
+            for n in MOE_EP_SHARDS:
+                mesh = mesh_for(n, "cuda")
+                t0 = time.perf_counter()
+                sharded = train(lambda p, x: (moe_apply_ep(p, x, c_ep, mesh), {}), p_gpu, "cuda")
+                torch.cuda.synchronize()
+                ep_s = time.perf_counter() - t0
+                errs_ep = {"output": float((sharded["output"] - got["output"]).abs().max())}
+                errs_ep.update({k: float((sharded[k] - got[k]).abs().max()
+                                         / max(1.0, float(got[k].abs().max())))
+                                for k in got if k.startswith("grad_")})
+                if not max(errs_ep.values()) <= MOE_EP_ATOL:
+                    raise AssertionError(f"{what} {cfg.name}: moe_apply_ep at {n} shards "
+                                         f"under autograd != dense: {errs_ep}")
+                ep.append({"shards": n, "err": errs_ep, "seconds": ep_s})
+                del sharded
+            entry["expert_parallel"] = ep
+        out[name] = entry
+        del got, want, p_cpu
+    bounds = {"grad_rtol": MIXER_GRAD_RTOL, "ep_atol": MOE_EP_ATOL} if grad else {}
+    return {"tokens": [b, s], "rtol": MIXER_RTOL, **bounds, **out}
 
 
 def families_path(torch, smi: str) -> tuple[dict, dict]:
@@ -3015,6 +3194,235 @@ def train_path(torch, smi: str) -> tuple[dict, dict]:
              "params": cfg0.param_count(), "remat_policy": cfg0.remat_policy,
              "runs": runs, "reference": "same model and batch, attn_impl='ref'",
              "nvidia_smi": smi}
+    return phase, total
+
+
+@contextlib.contextmanager
+def recorded_routes(torch, replay=None):
+    """Within the block, ``models.layers.route`` keeps each call's expert
+    ids in the yielded log (calls in order: a forward pass, then the
+    recompute of remat "full").  Given ``replay``, an earlier run's log of
+    the same calls, each call takes that call's ids instead, with softmax
+    gates of its own logits at them, and the log counts the tokens whose own
+    top k differs (``differ``) and those of them whose k-th logit leads the
+    (k+1)-th by more than 2 D 2^-24 max_e sum_d |x_d| |w_de|, the float32
+    error bound of ``moe_layer_check`` (``differ_decisive``)."""
+    from repro_torch.models import layers as L
+
+    real = L.route
+    log = {"ids": [], "calls": 0, "tokens": 0, "differ": 0, "differ_decisive": 0}
+
+    def route(xt, router, cfg):
+        gates, idx = real(xt, router, cfg)
+        if replay is None:
+            log["ids"].append(idx.detach())
+            return gates, idx
+        want = replay["ids"][log["calls"]].to(idx.device)
+        log["calls"] += 1
+        K = cfg.num_experts_per_tok
+        logits = (xt @ router.to(xt.dtype)).float()
+        with torch.no_grad():
+            top = logits.sort(dim=-1, descending=True).values
+            bound = 2 * xt.shape[1] * 2.0 ** -24 * (
+                xt.float().abs() @ router.float().abs()).amax(1)
+            differ = (idx.sort(1).values != want.sort(1).values).any(1)
+            log["tokens"] += int(xt.shape[0])
+            log["differ"] += int(differ.sum())
+            log["differ_decisive"] += int((differ & (top[:, K - 1] - top[:, K] > bound)).sum())
+        return torch.softmax(logits.gather(-1, want), dim=-1), want
+
+    L.route = route
+    try:
+        yield log
+    finally:
+        L.route = real
+
+
+def family_train_path(torch, smi: str, check_shapes: bool = False) -> tuple[dict, dict]:
+    """The moe, hybrid, ssm, audio and vlm families trained at full width
+    with depth cut (``FAMILY_TRAIN_RUNS``; see the module docstring).  With
+    ``check_shapes`` first both attention kernels against their plain
+    versions at ``FAMILY_TRAIN_SHAPES`` (the full smoke's kernels_check has
+    done so already).  Returns the phase line and the launch counts of the
+    driven runs (set to 0 just before each run's steps and read just
+    after); each model is freed before the next is built."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as LT
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainstep as TS
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmul is on: float32 training would round")
+    flash = None
+    if check_shapes:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        flash = {name: {"cases": 0, "max_abs_err": 0.0}
+                 for name in ("flash_attention", "flash_attention_bwd")}
+        check_flash_shapes(torch, FAMILY_TRAIN_SHAPES, flash["flash_attention"], gen)
+        check_flash_bwd_shapes(torch, FAMILY_TRAIN_SHAPES, flash["flash_attention_bwd"], gen,
+                               "family_train_path")
+    batch, seq = FAMILY_TRAIN_BATCH
+    steps = FAMILY_TRAIN_STEPS
+    oc = LT.opt_config(steps)
+    models, total = [], {}
+    for arch, layers in FAMILY_TRAIN_RUNS:
+        t_model = time.perf_counter()
+        published = get_config(arch)
+        cfg0 = published.with_overrides(num_layers=layers)
+        data, _ = LT.make_data(cfg0, batch, seq, seed=0)
+        batches = [LT.to_device(next(data), "cuda") for _ in range(steps + 2)]
+        frontend = stub_frontend(torch, cfg0)
+        if frontend is not None:
+            for bt in batches:
+                bt["frontend"] = frontend(batch)
+        calls = expected_launches(cfg0)[0]
+        want = {"flash_attention": 2 * calls, "flash_attention_bwd": calls}
+        runs, mixers = [], None
+        for compute in ("float32", "bfloat16"):
+            cfg = cfg0.with_overrides(compute_dtype=compute)
+            what = f"family_train_path {arch} {compute}"
+            model = random_model(torch, cfg)
+            params = dict(model.named_parameters())
+            held = sum(p.numel() for p in params.values())
+
+            def grads_of(c, b=batches[0]):
+                for p in params.values():
+                    p.grad = None
+                loss = TS.loss_fn(c, model, b)
+                loss.backward()
+                g = {n: p.grad for n, p in params.items()}
+                for p in params.values():
+                    p.grad = None
+                return loss.detach(), g
+
+            # gates 1, 4, 5: step 0 through the kernels twice, bitwise alike,
+            # then against the plain attention on the same routes
+            with recorded_routes(torch) as routes:
+                reset_launches()
+                loss_k, g_k = grads_of(cfg)
+                one = read_launches()
+            _, g_again = grads_of(cfg)
+            differ = [n for n in g_k if not torch.equal(g_k[n], g_again[n])]
+            del g_again
+            if differ:
+                raise AssertionError(f"{what}: a second backward on the step-0 batch "
+                                     f"changed the gradients of {differ[:5]}")
+            with recorded_routes(torch, replay=routes) as ref_routes:
+                loss_r, g_r = grads_of(cfg.with_overrides(attn_impl="ref"))
+            del routes
+            loss_err = abs(float(loss_k) - float(loss_r))
+            grad_err = {n: float((g_k[n] - g_r[n]).norm() / g_r[n].norm().clamp_min(1e-30))
+                        for n in g_k}
+            worst = max(grad_err, key=grad_err.get)
+            finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
+            del g_k, g_r
+            if not (finite and loss_err <= TRAIN_LOSS_ATOL[compute]
+                    and grad_err[worst] <= TRAIN_GRAD_RTOL[compute]):
+                raise AssertionError(f"{what}: step 0 loss {float(loss_k)} vs plain "
+                                     f"{float(loss_r)}, gradient {worst} rel err "
+                                     f"{grad_err[worst]}, finite {finite}")
+
+            # the run
+            state = TS.init_state(cfg, model)
+            step_fn = TS.make_train_step(cfg, oc)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, gnorms, step_s, per_step = [], [], [], []
+            reset_launches()
+            for i in range(steps):
+                before = read_launches()
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batches[i])
+                losses.append(float(metrics["loss"]))
+                gnorms.append(float(metrics["grad_norm"]))
+                step_s.append(time.perf_counter() - t0)
+                after = read_launches()
+                per_step.append({n: after[n] - before[n] for n in after if after[n] - before[n]})
+            run_l = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            total = add_launches(total, run_l)
+            want_step = {n: k for n, k in want.items() if k}
+            if any(st != want_step for st in per_step) or one != {
+                    **{n: 0 for n in one}, **want}:
+                raise AssertionError(f"{what}: launches a step {per_step}, step 0 {one}; "
+                                     f"want {want}")
+            if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()
+                    and np.mean(losses[-5:]) < np.mean(losses[:5])):
+                raise AssertionError(f"{what}: losses {losses}, grad norms {gnorms}")
+
+            # one synchronized step split into forward / backward / optimizer
+            for p in params.values():
+                p.grad = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = TS.loss_fn(cfg, model, batches[steps])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            state["opt"] = O.adamw_update(
+                oc, params, {n: p.grad for n, p in params.items()}, state["opt"])[1]
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            for p in params.values():
+                p.grad = None
+            del loss
+            wall = float(np.median(step_s[2:]))
+            prof = idle_share(torch, lambda: step_fn(state, batches[steps + 1]), wall)
+            tok = batch * seq
+            run = {"compute_dtype": compute, "params_held": held,
+                   "losses": losses, "grad_norms": gnorms, "step_s": step_s,
+                   "tokens_per_s": float(np.median([tok / dt for dt in step_s[2:]])),
+                   "step_ms_median": 1e3 * wall,
+                   "split_step": {"forward_ms": 1e3 * (t1 - t0),
+                                  "backward_ms": 1e3 * (t2 - t1),
+                                  "optimizer_ms": 1e3 * (t3 - t2)},
+                   "max_memory_allocated": peak, "profile": prof,
+                   "launches": run_l, "launches_per_step": per_step[0],
+                   "step0": {"loss": float(loss_k), "loss_ref": float(loss_r),
+                             "loss_abs_err": loss_err, "loss_atol": TRAIN_LOSS_ATOL[compute],
+                             "grad_max_rel_err": grad_err[worst], "grad_worst": worst,
+                             "grad_rtol": TRAIN_GRAD_RTOL[compute],
+                             "second_backward_bitwise": True}}
+            if cfg.num_experts:
+                run["step0"]["ref_routes"] = {k: ref_routes[k] for k in (
+                    "calls", "tokens", "differ", "differ_decisive")}
+            runs.append(run)
+            del state, step_fn, params, prof
+            if compute == "float32" and cfg.family in ("hybrid", "ssm", "moe"):
+                mixers = mixer_check(torch, cfg, model, grad=True)
+            del model
+            torch.cuda.empty_cache()
+        entry = {"arch": arch, "family": cfg0.family, "layers": layers,
+                 "layers_published": published.num_layers, "d_model": cfg0.d_model,
+                 "heads": cfg0.num_heads, "kv_heads": cfg0.num_kv_heads,
+                 "head_dim": cfg0.resolved_head_dim, "vocab": cfg0.vocab_size,
+                 "params": cfg0.param_count(), "params_published": published.param_count(),
+                 "batch": batch, "seq": seq, "steps": steps,
+                 "remat_policy": cfg0.remat_policy,
+                 "opt": {"lr": oc.lr, "warmup_steps": oc.warmup_steps,
+                         "total_steps": oc.total_steps},
+                 "attention_calls": calls, "launches_per_step_expected": want,
+                 "reduced": [] if layers == published.num_layers
+                 else [f"num_layers {published.num_layers} -> {layers}"], "runs": runs}
+        if cfg0.family == "ssm":
+            entry["gate_1"] = ("vacuous: the family runs no attention, so attn_impl='ref' "
+                               "runs the same computation")
+        if mixers is not None:
+            entry["layer0_under_autograd"] = mixers
+        if frontend is not None:
+            entry["frontend"] = {"rows": cfg0.enc_seq or cfg0.num_patches,
+                                 "scale": FRONTEND_SCALE, "seed": SEED}
+        entry["seconds"] = time.perf_counter() - t_model
+        models.append(entry)
+        del batches, data
+    phase = {"phase": "family_train_path", "models": models,
+             "reference": "same model, batch and routes, attn_impl='ref'; layer 0 under "
+                          "autograd on the CPU; moe_apply_dense on the card",
+             "nvidia_smi": smi}
+    if flash is not None:
+        phase["family_flash_check"] = flash
     return phase, total
 
 
@@ -4170,11 +4578,13 @@ def main() -> int:
     flash_only = "--flash" in sys.argv[1:]
     serve_only = "--serve" in sys.argv[1:]
     families_only = "--families" in sys.argv[1:]
+    train_families_only = "--train-families" in sys.argv[1:]
     t0 = time.perf_counter()
     log = _build.build(("pair_count", "histogram") if counting_only
                        else ("semiring",) if semiring_only
                        else ("flash_attention", "flash_attention_bwd")
-                       if train_only or flash_only or serve_only or families_only
+                       if (train_only or flash_only or serve_only or families_only
+                           or train_families_only)
                        else _build.SOURCES)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {name: {"seconds": v["seconds"], "cached": v["cached"],
@@ -4245,6 +4655,13 @@ def main() -> int:
         emit({**phase, "seconds": time.perf_counter() - t0, "launches": launches})
         return 0
 
+    if train_families_only:
+        # the families' training alone, after both kernels at its shapes
+        t0 = time.perf_counter()
+        phase, launches = family_train_path(torch, smi, check_shapes=True)
+        emit({**phase, "seconds": time.perf_counter() - t0, "launches": launches})
+        return 0
+
     if train_only:
         # the training path alone; a copy of this script placed in another
         # checkout (a parent commit) runs that tree's training path
@@ -4265,6 +4682,7 @@ def main() -> int:
                        "bf16 before P.V: each weight within 2^-9 of itself, and "
                        "each output rounded to bf16); its lse within 2e-5; "
                        "flash_attention_bwd within 1e-5 (1 + |want|) + 2^-19 A "
+                       "(A with dP's and Delta's error through P) "
                        "(float32) / 2^-7 (1 + |want|) + 2 2^-8 A (bf16, P and dS "
                        "rounded to bf16) of the plain backward, A its magnitude "
                        "product, two calls bitwise equal; FlashAttention "
@@ -4818,6 +5236,11 @@ def main() -> int:
         train, launches["train_path"] = train_path(torch, smi)
         emit(train)
 
+        # ---- family train path: moe, hybrid, ssm, audio, vlm at full width
+        t0 = time.perf_counter()
+        ftrain, launches["family_train_path"] = family_train_path(torch, smi)
+        emit({**ftrain, "seconds": time.perf_counter() - t0})
+
         # ------------------------------------------- kernel times on card
         times = time_kernels(torch, so, engine, frame_gpu, ghosts)
         times.update(time_semiring_kernels(torch, g_gpu))
@@ -4899,7 +5322,14 @@ def main() -> int:
                            for key in ("ms", "graph_ms", "nodes_ms", "plain_ms", "bound_ms",
                                        "bound_by", "simt_bound_ms", "library_ms",
                                        "library_graph_ms")},
-         "head_dims": head_dim_rows(times, "flash_attention_bwd/")},
+         "head_dims": head_dim_rows(times, "flash_attention_bwd/"),
+         "family_train": {label + route: {f: times[key][f] for f in (
+             "B", "H", "KVH", "Sq", "S", "D", "causal", "ms", "graph_ms", "nodes_ms",
+             "plain_ms", "bound_ms", "bound_by", "simt_bound_ms", "library_ms",
+             "library_graph_ms")}
+             for label, _, _, _, _, sk, _, _ in FLASH_TIMED_TRAIN
+             for route in ("", "_float32")
+             for key in [f"flash_attention_bwd/{sk}{route}_{label}"]}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -106,8 +106,10 @@
 // added to the running sum in float32 (the tensor cores' sums do not round
 // to nearest). Each product is within 2^-20 of its magnitude product, so a
 // gradient's own product within 2^-20 A; S and dP carry the same relative
-// error into P and dS. The stated gate: |got - want| <= 1e-5 (1 + |want|) +
-// 2^-19 A.
+// error into P and dS, and dS = P (dP - Delta) cancels, so dP's error
+// (2^-20 of |dO| |V|^T) reaches dQ and dK through P |dO| |V|^T, not |dS|.
+// The stated gate: |got - want| <= 1e-5 (1 + |want|) + 2^-19 A, A with
+// that term (flash_attention_bwd_magnitudes(..., dp_error=True)).
 //
 // Both routes read kv_len on the device, take no host sync, build their
 // tensor maps per call and set the shared-memory opt-in once per

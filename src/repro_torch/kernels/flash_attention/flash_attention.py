@@ -45,7 +45,8 @@ backward keeps them in float32: a gradient moves by at most 2^-8 of its
 magnitude product A (``flash_attention_bwd_magnitudes``), and the card
 gate against the plain backward is 2^-7 (1 + |want|) + 2 * 2^-8 A.
 float32 runs every product as 3xTF32 on ``mma.sync`` (each within 2^-20
-of its magnitude product), gate 1e-5 (1 + |want|) + 2^-19 A.  Both routes
+of its magnitude product), gate 1e-5 (1 + |want|) + 2^-19 A, A carrying
+dP's error into dS (``dp_error``: dS = P (dP - Delta) cancels).  Both routes
 are bounded by the tensor cores' rate on this card (five products' worth
 of work is the least; the split does seven).
 

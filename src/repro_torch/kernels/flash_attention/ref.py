@@ -120,7 +120,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, kv_len=None, *, causal=True,
 
 
 def flash_attention_bwd_magnitudes(q, k, v, o, lse, do, kv_len=None, *, causal=True,
-                                   window=None):
+                                   window=None, dp_error=False):
     """(A_dq, A_dk, A_dv): the magnitude products of the backward's three
     gradient products, in the accumulation type and the gradients' shapes,
 
@@ -129,11 +129,20 @@ def flash_attention_bwd_magnitudes(q, k, v, o, lse, do, kv_len=None, *, causal=T
     (A_dk and A_dv summed over each KV head's query heads), with P and dS
     as ``flash_attention_bwd_ref`` forms them.  Rounding P or dS to bf16
     moves a gradient by at most 2^-8 of its A; a 3xTF32 product is within
-    2^-20 of it.  For tolerances in tests and checks only."""
+    2^-20 of it.  ``dp_error`` adds the magnitudes through which dS carries
+    the errors of dP and Delta: dS = P (dP - Delta) cancels, so an error of
+    dP or Delta within a fraction of their magnitude products (|dO| |V|^T,
+    sum_d |dO| |o|) moves dS by that fraction of P M, M their sum, however
+    small dS is (a causal row's first key has dS = 0 exactly); A_dq gains
+    D^-1/2 (P M) |K| and A_dk D^-1/2 (P M)^T |Q|.  For tolerances in tests
+    and checks only."""
     p, kf, vf = _probs(q, k, v, lse, kv_len, causal, window)
     dof = _acc(do)
     delta = (dof * _acc(o)).sum(-1)
     ds = (p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta[..., None])).abs()
+    if dp_error:
+        ds = ds + p * (torch.einsum("bhqd,bhkd->bhqk", dof.abs(), vf.abs())
+                       + (dof * _acc(o)).abs().sum(-1)[..., None])
     scale = q.shape[-1] ** -0.5
     a_dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf.abs()) * scale
     a_dk = _group_sum(torch.einsum("bhqk,bhqd->bhkd", ds, _acc(q).abs()) * scale, k.shape[1])

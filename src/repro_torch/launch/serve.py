@@ -29,8 +29,6 @@ from repro_torch.models.module import Initializer
 from repro_torch.serve.engine import Engine
 from repro_torch.train.checkpoint import CheckpointManager
 
-FRONTENDS = {"audio": "encoder frame embeddings", "vlm": "patch embeddings"}
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -48,9 +46,9 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
-    if cfg.family in FRONTENDS:
+    if cfg.family in Mdl.FRONTENDS:
         raise ValueError(f"--arch {args.arch}: the {cfg.family} family needs a frontend "
-                         f"({FRONTENDS[cfg.family]}), which this launcher does not make; "
+                         f"({Mdl.FRONTENDS[cfg.family]}), which this launcher does not make; "
                          f"pass one to serve.engine.Engine.generate(..., frontend=)")
     device = torch.device(args.device)
     model = Mdl.init_params(cfg, Initializer(

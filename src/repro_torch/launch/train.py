@@ -6,7 +6,10 @@ checkpoint manager -> failure / straggler handling.
       --steps 300 --batch 8 --seq 128 --reduced [--device cpu]
 
 The flags and printed lines are the JAX package's ``repro.launch.train``;
-``--device`` (default ``cuda``) names where the model trains.  Weights
+``--device`` (default ``cuda``) names where the model trains.  Every
+family without a frontend trains (dense, moe, hybrid, ssm); the audio and
+vlm families raise a ``ValueError`` naming the frontend they need, which
+the launcher does not make (nor does the JAX package's).  Weights
 come from a ``torch.Generator`` seeded with ``--seed`` (the JAX package's
 distribution, not its bits).  Checkpoints are in the JAX package's format,
 so either package resumes the other's (``--resume``).
@@ -77,6 +80,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
+    if cfg.family in Mdl.FRONTENDS:
+        raise ValueError(f"--arch {args.arch}: the {cfg.family} family needs a frontend "
+                         f"({Mdl.FRONTENDS[cfg.family]}), which this launcher does not make; "
+                         f"put one in the batch as train.trainstep's \"frontend\"")
     device = torch.device(args.device)
     oc = opt_config(args.steps)
 

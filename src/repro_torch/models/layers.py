@@ -130,11 +130,19 @@ def run_experts(xt, expert, slot, keep, cap: int, gate, up, down, dt):
     (expert, slot) at most once, so an exact write in any order), the
     SwiGLU experts as three batched products over the expert dim, and the
     rows gathered back.  ``expert`` / ``slot`` / ``keep`` are per row, rows
-    in (token, k) order."""
+    in (token, k) order.
+
+    Under autograd every gradient is written once a slot or reduced in a
+    fixed order: the kept rows are read from the (T, K, D) broadcast of
+    ``xt``, each (token, k) once, so a token's gradient is the broadcast's
+    backward, a reduction over the K axis (reading ``xt[kept // K]``
+    would accumulate the repeated tokens' rows by an indexed add, whose
+    order on a card is unspecified); a dropped row adds exactly 0 to the
+    (expert, ``cap - 1``) slot it is clamped to."""
     E, K = gate.shape[0], expert.shape[0] // xt.shape[0]
     kept = torch.arange(expert.shape[0], device=xt.device)[keep]
     disp = torch.zeros((E, cap, xt.shape[1]), dtype=dt, device=xt.device)
-    disp[expert[kept], slot[kept]] = xt[kept // K]
+    disp[expert[kept], slot[kept]] = xt[:, None].expand(-1, K, -1)[kept // K, kept % K]
     g = torch.bmm(disp, gate.to(dt))
     u = torch.bmm(disp, up.to(dt))
     out = torch.bmm(F.silu(g) * u, down.to(dt))

@@ -10,9 +10,12 @@ package leaves them to XLA).  Rounding points are the JAX package's: the
 projections in the compute dtype, the scan in float32, the conv tail held
 and stepped in float32.
 
-``exp(cum_i - cum_j)`` above the chunk's diagonal can overflow to ``inf``
-before the causal ``where`` drops it, as in the JAX package; harmless in a
-forward pass, it would make NaN gradients through the ``where``.
+The intra-chunk decay masks before it exponentiates:
+``exp(where(causal, cum_i - cum_j, -inf))``.  Above the diagonal
+``cum_i - cum_j`` is a chunk's summed log decay, which passes ~88.7 (float32
+``exp`` overflows) once a 128-token chunk decays by ~0.69 a step; the JAX
+package exponentiates first and masks after, which gives the same forward
+(``exp(-inf)`` is the ``where``'s 0) but ``inf * 0 = NaN`` gradients there.
 """
 from __future__ import annotations
 
@@ -76,7 +79,7 @@ def _chunk(h, xq, bq, cq, adq, dtq, causal):
     cum = torch.cumsum(adq, dim=1)                             # (B, Q, H)
     # intra-chunk: L_ij = exp(cum_i - cum_j), i >= j
     diff = cum[:, :, None] - cum[:, None, :]                   # (B, Q, Q, H)
-    Lm = torch.where(causal[None, :, :, None], torch.exp(diff), 0.0)
+    Lm = torch.exp(torch.where(causal[None, :, :, None], diff, -torch.inf))
     cb = torch.einsum("bin,bjn->bij", cq, bq)                  # (B, Q, Q)
     w = cb[..., None] * Lm * dtq[:, None]                      # (B, Q, Q, H)
     y_intra = torch.einsum("bijh,bjhp->bihp", w, xq)

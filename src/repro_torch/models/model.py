@@ -25,8 +25,11 @@ attention layer in ``layers.CACHE_DTYPE``, bf16 (hybrid: one per group;
 audio: also the cross K / V at ``enc_seq``), float32 recurrent states,
 ``pos`` a Python int.
 
-``forward`` is differentiable (the parameters take gradients; a dense /
-MoE block runs under ``cfg.remat_policy``, ``transformer.block_remat``);
+``forward`` is differentiable (the parameters take gradients) and runs
+under ``cfg.remat_policy`` (``transformer.remat``) at the JAX package's
+granularity: a dense / MoE / vlm block, a hybrid group with its shared
+attention (not the tail layers past the last group), an xLSTM group, a
+Whisper encoder block and decoder block;
 ``prefill`` and ``decode_step`` are serving's and run under
 ``torch.no_grad``.  ``forward`` of the hybrid, ssm and audio families
 returns logits only, as in the JAX package (their caches come from
@@ -34,6 +37,7 @@ returns logits only, as in the JAX package (their caches come from
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -46,7 +50,7 @@ from .config import ModelConfig
 from .layers import torch_dtype
 from .module import Creator, parameter
 from .transformer import (Block, DecBlock, HybridBlock, SharedAttn, XLSTMGroup,
-                          block_apply, block_decode, block_remat)
+                          block_apply, block_decode, block_remat, remat)
 
 
 class Model(nn.Module):
@@ -94,10 +98,14 @@ def _head(cfg, params, h):
     return (h.to(dt) @ w.to(dt)).to(torch_dtype(cfg.logit_dtype))
 
 
-def _frontend(cfg, frontend, what: str):
+# what the frontend of each family that takes one holds
+FRONTENDS = {"audio": "encoder frame embeddings", "vlm": "patch embeddings"}
+
+
+def _frontend(cfg, frontend):
     if frontend is None:
         raise ValueError(f"the {cfg.family} family ({cfg.name}) needs a frontend: "
-                         f"{what}")
+                         f"{FRONTENDS[cfg.family]}")
     return frontend.to(torch_dtype(cfg.compute_dtype))
 
 
@@ -123,7 +131,7 @@ def forward(cfg: ModelConfig, params: Model, tokens, *, frontend=None,
 def _forward_stack(cfg, params, tokens, frontend, collect, mesh):
     h = _embed(cfg, params, tokens)
     if cfg.family == "vlm":
-        h = torch.cat([_frontend(cfg, frontend, "patch embeddings").to(h.device), h], dim=1)
+        h = torch.cat([_frontend(cfg, frontend).to(h.device), h], dim=1)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)
     ks, vs = [], []
@@ -160,20 +168,47 @@ def _shared_attn_apply(sp: SharedAttn, h, cfg, positions, collect=False):
     return (h, kv) if collect else h
 
 
-def _forward_hybrid(cfg, params, tokens, collect=False):
-    h = _embed(cfg, params, tokens)
-    S = h.shape[1]
-    positions = torch.arange(S, device=h.device)
+def _hybrid_layers(cfg, params, lo: int, hi: int, h, positions, collect=False):
+    """Layers ``lo`` .. ``hi - 1``, each group's shared attention before its
+    last layer; with ``collect`` also (their Mamba2 states, the attention's
+    K / V)."""
     states, kvs = [], []
-    for i, blk in enumerate(params.layers):
+    for i in range(lo, hi):
         if _shared_slot(cfg, i) is not None:
             out = _shared_attn_apply(params.shared, h, cfg, positions, collect)
             h, kv = out if collect else (out, None)
             kvs.append(kv)
+        blk = params.layers[i]
         out = M.mamba2_apply(blk.mamba, L.rmsnorm(h, blk.ln), cfg, return_state=collect)
         y, st = out if collect else (out, None)
         states.append(st)
         h = h + y
+    return (h, states, kvs) if collect else h
+
+
+def _forward_hybrid(cfg, params, tokens, collect=False):
+    """Each whole group of ``shared_attn_every`` layers (the shared attention
+    included) runs under ``cfg.remat_policy``, the tail layers past the last
+    group without, as the JAX package's scan over groups."""
+    h = _embed(cfg, params, tokens)
+    S = h.shape[1]
+    positions = torch.arange(S, device=h.device)
+    every = cfg.shared_attn_every
+    G = cfg.num_layers // every
+    spans = [(g * every, (g + 1) * every) for g in range(G)]
+    if G * every < cfg.num_layers:
+        spans.append((G * every, cfg.num_layers))
+    states, kvs = [], []
+    for g, (lo, hi) in enumerate(spans):
+        if collect:
+            h, st, kv = _hybrid_layers(cfg, params, lo, hi, h, positions, collect=True)
+            states += st
+            kvs += kv
+        elif g < G:
+            h = remat(functools.partial(_hybrid_layers, cfg, params, lo, hi,
+                                        positions=positions), cfg, h)
+        else:
+            h = _hybrid_layers(cfg, params, lo, hi, h, positions)
     logits = _head(cfg, params, h)
     if collect:
         return logits, {"mamba_h": torch.stack([st["h"] for st in states]),
@@ -184,18 +219,32 @@ def _forward_hybrid(cfg, params, tokens, collect=False):
 
 
 # -------------------------------------------------------------------- ssm
+def _xlstm_group(cfg, grp: XLSTMGroup, h, collect=False):
+    """One group: its mLSTM blocks, then its sLSTM block; with ``collect``
+    also (the mLSTM states, the sLSTM state)."""
+    m_sts = []
+    for j, blk in enumerate(grp.mlstm):
+        out = X.mlstm_apply(blk, L.rmsnorm(h, grp.mlstm_ln[j]), cfg, return_state=collect)
+        y, st = out if collect else (out, None)
+        m_sts.append(st)
+        h = h + y
+    y, s_st = X.slstm_apply(grp.slstm, L.rmsnorm(h, grp.slstm_ln), cfg)
+    h = h + y
+    return (h, m_sts, s_st) if collect else h
+
+
 def _forward_xlstm(cfg, params, tokens, collect=False):
+    """Each group runs under ``cfg.remat_policy``, as the JAX package's scan
+    over groups."""
     h = _embed(cfg, params, tokens)
     m_sts, s_sts = [], []
     for grp in params.groups:
-        for j, blk in enumerate(grp.mlstm):
-            out = X.mlstm_apply(blk, L.rmsnorm(h, grp.mlstm_ln[j]), cfg, return_state=collect)
-            y, st = out if collect else (out, None)
-            m_sts.append(st)
-            h = h + y
-        y, st = X.slstm_apply(grp.slstm, L.rmsnorm(h, grp.slstm_ln), cfg)
-        s_sts.append(st)
-        h = h + y
+        if collect:
+            h, m_st, s_st = _xlstm_group(cfg, grp, h, collect=True)
+            m_sts += m_st
+            s_sts.append(s_st)
+        else:
+            h = remat(functools.partial(_xlstm_group, cfg, grp), cfg, h)
     logits = _head(cfg, params, h)
     if collect:
         G, nm = len(params.groups), cfg.slstm_every - 1
@@ -214,45 +263,56 @@ def _forward_xlstm(cfg, params, tokens, collect=False):
 
 # ------------------------------------------------------------------ audio
 def _encode(cfg, params, frames):
-    enc_h = _frontend(cfg, frames, "encoder frame embeddings")
+    """The encoder, each block under ``cfg.remat_policy``."""
+    enc_h = _frontend(cfg, frames)
     enc_pos = torch.arange(enc_h.shape[1], device=enc_h.device)
     for blk in params.enc_layers:
-        enc_h = block_apply(blk, enc_h, cfg, kind=0, positions=enc_pos, causal=False)
+        enc_h = block_remat(blk, enc_h, cfg, kind=0, positions=enc_pos, causal=False)
     return L.rmsnorm(enc_h, params.enc_norm)
 
 
+def _dec_block(cfg, blk: DecBlock, h, enc_h, positions, collect=False):
+    """One decoder block; with ``collect`` also (its self-attention K / V,
+    its cross K / V rounded to the cache's dtype, which it attends over)."""
+    a = L.attn_apply(blk.attn, L.rmsnorm(h, blk.ln1), cfg, positions=positions,
+                     theta=cfg.rope_theta, causal=True, window=None, collect=collect)
+    xkv = None
+    if collect:
+        a, kv = a
+        b, hd, kvh = h.shape[0], cfg.resolved_head_dim, cfg.num_kv_heads
+        xp = blk.xattn
+        xkv = tuple((enc_h @ xp[w].to(enc_h.dtype)).reshape(b, -1, kvh, hd).to(L.CACHE_DTYPE)
+                    for w in ("wk", "wv"))
+    h = h + a
+    h = h + L.attn_apply_cross(blk.xattn, L.rmsnorm(h, blk.lnx), enc_h, cfg, kv=xkv)
+    h = h + L.mlp_apply(blk.mlp, L.rmsnorm(h, blk.ln2), cfg.compute_dtype)
+    return (h, kv, xkv) if collect else h
+
+
 def _forward_encdec(cfg, params, tokens, frames, collect=False):
-    """Whisper.  ``forward`` computes the cross K / V in the compute dtype;
-    ``prefill`` rounds them to the cache's bf16 and attends over the
-    rounded ones, as the JAX package does (so the two differ by that
-    rounding there too)."""
+    """Whisper; each decoder block under ``cfg.remat_policy``.  ``forward``
+    computes the cross K / V in the compute dtype; ``prefill`` rounds them
+    to the cache's bf16 and attends over the rounded ones, as the JAX
+    package does (so the two differ by that rounding there too)."""
     enc_h = _encode(cfg, params, frames)
     h = _embed(cfg, params, tokens)
-    b, S = h.shape[:2]
+    S = h.shape[1]
     positions = torch.arange(S, device=h.device)
-    hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
-    ks, vs, xks, xvs = [], [], [], []
+    kvs, xkvs = [], []
     for blk in params.layers:
-        a = L.attn_apply(blk.attn, L.rmsnorm(h, blk.ln1), cfg, positions=positions,
-                         theta=cfg.rope_theta, causal=True, window=None, collect=collect)
-        kv = None
         if collect:
-            a, (k, v) = a
-            ks.append(k)
-            vs.append(v)
-            xp = blk.xattn
-            xk = (enc_h @ xp["wk"].to(enc_h.dtype)).reshape(b, -1, kvh, hd).to(L.CACHE_DTYPE)
-            xv = (enc_h @ xp["wv"].to(enc_h.dtype)).reshape(b, -1, kvh, hd).to(L.CACHE_DTYPE)
-            xks.append(xk)
-            xvs.append(xv)
-            kv = (xk, xv)
-        h = h + a
-        h = h + L.attn_apply_cross(blk.xattn, L.rmsnorm(h, blk.lnx), enc_h, cfg, kv=kv)
-        h = h + L.mlp_apply(blk.mlp, L.rmsnorm(h, blk.ln2), cfg.compute_dtype)
+            h, kv, xkv = _dec_block(cfg, blk, h, enc_h, positions, collect=True)
+            kvs.append(kv)
+            xkvs.append(xkv)
+        else:
+            h = remat(functools.partial(_dec_block, cfg, blk, positions=positions), cfg,
+                      h, enc_h)
     logits = _head(cfg, params, h)
     if collect:
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "xk": torch.stack(xks),
-                        "xv": torch.stack(xvs), "pos": S}
+        return logits, {"k": torch.stack([k for k, _ in kvs]),
+                        "v": torch.stack([v for _, v in kvs]),
+                        "xk": torch.stack([k for k, _ in xkvs]),
+                        "xv": torch.stack([v for _, v in xkvs]), "pos": S}
     return logits
 
 

@@ -15,15 +15,17 @@ mLSTM blocks, their norms as one ``(n_m, D)`` parameter, then one sLSTM
 block) and ``DecBlock`` (Whisper's decoder: self attention, cross
 attention, MLP).
 
-``block_remat`` applies ``cfg.remat_policy`` as the JAX package's
-``_remat`` does around its scan body, through ``torch.utils.checkpoint``
-(non-reentrant) and only while grad is enabled: ``"none"`` keeps every
-activation; ``"full"`` keeps only the block's input and recomputes the
-block in the backward pass, so a training step launches the flash-attention
-forward kernel twice a layer (the forward pass and the recompute) and the
-backward kernel once; ``"dots"`` keeps the matrix products' outputs
-(``aten.mm`` / ``bmm`` / ``addmm``, JAX's ``checkpoint_dots``) and
-recomputes the rest, the attention kernel included.
+``remat`` applies ``cfg.remat_policy`` to a function of tensors as the
+JAX package's ``_remat`` does around a scan body, through
+``torch.utils.checkpoint`` (non-reentrant) and only while grad is enabled:
+``"none"`` keeps every activation; ``"full"`` keeps only the function's
+inputs and recomputes it in the backward pass, so a training step launches
+the flash-attention forward kernel twice an attention call (the forward
+pass and the recompute) and the backward kernel once; ``"dots"`` keeps the
+matrix products' outputs (``aten.mm`` / ``bmm`` / ``addmm``, JAX's
+``checkpoint_dots``) and recomputes the rest, the attention kernel
+included.  ``block_remat`` is a ``Block`` under it; ``models.model`` wraps
+the other families' bodies at the JAX package's granularity.
 """
 from __future__ import annotations
 
@@ -142,18 +144,24 @@ def _save_dots(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def block_remat(p: Block, h, cfg: ModelConfig, *, kind: int, positions, mesh=None):
-    """``block_apply`` under ``cfg.remat_policy`` (see the module note)."""
-    fn = functools.partial(block_apply, cfg=cfg, kind=kind, positions=positions, mesh=mesh)
+def remat(fn, cfg: ModelConfig, *args):
+    """``fn(*args)`` under ``cfg.remat_policy`` (see the module note)."""
     policy = cfg.remat_policy
     if policy == "none" or not torch.is_grad_enabled():
-        return fn(p, h)
+        return fn(*args)
     if policy == "full":
-        return ckpt.checkpoint(fn, p, h, use_reentrant=False)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
     if policy == "dots":
-        return ckpt.checkpoint(fn, p, h, use_reentrant=False, context_fn=functools.partial(
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_dots))
     raise ValueError(f"unknown remat_policy {policy!r}; expected full, dots or none")
+
+
+def block_remat(p: Block, h, cfg: ModelConfig, *, kind: int, positions, causal=True,
+                mesh=None):
+    """``block_apply`` under ``cfg.remat_policy``."""
+    return remat(functools.partial(block_apply, cfg=cfg, kind=kind, positions=positions,
+                                   causal=causal, mesh=mesh), cfg, p, h)
 
 
 def block_decode(p: Block, h, cfg: ModelConfig, cache_k, cache_v, pos: int, *,

@@ -10,9 +10,12 @@ over chunks is a Python loop over chunks here, and sLSTM's scan over time
 a Python loop over tokens; every product is plain ``torch``, as the JAX
 package leaves them to XLA.
 
-As in the JAX package, ``exp`` above a chunk's diagonal may overflow to
-``inf`` before the causal ``where`` drops it: harmless in a forward pass,
-NaN gradients through the ``where`` in a backward one.
+The intra-chunk weights mask before they exponentiate,
+``exp(where(causal, diff, -inf))``: above a chunk's diagonal ``diff`` grows
+with the chunk's summed log forget gates and overflows float32 ``exp``,
+which the JAX package computes before its ``where`` drops it (the same
+forward, ``exp(-inf)`` being the ``where``'s 0, but ``inf * 0 = NaN``
+gradients).
 """
 from __future__ import annotations
 
@@ -72,7 +75,7 @@ def _mlstm_chunk(h, m, qq, kk, vv, lf, li, causal):
     m_row = cum + torch.maximum(Mi, m[:, None])                # (B, Q, H)
     # intra-chunk: w_ij = exp(cum_i - cum_j + li_j - m_row_i)
     diff = cum[:, :, None] - cum[:, None, :] + li[:, None] - m_row[:, :, None]
-    w = torch.where(causal[None, :, :, None], torch.exp(diff), 0.0)
+    w = torch.exp(torch.where(causal[None, :, :, None], diff, -torch.inf))
     qk = torch.einsum("bihp,bjhp->bijh", qq, kk)
     y_intra = torch.einsum("bijh,bjhp->bihp", qk * w, vv)
     # inter-chunk (carried state, decayed into this chunk)

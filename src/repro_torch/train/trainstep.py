@@ -2,9 +2,10 @@
 
 The JAX package's ``train/trainstep.py`` on a ``Model``.  The state is
 ``{"params": Model, "opt": {"m", "v", "step"}}`` (``optimizer.init_opt_state``
-of its named parameters); a batch is ``{"tokens", "targets", "loss_mask"}``
-of tensors on the model's device with the global batch as the leading
-dimension.  Gradients come from autograd through ``Mdl.forward`` (on a
+of its named parameters); a batch is ``{"tokens", "targets", "loss_mask"}``,
+and ``"frontend"`` for the audio and vlm families, of tensors on the
+model's device with the global batch as the leading dimension (each is
+split along it into the microbatches).  Gradients come from autograd through ``Mdl.forward`` (on a
 card each layer's attention is the flash-attention kernel and its backward
 kernel), and the update is ``optimizer.adamw_update`` in place, so
 ``train_step`` returns the state it was given with ``step`` advanced.
@@ -25,8 +26,13 @@ from .optimizer import OptConfig, adamw_update, init_opt_state
 
 
 def loss_fn(cfg: ModelConfig, model: Mdl.Model, batch) -> torch.Tensor:
-    """Mean next-token negative log-likelihood over the masked positions."""
-    logits = Mdl.forward(cfg, model, batch["tokens"]).to(torch.float32)
+    """Mean next-token negative log-likelihood over the masked positions.
+    ``batch["frontend"]`` (audio frames, vlm patch embeddings) reaches
+    ``forward``; the vlm family's patch positions carry no loss."""
+    logits = Mdl.forward(cfg, model, batch["tokens"], frontend=batch.get("frontend"))
+    if cfg.family == "vlm":                 # drop the vision prefix's positions
+        logits = logits[:, cfg.num_patches:]
+    logits = logits.to(torch.float32)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, batch["targets"].long()[..., None])[..., 0]
     mask = batch["loss_mask"].to(torch.float32)

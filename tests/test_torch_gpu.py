@@ -1640,7 +1640,9 @@ FLASH_LSE_ATOL = 2e-5
 # |got - want| <= rtol (1 + |want|) + c A against the plain backward, A the
 # magnitude product of the gradient's terms (flash_attention_bwd_magnitudes):
 # bf16 rounds P and dS to bf16 (each within 2^-8 of itself) before the
-# gradient products; float32 takes every product as 3xTF32 (2^-20)
+# gradient products; float32 takes every product as 3xTF32 (2^-20), with A
+# taken with dp_error: dS = P (dP - Delta) cancels, so dP's and Delta's
+# errors reach dQ and dK through P, not through |dS|
 FLASH_BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 FLASH_BWD_MAG = {torch.float32: 2.0 ** -19, torch.bfloat16: 2 * 2.0 ** -8}
 FLASH_GRAD_RTOL = {torch.float32: 5e-5, torch.bfloat16: 3e-2}
@@ -1664,10 +1666,10 @@ def test_flash_attention_bwd_kernel_equals_plain(cuda, dtype, shape):
     and the backward kernel's (dq, dk, dv) against the plain backward on
     the same inputs, each within rtol (1 + |want|) + c A, A the gradient's
     magnitude product: 1e-5 and 2^-19 in float32 (3xTF32 products, each
-    within 2^-20 of its magnitude product), 2^-7 and 2 2^-8 in bf16 (P and
-    dS rounded to bf16, each within 2^-8 of itself, before the gradient
-    products; both sides round to bf16 at the end); ``kv_len`` as an int
-    and as a 0-d tensor, and 0 giving 0 gradients."""
+    within 2^-20 of its magnitude product; A with dp_error), 2^-7 and 2
+    2^-8 in bf16 (P and dS rounded to bf16, each within 2^-8 of itself,
+    before the gradient products; both sides round to bf16 at the end);
+    ``kv_len`` as an int and as a 0-d tensor, and 0 giving 0 gradients."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_bwd_magnitudes,
                                                      flash_attention_bwd_ref,
@@ -1694,7 +1696,7 @@ def test_flash_attention_bwd_kernel_equals_plain(cuda, dtype, shape):
         assert flash_attention_bwd_cuda.launches == before + 1
         want = flash_attention_bwd_ref(q, k, v, o, lse, do, kv_len, causal=causal, window=win)
         mag = flash_attention_bwd_magnitudes(q, k, v, o, lse, do, kv_len, causal=causal,
-                                             window=win)
+                                             window=win, dp_error=dtype == torch.float32)
         for x, y, m in zip(got, want, mag):
             assert x.dtype == y.dtype == dtype and x.shape == y.shape
             assert _bwd_ratio(x, y, m, dtype) <= 1.0
@@ -1737,8 +1739,9 @@ def test_flash_attention_function_gradients_on_card(cuda, d, dtype):
 def test_flash_attention_p_dtype_on_card(cuda, d, p_dtype, unit):
     """``p_dtype`` on the float32 route: the forward within 2 u max|v| + 2e-5
     of the plain version with the same ``p_dtype`` (both round P, at other
-    maxima), the backward within the float32 bound with 2 u added to dV's
-    magnitude term, and the model's chunked attention passing it on."""
+    maxima), the backward within the float32 bound (A with dp_error) with
+    2 u added to dV's magnitude term, and the model's chunked attention
+    passing it on."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_bwd_magnitudes,
                                                      flash_attention_bwd_ref,
@@ -1755,7 +1758,7 @@ def test_flash_attention_p_dtype_on_card(cuda, d, p_dtype, unit):
     do = torch.randn(q.shape, generator=gen, device=cuda)
     grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, p_dtype=p_dtype)
     wants = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, p_dtype=p_dtype)
-    mags = flash_attention_bwd_magnitudes(q, k, v, o, lse, do, causal=True)
+    mags = flash_attention_bwd_magnitudes(q, k, v, o, lse, do, causal=True, dp_error=True)
     for x, y, m, extra in zip(grads, wants, mags, (0.0, 0.0, 2 * unit)):
         tol = 1e-5 * (1 + y.abs()) + (2.0 ** -19 + extra) * m
         assert bool(((x - y).abs() <= tol).all())
@@ -1890,3 +1893,100 @@ def _train_on_card_against_cpu(cuda, remat):
         assert abs(losses["cpu"] - losses[cuda]) <= 1e-5
     for p, q in zip(states["cpu"]["params"].parameters(), states[cuda]["params"].parameters()):
         assert float((p.detach() - q.detach().cpu()).abs().max()) <= 2e-5
+
+
+FAMILY_TRAIN_ARCHS = ("qwen3-moe-30b-a3b", "mixtral-8x7b", "zamba2-7b", "xlstm-1.3b",
+                      "whisper-medium", "internvl2-2b")
+
+
+def _attention_calls(cfg):
+    """Attention calls in one forward pass of ``cfg``'s family."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "audio":
+        return cfg.enc_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+@pytest.mark.parametrize("arch", FAMILY_TRAIN_ARCHS)
+def test_family_training_step_on_card_equals_cpu(cuda, arch):
+    """One train step of each reduced family (float32, remat "full", a stub
+    frontend where the family takes one) on the card against the same step
+    on the CPU from the same weights and batch: the loss within 1e-5, every
+    gradient within 1e-4 of its leaf's largest magnitude (float32 products
+    summed in other orders; the attention kernels' 3xTF32 products within
+    2^-20 of themselves), the kernels launched twice an attention call
+    forward (the pass and the recompute) and once backward, and the updated
+    parameters within 2e-5, or within ``lr`` where AdamW's denominator
+    sqrt(v) + eps is below 1e-6 (a gradient near 0, whose last bits move its
+    update by a fraction of ``lr``)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.module import Initializer
+    from repro_torch.train import trainstep as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = reduced_config(get_config(arch))
+    oc = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, (4, 33)).astype(np.int32))
+    host = {"tokens": toks[:, :-1], "targets": toks[:, 1:], "loss_mask": torch.ones((4, 32))}
+    n = {"audio": cfg.enc_seq, "vlm": cfg.num_patches}.get(cfg.family)
+    if n:
+        host["frontend"] = torch.from_numpy(
+            (rng.standard_normal((4, n, cfg.d_model)) * 0.1).astype(np.float32))
+    models, grads, losses = {}, {}, {}
+    for dev in ("cpu", cuda):
+        models[dev] = Mdl.init_params(cfg, Initializer(
+            torch.Generator().manual_seed(0), cfg.param_dtype)).to(dev)
+        batch = {k: v.to(dev) for k, v in host.items()}
+        fwd, bwd = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+        loss = TS.loss_fn(cfg, models[dev], batch)
+        loss.backward()
+        losses[dev] = float(loss.detach())
+        grads[dev] = {k: p.grad.detach().cpu() for k, p in models[dev].named_parameters()}
+        calls = _attention_calls(cfg) if dev != "cpu" else 0
+        assert flash_attention_cuda.launches - fwd == 2 * calls
+        assert flash_attention_bwd_cuda.launches - bwd == calls
+    assert abs(losses["cpu"] - losses[cuda]) <= 1e-5
+    for k, want in grads["cpu"].items():
+        got = grads[cuda][k]
+        assert bool(torch.isfinite(got).all()), k
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), k
+    states = {}
+    for dev, model in models.items():
+        st = TS.init_state(cfg, model)
+        states[dev], _ = TS.make_train_step(cfg, oc)(st, {k: v.to(dev) for k, v in host.items()})
+    v = states["cpu"]["opt"]["v"]
+    bc2 = 1 - oc.beta2
+    for (k, p), q in zip(states["cpu"]["params"].named_parameters(),
+                         states[cuda]["params"].parameters()):
+        denom = (v[k] / bc2).sqrt() + oc.eps
+        tol = torch.where(denom > 1e-6, 2e-5, oc.lr)
+        assert bool(((p.detach() - q.detach().cpu()).abs() <= tol).all()), k
+
+
+def test_family_training_moe_second_backward_is_bitwise(cuda):
+    """The MoE layer's backward on the card, twice on the same inputs, at
+    capacity 0.5 (routes dropped), gives the same bits: every gradient is
+    written once a slot or reduced over K in a fixed order."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.module import Initializer
+
+    cfg = reduced_config(get_config("qwen3-moe-30b-a3b")).with_overrides(capacity_factor=0.5)
+    p = {k: t.to(cuda) for k, t in L.moe_init(
+        Initializer(torch.Generator().manual_seed(1)), cfg).items()}
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((4, 64, cfg.d_model), generator=gen).to(cuda)
+    w = torch.randn((4, 64, cfg.d_model), generator=gen).to(cuda)
+    runs = []
+    for _ in range(2):
+        leaves = {k: t.detach().clone().requires_grad_() for k, t in p.items()}
+        xl = x.clone().requires_grad_()
+        (L.moe_apply_dense(leaves, xl, cfg) * w).sum().backward()
+        runs.append([xl.grad, *(leaves[k].grad for k in sorted(leaves))])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
