@@ -198,6 +198,26 @@ vlm families:
   step 0's batch bitwise the first; (6) TF32 off.  It reports tokens/s, a
   synchronized step's forward / backward / optimizer ms, peak memory, a
   step's idle share and the phase's seconds.
+* ``launch_path`` — the launch tooling (``repro_torch.launch``): (a) the
+  dry run of every single-pod cell, ``python -m repro_torch.launch.dryrun
+  --all`` on the (32, 8) mesh in a child process with no card visible,
+  started before ``serve_path`` so that it runs beside the model phases,
+  each cell's fit against 80 GB, bottleneck, three roofline terms and
+  seconds (``LAUNCH_SWEEP_BUDGET_S``); any ``ok: false`` fails the phase.
+  (b) The accounting held against real steps on the card, on a 1 x 1 mesh
+  (``LAUNCH_CHECKS``: ``eventlm-100m`` batch (a) in bf16 and float32, and
+  ``qwen3-moe-30b-a3b`` at 2 of 48 layers, ``family_train_path``'s cut, for
+  the MoE dispatch): the dry run's argument bytes equal the parameters',
+  AdamW state's and batch's ``nbytes`` exactly; its dot FLOPs equal
+  ``FlopCounterMode`` of the real step, whose flash-attention custom ops
+  count the kernels' formula times their launches (checked apart); its
+  peak within ``LAUNCH_PEAK_RTOL`` of the step's ``max_memory_allocated``
+  (less the memory held before the step that is not the step's).  (c)
+  ``mfu`` of each step: the roofline's model FLOPs over (measured step
+  seconds x the peak of its dtype), beside the ``nvidia-smi`` line.  (d)
+  ``examples/dashboard_torch.py`` on the card, its panels' answers equal to
+  a CPU run's.  It also times the flash-attention custom op's dispatch
+  against the bare launch function (host microseconds a call).
 
 The flash-attention check also holds the backward: the forward's
 log-sum-exp against ``flash_attention_lse_ref`` (``FLASH_LSE_ATOL``), the
@@ -232,7 +252,9 @@ builds the same two, runs ``serve_path`` and ``moe_path`` and stops,
 without the ``ok`` line; ``--families`` builds the same two, runs
 ``families_path`` and stops, without the ``ok`` line; ``--train-families``
 builds the same two, holds both at ``FAMILY_TRAIN_SHAPES``, runs
-``family_train_path`` and stops, without the ``ok`` line.  A copy of this
+``family_train_path`` and stops, without the ``ok`` line; ``--launch``
+builds the same two, runs ``launch_path`` and stops, without the ``ok``
+line.  A copy of this
 script placed at the root of another checkout (a
 parent commit unpacked with ``git archive``) times that checkout's kernels
 with the same code.
@@ -534,6 +556,16 @@ FLASH_TIMED_TRAIN = (("d112", 8, 32, 32, 128, 128, 112, True),
 # covers.  Expert parallelism: each gradient within MOE_EP_ATOL x max(1,
 # its largest magnitude) of the dense dispatch's on the card.
 MIXER_GRAD_RTOL = 1e-3
+# launch_path: the dry run's sweep in a child process (cells at once), its
+# budget, the accounting's checks against real steps (arch, layers or None,
+# batch, sequence, compute dtypes) and the peak's stated tolerance
+LAUNCH_JOBS = 4
+LAUNCH_SWEEP_BUDGET_S = 150.0
+LAUNCH_CHECKS = (("eventlm-100m", None, 8, 128, ("bfloat16", "float32")),
+                 ("qwen3-moe-30b-a3b", 2, 8, 128, ("bfloat16",)))
+LAUNCH_PEAK_RTOL = 0.10
+LAUNCH_TIMED_STEPS = 5
+DISPATCH_CALLS = 2_000
 SWEEP_GROUPS = (1, 2, 4, 7, 14)      # row groups each dispatch-sweep band covers
 SWEEP_REPEATS = 3
 APPEND_ROWS = 524_288                # new cases appended after L1's tail
@@ -3426,6 +3458,244 @@ def family_train_path(torch, smi: str, check_shapes: bool = False) -> tuple[dict
     return phase, total
 
 
+def start_launch_sweep(out_dir: str):
+    """``python -m repro_torch.launch.dryrun --all`` in a child process with
+    no card visible (the dry run needs none), its records and log in
+    ``out_dir``; returns (process, records path, log path, start time on
+    the wall clock)."""
+    import os
+
+    out = str(Path(out_dir) / "dryrun.jsonl")
+    log = str(Path(out_dir) / "dryrun.log")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                             "--jobs", str(LAUNCH_JOBS), "--out", out],
+                            stdout=open(log, "w"), stderr=subprocess.STDOUT, env=env,
+                            cwd=out_dir)
+    return proc, out, log, time.time()
+
+
+def launch_sweep(sweep) -> dict:
+    """(a): the sweep's records, each cell's line, and the sweep's wall
+    seconds (to the records' last write: the join may come later, when the
+    phases beside it are done)."""
+    from repro_torch.configs import ARCH_IDS, cells
+    from repro_torch.launch import roofline as RL
+
+    proc, out, log, t0 = sweep
+    try:
+        rc = proc.wait(timeout=1200)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    seconds = (Path(out).stat().st_mtime if Path(out).exists() else time.time()) - t0
+    recs = [json.loads(line) for line in open(out)] if Path(out).exists() else []
+    got = {(r["arch"], r["shape"]): r for r in recs}
+    want = [(a, s) for a in ARCH_IDS for s in cells(a)]
+    missing = [c for c in want if c not in got]
+    failed = [c for c in want if c in got and not got[c]["ok"]]
+    if rc != 0 or missing or failed:
+        tail = Path(log).read_text()[-3000:] if Path(log).exists() else ""
+        raise AssertionError(f"launch_path: dry-run sweep rc {rc}, missing {missing}, "
+                             f"ok: false {[(c, got[c].get('error')) for c in failed]}\n"
+                             + "".join(got[c].get("trace", "")[-2000:] for c in failed)
+                             + f"\n{tail}")
+    rows = {}
+    for a, s in want:
+        r = got[(a, s)]
+        row = RL.analyze_record(r, RL.chips_of(r["mesh"]))
+        rows[f"{a}/{s}"] = {
+            "fits": row["fits"], "peak_GB": r["memory"]["peak_bytes"] / 1e9,
+            "bottleneck": row["bottleneck"], "t_compute_ms": row["t_compute"] * 1e3,
+            "t_memory_ms": row["t_memory"] * 1e3, "t_collective_ms": row["t_collective"] * 1e3,
+            "roofline_fraction": row["roofline_fraction"], "useful_ratio": row["useful_ratio"],
+            "microbatches": r["num_microbatches"], "seconds": r["trace_s"],
+            **({"moe_dispatch": r["moe_dispatch"]} if "moe_dispatch" in r else {})}
+    return {"mesh": "32x8", "cells": len(rows), "seconds": seconds,
+            "within_budget": seconds <= LAUNCH_SWEEP_BUDGET_S,
+            "budget_s": LAUNCH_SWEEP_BUDGET_S, "jobs": LAUNCH_JOBS, "rows": rows}
+
+
+def dispatch_cost(torch) -> dict:
+    """Host microseconds a call of the flash-attention forward through its
+    custom op (``torch.ops.repro_torch.flash_attention``) and of the bare
+    launch function it wraps, at a one-tile shape, same run."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    q, k, v = (torch.randn((1, 1, 64, 64), device="cuda") for _ in range(3))
+    args = (q, k, v, None, 64, True, -1, 0, False)
+    out = {}
+    for label, fn in (("custom_op_us", torch.ops.repro_torch.flash_attention),
+                      ("bare_us", fa.flash_attention_launch),
+                      ("custom_op_us_again", torch.ops.repro_torch.flash_attention),
+                      ("bare_us_again", fa.flash_attention_launch)):
+        for _ in range(50):
+            fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            fn(*args)
+        torch.cuda.synchronize()
+        out[label] = (time.perf_counter() - t0) / DISPATCH_CALLS * 1e6
+    out["dispatch_us"] = (out["custom_op_us"] + out["custom_op_us_again"]
+                          - out["bare_us"] - out["bare_us_again"]) / 2
+    return out
+
+
+def launch_check(torch, arch: str, layers, batch: int, seq: int, compute: str) -> tuple:
+    """(b) and (c) for one real step: the dry run on a 1 x 1 mesh against a
+    step on the card.  Returns (row, launch counts of the measured step)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.kernels.flash_attention.flash_attention import attention_flops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    from repro_torch.train import trainstep as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = get_config(arch).with_overrides(compute_dtype=compute)
+    if layers:
+        cfg = cfg.with_overrides(num_layers=layers)
+    shape = Shape(f"{batch}x{seq}", "train", seq, batch)
+    t0 = time.perf_counter()
+    with fake_world(1):
+        dry = D.account_cell(cfg, shape, make_mesh({"data": 1, "model": 1}), 1)
+    dry_s = time.perf_counter() - t0
+
+    model = random_model(torch, cfg)
+    state = TS.init_state(cfg, model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tok = torch.randint(3, cfg.vocab_size, (batch, seq + 1), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    data = {"tokens": tok[:, :-1].contiguous(), "targets": tok[:, 1:].contiguous(),
+            "loss_mask": torch.ones((batch, seq), device="cuda")}
+    step = TS.make_train_step(cfg, OptConfig(), 1)
+    step(state, data)                       # warm-up: workspaces, first launches
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    args = (sum(p.nbytes for p in model.parameters())
+            + sum(t.nbytes for key in ("m", "v") for t in state["opt"][key].values())
+            + state["opt"]["step"].nbytes + sum(t.nbytes for t in data.values()))
+    other = torch.cuda.memory_allocated() - args
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with FlopCounterMode(display=False) as fc:
+        step(state, data)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() - other
+    if launches["flash_attention"] != 2 * L or launches["flash_attention_bwd"] != L:
+        raise AssertionError(f"launch_path {arch} {compute}: a remat 'full' step of {L} "
+                             f"layers must launch the forward kernel {2 * L} and the "
+                             f"backward {L} times: {launches}")
+    counts = {str(k): v for k, v in fc.get_flop_counts()["Global"].items()}
+    b, h, d = batch, cfg.num_heads, cfg.resolved_head_dim
+    q_shape, k_shape = (b, h, seq, d), (b, cfg.num_kv_heads, seq, d)
+    window = cfg.window or None
+    kernel = {"flash_attention": attention_flops(q_shape, k_shape, True, window),
+              "flash_attention_bwd": attention_flops(q_shape, k_shape, True, window,
+                                                     backward=True)}
+    by_kernel = {name: counts.get(f"repro_torch.{name}", 0) for name in kernel}
+    for name, f in kernel.items():
+        if by_kernel[name] != f * launches[name]:
+            raise AssertionError(f"launch_path {arch} {compute}: FlopCounterMode counts "
+                                 f"{by_kernel[name]} for {name}, formula x launches "
+                                 f"{f} x {launches[name]}")
+    real_dots = fc.get_total_flops() - sum(by_kernel.values()) + sum(
+        kernel[n] * launches[n] for n in kernel)
+    mem = dry["memory"]
+    what = f"launch_path {arch} ({layers or cfg.num_layers} layers) {compute}"
+    if mem["argument_bytes"] != args:
+        raise AssertionError(f"{what}: dry-run argument bytes {mem['argument_bytes']} != "
+                             f"{args} on the card")
+    if dry["counts"]["dot_flops"] != real_dots:
+        raise AssertionError(f"{what}: dry-run dot FLOPs {dry['counts']['dot_flops']} != "
+                             f"{real_dots} of the real step")
+    peak_err = abs(mem["peak_bytes"] - peak) / peak
+    if peak_err > LAUNCH_PEAK_RTOL:
+        raise AssertionError(f"{what}: dry-run peak {mem['peak_bytes']} vs "
+                             f"{peak} on the card, {peak_err:.3f} > {LAUNCH_PEAK_RTOL}")
+
+    secs = []
+    for _ in range(LAUNCH_TIMED_STEPS):
+        secs.append(host_s(torch, lambda: step(state, data)))
+    sec = sorted(secs)[len(secs) // 2]
+    n_active = cfg.active_param_count()
+    row = {"arch": arch, "layers": layers or cfg.num_layers, "batch": batch, "seq": seq,
+           "compute_dtype": compute, "argument_bytes": args,
+           "dot_flops": real_dots, "flop_counter_total": fc.get_total_flops(),
+           "kernel_flops": by_kernel, "launches": launches,
+           "peak_bytes": peak, "dry_peak_bytes": mem["peak_bytes"], "peak_rel_err": peak_err,
+           "dry_s": dry_s, "step_s": sec, "step_s_all": secs,
+           "model_flops": RL.model_flops(n_active, batch * seq, "train"),
+           "mfu": RL.mfu(n_active, batch * seq, "train", sec, compute),
+           "peak_flops": RL.peak_flops(compute),
+           **({"moe_dispatch": "upper bound"} if dry["counts"]["upper_bound"] else {})}
+    del model, state, data
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def dashboard_check() -> dict:
+    """(d): ``examples/dashboard_torch.py`` on the card and on the CPU (two
+    processes at once), its panels' answers compared."""
+    import os
+    import tempfile
+
+    out = {}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory() as d:
+        procs = {}
+        for device in ("cuda", "cpu"):
+            path = str(Path(d) / f"{device}.json")
+            procs[device] = (subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / "dashboard_torch.py"), "--device",
+                 device, "--json", path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, env=env), path, time.perf_counter())
+        for device, (proc, path, t0) in procs.items():
+            try:
+                log = proc.communicate(timeout=600)[0]
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+            if proc.returncode != 0:
+                raise AssertionError(f"launch_path: dashboard on {device} failed\n"
+                                     f"{log[-3000:]}")
+            out[device] = {"answers": json.loads(Path(path).read_text()),
+                           "seconds": time.perf_counter() - t0}
+    if out["cuda"]["answers"] != out["cpu"]["answers"]:
+        raise AssertionError("launch_path: the dashboard's answers on the card differ "
+                             "from the CPU's")
+    return {"equal": True, "panels": sorted(out["cpu"]["answers"]),
+            "seconds": {k: v["seconds"] for k, v in out.items()}}
+
+
+def launch_path(torch, smi: str, sweep) -> tuple[dict, dict]:
+    """The launch tooling (see the module docstring).  Returns the phase line
+    and the launch counts of the measured real steps (counts set to 0 just
+    before each and read just after)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmul is on: float32 training would round")
+    t0 = time.perf_counter()
+    checks, total = [], {}
+    for arch, layers, batch, seq, dtypes in LAUNCH_CHECKS:
+        for compute in dtypes:
+            row, launches = launch_check(torch, arch, layers, batch, seq, compute)
+            checks.append(row)
+            total = add_launches(total, launches)
+            print(json.dumps({"launch_mfu": f"{arch} {compute}", "mfu": row["mfu"],
+                              "step_s": row["step_s"], "nvidia_smi": smi}), flush=True)
+    dispatch = dispatch_cost(torch)
+    dash = dashboard_check()
+    sw = launch_sweep(sweep)
+    return {"phase": "launch_path", "nvidia_smi": smi, "sweep": sw, "checks": checks,
+            "peak_rtol": LAUNCH_PEAK_RTOL, "custom_op_dispatch": dispatch,
+            "dashboard": dash, "seconds": time.perf_counter() - t0}, total
+
+
 def numpy_dfg_masked(case: np.ndarray, act: np.ndarray, rv: np.ndarray, a: int):
     """Independent host oracle of the DFG of a sorted log under a row mask,
     with the engine's semantics: a pair is two adjacent rows of one case,
@@ -4579,12 +4849,13 @@ def main() -> int:
     serve_only = "--serve" in sys.argv[1:]
     families_only = "--families" in sys.argv[1:]
     train_families_only = "--train-families" in sys.argv[1:]
+    launch_only = "--launch" in sys.argv[1:]
     t0 = time.perf_counter()
     log = _build.build(("pair_count", "histogram") if counting_only
                        else ("semiring",) if semiring_only
                        else ("flash_attention", "flash_attention_bwd")
                        if (train_only or flash_only or serve_only or families_only
-                           or train_families_only)
+                           or train_families_only or launch_only)
                        else _build.SOURCES)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {name: {"seconds": v["seconds"], "cached": v["cached"],
@@ -4592,6 +4863,16 @@ def main() -> int:
                                        if "Used" in ln or "spill" in ln
                                        or "entry function" in ln]}
                       for name, v in log.items()}})
+
+    import tempfile
+
+    sweep_dir = tempfile.mkdtemp(prefix="launch_sweep_")
+    if launch_only:
+        # the launch tooling alone: the sweep beside the real steps
+        t0 = time.perf_counter()
+        phase, launches = launch_path(torch, smi, start_launch_sweep(sweep_dir))
+        emit({**phase, "seconds": time.perf_counter() - t0, "launches": launches})
+        return 0
 
     if counting_only:
         # the counting kernels' times alone; a copy of this script placed in
@@ -5219,6 +5500,10 @@ def main() -> int:
         emit(svc_phase)
         del new_batch
 
+        # the dry run's sweep runs beside the model phases (host work only,
+        # no card), after the mining phases whose host times it would move
+        sweep = start_launch_sweep(sweep_dir)
+
         # ------------------- serve path: eventlm-100m, prefill + decode
         serve, launches["serve_path"] = serve_path(torch, smi)
         emit(serve)
@@ -5240,6 +5525,10 @@ def main() -> int:
         t0 = time.perf_counter()
         ftrain, launches["family_train_path"] = family_train_path(torch, smi)
         emit({**ftrain, "seconds": time.perf_counter() - t0})
+
+        # ------ launch path: the dry run's sweep and its checks on the card
+        lp, launches["launch_path"] = launch_path(torch, smi, sweep)
+        emit(lp)
 
         # ------------------------------------------- kernel times on card
         times = time_kernels(torch, so, engine, frame_gpu, ghosts)

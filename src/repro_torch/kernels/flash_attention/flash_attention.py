@@ -55,12 +55,25 @@ tensors it launches its kernel on the current stream or raises.
 ``flash_attention_cuda.launches`` and ``flash_attention_bwd_cuda.launches``
 count the calls that launched (a backward call is three kernel nodes and
 counts one).
+
+Each launch is a ``torch.library`` custom op (``repro_torch::flash_attention``,
+``repro_torch::flash_attention_bwd``) whose CUDA implementation is the
+ctypes launch above; its abstract form (``register_fake``) gives the
+outputs' shapes on ``meta`` and fake tensors, and its FLOP formula
+(``attention_flops``, registered with ``torch.utils.flop_counter``) counts
+the products the kernel runs: ``2 * 2 * d`` a (query, key) pair forward and
+``5 * 2 * d`` backward, over the pairs its mask admits (causal rows from 0,
+the window, ``kv_len``), never an S x S score tensor.  So
+``FlopCounterMode`` counts a real step's kernels, and the launch tooling's
+dry run (``launch.account``) traces them on tensors with no storage.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from .ref import flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref
@@ -135,17 +148,26 @@ def _check(q, k, v, window, p_dtype=None):
         raise ValueError(f"flash_attention: window {window} < 0")
 
 
-def _kv_len_args(kv_len, sk: int, device):
+def _kv_len_args(kv_len_t, kv_len_v: int, sk: int, device):
     """(device pointer or None, value) of ``kv_len`` for the C launchers,
-    and the int32 tensor the pointer lives in (kept alive by the caller)."""
+    and the int32 tensor the pointer lives in (kept alive by the caller):
+    a CUDA tensor is read on the card, else the int stands."""
+    if kv_len_t is not None:
+        kv_len = kv_len_t.to(device=device, dtype=torch.int32).reshape(())
+        return kv_len.data_ptr(), sk, kv_len
+    return None, kv_len_v, None
+
+
+def _kv_len_parts(kv_len, sk: int):
+    """``kv_len`` as the custom ops take it: (a 0-d CUDA tensor or None,
+    the int that stands for it otherwise)."""
     if isinstance(kv_len, torch.Tensor):
         if kv_len.numel() != 1:
             raise ValueError("flash_attention: kv_len must be a scalar")
-        if kv_len.device.type == "cuda":
-            kv_len = kv_len.to(device=device, dtype=torch.int32).reshape(())
-            return kv_len.data_ptr(), sk, kv_len
-        return None, int(kv_len), None
-    return None, sk if kv_len is None else int(kv_len), None
+        if kv_len.device.type != "cpu":
+            return kv_len, sk
+        return None, int(kv_len)
+    return None, sk if kv_len is None else int(kv_len)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -158,7 +180,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``kv_len`` is None (all of k), an int, or a 0-d integer tensor, read on
     the card without a host sync.  The output has q's memory layout when q
-    is dense (a (B, S, H, D) buffer viewed as (B, H, S, D) stays one).
+    is dense (a (B, S, H, D) buffer viewed as (B, H, S, D) stays one).  A
+    ``meta`` tensor takes the custom op's abstract form.
     """
     _check(q, k, v, window, p_dtype)
     device = q.device
@@ -167,29 +190,89 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if return_lse:
             return flash_attention_lse_ref(q, k, v, kv_len, **kw)
         return flash_attention_ref(q, k, v, kv_len, **kw)
-    if device.type != "cuda":
+    if device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {device}")
+    len_t, len_v = _kv_len_parts(kv_len, k.shape[2])
+    out, lse = torch.ops.repro_torch.flash_attention(
+        q, k, v, len_t, len_v, bool(causal), -1 if window is None else int(window),
+        p_round(p_dtype), bool(return_lse))
+    return (out, lse) if return_lse else out
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_len_t: Optional[torch.Tensor], kv_len_v: int, causal: bool,
+                        window: int, p_code: int,
+                        return_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_launch(q, k, v, kv_len_t, kv_len_v, causal, window, p_code,
+                                  return_lse)
+
+
+def flash_attention_launch(q, k, v, kv_len_t, kv_len_v: int, causal: bool, window: int,
+                           p_code: int, return_lse: bool):
+    """The forward kernel's launch (the custom op's CUDA implementation,
+    callable bare); ``lse`` is empty unless asked for."""
+    device = q.device
     q, k, v = _readable(q), _readable(k), _readable(v)
     out = _readable(torch.empty_like(q))
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=device)
-           if return_lse else None)
+    lse = torch.empty((b, h, sq) if return_lse else (0,), dtype=torch.float32,
+                      device=device)
     if out.numel() == 0:
-        return (out, lse) if return_lse else out
-    len_ptr, len_value, _len = _kv_len_args(kv_len, sk, device)
+        return out, lse
+    len_ptr, len_value, _len = _kv_len_args(kv_len_t, kv_len_v, sk, device)
     lib, fn = _launcher()
     with torch.cuda.device(device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if lse is None else lse.data_ptr(),
+                 lse.data_ptr() if return_lse else None,
                  b, h, kvh, sq, sk, d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-                 len_ptr, len_value, int(bool(causal)),
-                 -1 if window is None else int(window), d ** -0.5, p_round(p_dtype),
+                 len_ptr, len_value, int(causal), window, d ** -0.5, p_code,
                  DTYPES[q.dtype], _build.stream_of(out))
     _build.check(lib, err, "flash_attention")
     flash_attention_cuda.launches += 1
-    return (out, lse) if return_lse else out
+    return out, lse
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, kv_len_t, kv_len_v, causal, window, p_code, return_lse):
+    b, h, sq, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, sq) if return_lse else (0,), dtype=torch.float32))
+
+
+def attention_pairs(sq: int, sk: int, causal: bool, window: int | None,
+                    kv_len: int | None = None) -> int:
+    """The (query, key) pairs the kernels' mask admits: row i (counted from
+    0) sees key j < min(sk, kv_len), j <= i when causal, j > i - window
+    with a window."""
+    n = sk if kv_len is None else max(0, min(sk, kv_len))
+    total = 0
+    for i in range(sq):
+        hi = min(n, i + 1) if causal else n
+        lo = max(0, i - window + 1) if window is not None and window >= 0 else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def attention_flops(q_shape, k_shape, causal: bool, window: int | None,
+                    kv_len: int | None = None, backward: bool = False) -> int:
+    """The products the kernels run: 2 * 2 * d a pair forward (S = Q K^T and
+    P V), 5 * 2 * d backward (S again, dP, dV, dK, dQ), over
+    ``attention_pairs`` of every (batch, query head); the formula of the
+    card's tensor-core bound in ``chip_smoke.py``."""
+    b, h, sq, d = q_shape
+    per_pair = (5 if backward else 2) * 2 * d
+    return per_pair * b * h * attention_pairs(sq, k_shape[2], causal, window, kv_len)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _fwd_flops(q_shape, k_shape, v_shape, kv_len_t, kv_len_v, causal, window, p_code,
+               return_lse, *args, **kwargs) -> int:
+    return attention_flops(q_shape, k_shape, causal, None if window < 0 else window,
+                           None if kv_len_t is not None else kv_len_v)
 
 
 flash_attention_cuda.launches = 0
@@ -204,7 +287,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len=None, *, causal: bool =
     summed over each KV head's query heads.  One call launches three
     kernels on the current stream and counts one launch; with no query row
     or no key every gradient is 0 and nothing launches (TMA takes no empty
-    dimension)."""
+    dimension).  A ``meta`` tensor takes the custom op's abstract form."""
     _check(q, k, v, window, p_dtype)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype} and do "
@@ -219,8 +302,30 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len=None, *, causal: bool =
     if device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, kv_len, causal=causal,
                                        window=window, p_dtype=p_dtype)
-    if device.type != "cuda":
+    if device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd: unsupported device {device}")
+    len_t, len_v = _kv_len_parts(kv_len, k.shape[2])
+    return torch.ops.repro_torch.flash_attention_bwd(
+        q, k, v, o, lse, do, len_t, len_v, bool(causal),
+        -1 if window is None else int(window), p_round(p_dtype))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                            kv_len_t: Optional[torch.Tensor], kv_len_v: int, causal: bool,
+                            window: int,
+                            p_code: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return flash_attention_bwd_launch(q, k, v, o, lse, do, kv_len_t, kv_len_v, causal,
+                                      window, p_code)
+
+
+def flash_attention_bwd_launch(q, k, v, o, lse, do, kv_len_t, kv_len_v: int, causal: bool,
+                               window: int, p_code: int):
+    """The backward kernels' launch (three kernel nodes, one count; the
+    custom op's CUDA implementation, callable bare)."""
+    device = q.device
     q, k, v, o, do = (_readable(t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
     dq, dk, dv = (_readable(torch.empty_like(t)) for t in (q, k, v))
@@ -230,7 +335,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len=None, *, causal: bool =
         # no row or no key: every gradient is 0, and no kernel runs
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=device)
-    len_ptr, len_value, _len = _kv_len_args(kv_len, sk, device)
+    len_ptr, len_value, _len = _kv_len_args(kv_len_t, kv_len_v, sk, device)
     lib, fn = _launcher("flash_attention_bwd", "repro_flash_attention_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
@@ -238,12 +343,23 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_len=None, *, causal: bool =
                  dv.data_ptr(), b, h, kvh, sq, sk, d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
                  *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
-                 len_ptr, len_value, int(bool(causal)),
-                 -1 if window is None else int(window), d ** -0.5, p_round(p_dtype),
+                 len_ptr, len_value, int(causal), window, d ** -0.5, p_code,
                  DTYPES[q.dtype], _build.stream_of(dq))
     _build.check(lib, err, "flash_attention_bwd")
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
+
+
+@_flash_attention_bwd_op.register_fake
+def _(q, k, v, o, lse, do, kv_len_t, kv_len_v, causal, window, p_code):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape, kv_len_t, kv_len_v,
+               causal, window, p_code, *args, **kwargs) -> int:
+    return attention_flops(q_shape, k_shape, causal, None if window < 0 else window,
+                           None if kv_len_t is not None else kv_len_v, backward=True)
 
 
 flash_attention_bwd_cuda.launches = 0

@@ -4,7 +4,8 @@ recurrent step for decode.
 State-space parameters follow the Mamba2 paper: per-head scalar decay
 ``a = -exp(A_log)``, input-dependent ``dt`` (softplus), shared (G=1) B / C
 projections of size ``ssm_state``.  The JAX package's ``lax.scan`` over
-chunks is a Python loop over the ``S / ssm_chunk`` chunks here; each chunk
+chunks is a Python loop over the ``S / ssm_chunk`` chunks here
+(``repeat.scan``); each chunk
 is the same products as there (plain ``torch`` products, as the JAX
 package leaves them to XLA).  Rounding points are the JAX package's: the
 projections in the compute dtype, the scan in float32, the conv tail held
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 from .config import ModelConfig
 from .layers import torch_dtype
 from .module import Creator
+from .repeat import scan
 
 CONV_K = 4
 
@@ -115,11 +117,8 @@ def mamba2_apply(p, u, cfg: ModelConfig, return_state: bool = False):
     dtc = dtf.reshape(B_, nc, Q, H)
     causal = torch.ones((Q, Q), dtype=torch.bool, device=u.device).tril()
     h = torch.zeros((B_, H, N, P), dtype=torch.float32, device=u.device)
-    ys = []
-    for c in range(nc):
-        h, y_c = _chunk(h, xh[:, c], Bh[:, c], Ch[:, c], ad[:, c], dtc[:, c], causal)
-        ys.append(y_c)
-    y = torch.stack(ys, 1).reshape(B_, Sp, H, P)[:, :S]
+    h, ys = scan(nc, lambda h, *x: _chunk(h, *x, causal), h, (xh, Bh, Ch, ad, dtc))
+    y = ys.reshape(B_, Sp, H, P)[:, :S]
     y = y + xh.reshape(B_, Sp, H, P)[:, :S] * p["D"].float()[:, None]
     out = _tail(p, cfg, y.reshape(B_, S, di), z)
     if return_state:

@@ -23,7 +23,10 @@ loop.  The families:
 Cache layouts (``init_cache``) are the JAX package's: K / V of every
 attention layer in ``layers.CACHE_DTYPE``, bf16 (hybrid: one per group;
 audio: also the cross K / V at ``enc_seq``), float32 recurrent states,
-``pos`` a Python int.
+``pos`` a Python int.  The launch tooling reads the same structure without
+an allocation: ``abstract_params`` (``meta`` parameters carrying their
+logical axes), ``param_specs`` (a ``PartitionSpec`` per ``state_dict`` key),
+``cache_specs`` and ``init_cache(..., device="meta")``.
 
 ``forward`` is differentiable (the parameters take gradients) and runs
 under ``cfg.remat_policy`` (``transformer.remat``) at the JAX package's
@@ -48,7 +51,7 @@ from . import mamba2 as M
 from . import xlstm as X
 from .config import ModelConfig
 from .layers import torch_dtype
-from .module import Creator, parameter
+from .module import P, AbstractCreator, Creator, ShardingRules, SpecCreator, parameter
 from .transformer import (Block, DecBlock, HybridBlock, SharedAttn, XLSTMGroup,
                           block_apply, block_decode, block_remat, remat)
 
@@ -83,6 +86,25 @@ class Model(nn.Module):
 
 def init_params(cfg: ModelConfig, creator: Creator) -> Model:
     return Model(cfg, creator)
+
+
+def abstract_params(cfg: ModelConfig, device="meta") -> Model:
+    """The model with no storage (``meta`` tensors in ``cfg.param_dtype``),
+    each parameter carrying its ``logical_axes``: shapes, dtypes and axes
+    without an allocation."""
+    return init_params(cfg, AbstractCreator(cfg.param_dtype, device))
+
+
+def param_specs(cfg: ModelConfig, rules: ShardingRules,
+                model: Model | None = None) -> dict[str, P]:
+    """One ``PartitionSpec`` per parameter, keyed like ``Model.state_dict()``
+    (of ``model`` when given, else of ``abstract_params(cfg)``).  A JAX
+    leaf of stacked layers has one more entry, the leading ``"layers"``
+    axis (``None``), than the port's per-layer key."""
+    spec = SpecCreator(rules)
+    model = abstract_params(cfg) if model is None else model
+    return {name: spec(name, tuple(p.shape), p.logical_axes)
+            for name, p in model.named_parameters()}
 
 
 def _embed(cfg, params, tokens):
@@ -321,7 +343,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict[
     """Decode state of ``cfg``'s family on ``device`` (the card unless
     named), zeros: K / V caches (layers, B, max_len, KVH, hd) in
     ``layers.CACHE_DTYPE`` (bf16), float32
-    recurrent states, and the next position ``pos``, a Python int."""
+    recurrent states, and the next position ``pos``, a Python int.
+    ``device="meta"`` is the abstract cache (the JAX package's
+    ``abstract=True``): the same shapes and dtypes with no storage."""
     device = torch.device("cuda" if device is None else device)
 
     def z(shape, dtype):
@@ -357,6 +381,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict[
     else:
         raise ValueError(fam)
     return cache
+
+
+def cache_specs(cfg: ModelConfig, rules: ShardingRules) -> dict[str, P]:
+    """``PartitionSpec``s mirroring ``init_cache``, the JAX package's: K / V
+    caches sharded on the sequence over the heads' mesh axis (the
+    flash-decoding layout) and on the batch over the batch axes, whatever
+    the kv-head count; the SSM states on their heads or memory dim."""
+    bx, sx = rules.batch, rules.heads  # seq dim of caches -> model axis
+    fam = cfg.family
+    specs: dict[str, Any] = {"pos": P()}
+    if fam in ("dense", "moe", "vlm", "audio"):
+        specs["k"] = P(None, bx, sx, None, None)
+        specs["v"] = P(None, bx, sx, None, None)
+        if fam == "audio":
+            specs["xk"] = P(None, bx, sx, None, None)
+            specs["xv"] = P(None, bx, sx, None, None)
+    elif fam == "hybrid":
+        specs["mamba_h"] = P(None, bx, sx, None, None)      # shard SSM heads
+        specs["mamba_conv"] = P(None, bx, None, sx)
+        specs["k"] = P(None, bx, sx, None, None)
+        specs["v"] = P(None, bx, sx, None, None)
+    elif fam == "ssm":
+        specs["mlstm_h"] = P(None, None, bx, None, sx, None)  # shard memory P
+        specs["mlstm_m"] = P(None, None, bx, None)
+        for key in ("h", "c", "n", "m"):
+            specs[f"slstm_{key}"] = P(None, bx, None, sx)
+    else:
+        raise ValueError(fam)
+    return specs
 
 
 @torch.no_grad()

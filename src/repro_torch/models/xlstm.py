@@ -7,8 +7,8 @@ products.  Numerator and normalizer come out of one chunked pass through a
 ones channel appended to ``v`` (state (P, P + 1)), the state kept
 stabilized by a running log-scale ``m``.  The JAX package's ``lax.scan``
 over chunks is a Python loop over chunks here, and sLSTM's scan over time
-a Python loop over tokens; every product is plain ``torch``, as the JAX
-package leaves them to XLA.
+a Python loop over tokens (both ``repeat.scan``); every product is plain
+``torch``, as the JAX package leaves them to XLA.
 
 The intra-chunk weights mask before they exponentiate,
 ``exp(where(causal, diff, -inf))``: above a chunk's diagonal ``diff`` grows
@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from .config import ModelConfig
 from .layers import torch_dtype
 from .module import Creator
+from .repeat import scan
 
 M_INIT = -30.0     # the stabilizer's start: exp(-30) weighs the empty state
 
@@ -113,15 +114,15 @@ def mlstm_apply(p, u, cfg: ModelConfig, state=None, return_state: bool = False):
     else:
         h, m = state["h"], state["m"]
     causal = torch.ones((Q, Q), dtype=torch.bool, device=u.device).tril()
-    ys, mrows = [], []
-    for c in range(nc):
-        t = slice(c * Q, (c + 1) * Q)
-        h, m, y_c, mrow_c = _mlstm_chunk(h, m, q[:, t], k[:, t], v1[:, t], logf[:, t],
-                                         i_raw[:, t], causal)
-        ys.append(y_c)
-        mrows.append(mrow_c)
-    y = torch.cat(ys, 1)[:, :S]
-    m_row = torch.cat(mrows, 1)[:, :S]
+
+    def chunk(hm, *x):
+        h, m, y_c, mrow_c = _mlstm_chunk(*hm, *x, causal)
+        return (h, m), (y_c, mrow_c)
+
+    xs = tuple(t.reshape(b, nc, Q, *t.shape[2:]) for t in (q, k, v1, logf, i_raw))
+    (h, m), (y, m_row) = scan(nc, chunk, (h, m), xs)
+    y = y.reshape(b, nc * Q, *y.shape[3:])[:, :S]
+    m_row = m_row.reshape(b, nc * Q, H)[:, :S]
     num, den = y[..., :P], y[..., P:]
     floor = torch.exp(torch.clamp(-m_row, -60.0, 60.0))[..., None]
     out = (num / torch.maximum(den.abs(), floor)).reshape(b, S, H * P)
@@ -209,11 +210,13 @@ def slstm_apply(p, u, cfg: ModelConfig, state=None):
     if state is None:
         state = slstm_init_state(cfg, b, u.device)
     st = (state["h"], state["c"], state["n"], state["m"])
-    hs = []
-    for t in range(S):
-        st = _slstm_cell(p, cfg, wx[:, t], st)
-        hs.append(st[0])
-    y = torch.stack(hs, 1).reshape(b, S, D)
+
+    def step(st, wx_t):
+        st = _slstm_cell(p, cfg, wx_t, st)
+        return st, st[0]
+
+    st, hs = scan(S, step, st, (wx,))
+    y = hs.reshape(b, S, D)
     y = y * torch.rsqrt((y * y).mean(dim=-1, keepdim=True) + 1e-6)
     y = y * (1.0 + p["norm"].float())
     g, v = (y.to(dt_c) @ p["ff_up"].to(dt_c)).chunk(2, dim=-1)

@@ -13,8 +13,15 @@ kernel), and the update is ``optimizer.adamw_update`` in place, so
 Microbatches run as a Python loop in place of JAX's ``lax.scan``: each
 one's loss is backpropagated, autograd sums the gradients into ``.grad``
 in microbatch order, and then the summed loss and gradients are scaled by
-``1 / n``, as JAX does.  ``state_specs`` / ``abstract_state`` are sharding
-tooling and arrive with the launch tooling.
+``1 / n``, as JAX does.  The step is three parts, each its own function so
+the launch tooling's dry run can trace one microbatch and weight it by the
+count: ``grad_step`` (one microbatch's loss backpropagated into ``.grad``),
+``microbatches`` (the split) and ``finish_step`` (the scaling and AdamW).
+
+``state_specs`` / ``abstract_state`` are the state's sharding and its
+abstract form (``meta`` tensors: the parameters in ``cfg.param_dtype``,
+``m`` / ``v`` float32, ``step`` a 0-d int32), the JAX package's twins with
+the parameters keyed like ``Model.state_dict()``.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 
 from repro_torch.models import model as Mdl
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.module import P, ShardingRules
 from .optimizer import OptConfig, adamw_update, init_opt_state
 
 
@@ -39,38 +47,79 @@ def loss_fn(cfg: ModelConfig, model: Mdl.Model, batch) -> torch.Tensor:
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
+def grad_step(cfg: ModelConfig, model: Mdl.Model, batch) -> torch.Tensor:
+    """``loss_fn`` of one (micro)batch backpropagated: its gradients summed
+    onto each parameter's ``.grad`` (set where it was None).  Returns the
+    loss, detached."""
+    loss = loss_fn(cfg, model, batch)
+    loss.backward()
+    return loss.detach()
+
+
+def microbatches(batch, num_microbatches: int) -> list[dict]:
+    """The batch split along its leading dimension into ``num_microbatches``
+    consecutive microbatches (views), as JAX's reshape to (n, -1, ...)."""
+    mbs = {k: v.reshape(num_microbatches, -1, *v.shape[1:]) for k, v in batch.items()}
+    return [{k: v[i] for k, v in mbs.items()} for i in range(num_microbatches)]
+
+
+def finish_step(oc: OptConfig, state, loss, num_microbatches: int = 1):
+    """The summed loss and ``.grad`` scaled by ``1 / n`` (n > 1), the AdamW
+    update in place, the gradients cleared.  Returns (state, metrics)."""
+    model = state["params"]
+    params = dict(model.named_parameters())
+    if num_microbatches > 1:
+        inv = 1.0 / num_microbatches
+        loss = loss * inv
+        for p in params.values():
+            p.grad.mul_(inv)
+    grads = {k: p.grad for k, p in params.items()}
+    _, opt, om = adamw_update(oc, params, grads, state["opt"])
+    for p in params.values():
+        p.grad = None
+    return {"params": model, "opt": opt}, {"loss": loss, **om}
+
+
 def make_train_step(cfg: ModelConfig, oc: OptConfig, num_microbatches: int = 1):
     """Returns ``train_step(state, batch) -> (state, metrics)``; metrics
     ``{"loss", "lr", "grad_norm"}`` are 0-d float32 tensors on the device."""
 
     def train_step(state, batch):
-        model = state["params"]
-        params = dict(model.named_parameters())
-        for p in params.values():
+        for p in state["params"].parameters():
             p.grad = None
         if num_microbatches == 1:
-            loss = loss_fn(cfg, model, batch)
-            loss.backward()
-            loss = loss.detach()
+            loss = grad_step(cfg, state["params"], batch)
         else:
-            mbs = {k: v.reshape(num_microbatches, -1, *v.shape[1:]) for k, v in batch.items()}
             loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
-            for i in range(num_microbatches):
-                mb_loss = loss_fn(cfg, model, {k: v[i] for k, v in mbs.items()})
-                mb_loss.backward()
-                loss = loss + mb_loss.detach()
-            inv = 1.0 / num_microbatches
-            loss = loss * inv
-            for p in params.values():
-                p.grad.mul_(inv)
-        grads = {k: p.grad for k, p in params.items()}
-        _, opt, om = adamw_update(oc, params, grads, state["opt"])
-        for p in params.values():
-            p.grad = None
-        return {"params": model, "opt": opt}, {"loss": loss, **om}
+            for mb in microbatches(batch, num_microbatches):
+                loss = loss + grad_step(cfg, state["params"], mb)
+        return finish_step(oc, state, loss, num_microbatches)
 
     return train_step
 
 
 def init_state(cfg: ModelConfig, model: Mdl.Model) -> dict:
     return {"params": model, "opt": init_opt_state(dict(model.named_parameters()))}
+
+
+def state_specs(cfg: ModelConfig, rules: ShardingRules) -> dict:
+    """The train state's ``PartitionSpec``s: the parameters' (keyed like
+    ``Model.state_dict()``) for them and for ``m`` / ``v``, ``step``
+    replicated."""
+    pspecs = Mdl.param_specs(cfg, rules)
+    return {"params": pspecs, "opt": {"m": pspecs, "v": dict(pspecs), "step": P()}}
+
+
+def abstract_state(cfg: ModelConfig, device="meta") -> dict:
+    """The train state with no storage: ``Mdl.abstract_params`` and AdamW's
+    ``m`` / ``v`` as float32 ``meta`` tensors of the same shapes, ``step``
+    a 0-d int32."""
+    model = Mdl.abstract_params(cfg, device)
+
+    def like():
+        return {k: torch.empty(p.shape, dtype=torch.float32, device=p.device)
+                for k, p in model.named_parameters()}
+
+    return {"params": model,
+            "opt": {"m": like(), "v": like(),
+                    "step": torch.empty((), dtype=torch.int32, device=device)}}
