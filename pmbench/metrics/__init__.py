@@ -1,0 +1,3 @@
+"""One reader a per-layer metric: ``pmbench/metrics/<metric>.py`` defines
+``read(data: pmbench.trace.TraceData) -> float | None``; ``None`` when the
+run has nothing for it to read (the harness then leaves it out)."""
