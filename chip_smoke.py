@@ -658,16 +658,20 @@ def profile_device(torch, fn) -> dict:
     """Device-side activity of ``fn`` from a ``torch.profiler`` trace:
     ``{name: (count, device microseconds)}`` over kernels, copies and
     fills only (host-side operators, which also carry their kernels'
-    device time, are left out so nothing is counted twice)."""
+    device time, are left out so nothing is counted twice; so are the
+    program's spans, ``repro_torch.*``, which the profiler also draws on the
+    device's timeline around the kernels they launched)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or e.key.startswith(trace.PREFIX):
             continue
         t = getattr(e, "self_device_time_total", None)
         if t is None:

@@ -31,6 +31,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels.segment_ops import pair_count
 
 from . import engine
@@ -131,7 +132,8 @@ def _maximal_pairs(causal: np.ndarray, choice: np.ndarray):
 
 
 def _nonzero_set(v: torch.Tensor) -> frozenset[int]:
-    return frozenset(int(i) for i in np.nonzero(v.cpu().numpy())[0])
+    return frozenset(int(i)
+                     for i in np.nonzero(trace.host_read(v).numpy())[0])
 
 
 def discover_alpha(d: DFG, min_count: int = 1) -> AlphaModel:
@@ -192,7 +194,7 @@ def _heuristics_measures(counts: torch.Tensor, l2_counts: torch.Tensor):
 
 def _f32(x: float, device) -> torch.Tensor:
     # thresholds compare in float32, as the JAX package's jnp.float32(x)
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    return trace.to_device(x, device, torch.float32)
 
 
 def _heuristics_graph(counts, l2_counts, dep, l2, and_m, dependency_threshold,
@@ -264,7 +266,7 @@ def init_l2_carry(carry: engine.Carry) -> engine.Carry:
     dev = carry["case"].device
     for k, v in (("case2", -1), ("act2", 0), ("rv2", False),
                  ("exists2", False)):
-        carry[k] = torch.tensor(v, dtype=engine.CARRY_DTYPES[k], device=dev)
+        carry[k] = trace.to_device(v, dev, engine.CARRY_DTYPES[k])
     return carry
 
 

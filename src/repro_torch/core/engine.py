@@ -35,6 +35,8 @@ from typing import Any, Callable, Iterable, Mapping, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import trace
+
 from . import polyhash
 from .eventframe import ACTIVITY, CASE, TIMESTAMP, EventFrame
 
@@ -170,7 +172,7 @@ CARRY_DTYPES = {"case": torch.int64, "act": torch.int32, "ts": torch.float32,
 def init_row_carry(device, **extra) -> Carry:
     """The halo before the first row: ``exists=False`` masks everything."""
     init = {"case": -1, "act": 0, "ts": 0.0, "rv": False, "exists": False}
-    carry = {k: torch.tensor(v, dtype=CARRY_DTYPES[k], device=device)
+    carry = {k: trace.to_device(v, device, CARRY_DTYPES[k])
              for k, v in init.items()}
     carry.update(extra)
     return carry
@@ -421,8 +423,9 @@ def _chunk_halo(chunk: Chunk, lead_open: bool, heads_missing: int):
     n = case.shape[0]
     if n > 1:
         change = case[1:] != case[:-1]
-        nchg, first = torch.stack(
-            [change.sum(), torch.argmax(change.to(torch.int32))]).tolist()
+        nchg, first = trace.host_read(
+            torch.stack([change.sum(), torch.argmax(change.to(torch.int32))]),
+            torch.Tensor.tolist)
     else:
         nchg, first = 0, 0
     k = first + 1 if nchg else n
@@ -436,7 +439,7 @@ def _chunk_halo(chunk: Chunk, lead_open: bool, heads_missing: int):
     sketch = lead_open and polyhash.SK_MUL1 in chunk
     if sketch:
         parts += [_u32_host(chunk[c][:k]) for c in polyhash.SKETCH_COLUMNS]
-    flat = torch.cat(parts).cpu().numpy()
+    flat = trace.host_read(torch.cat(parts)).numpy()
     rows = {"case": flat[:p], "act": flat[p:2 * p],
             "rv": flat[2 * p:3 * p].astype(bool)}
     last = flat[3 * p:3 * p + 3]
@@ -478,8 +481,9 @@ def fold_group(kernel: ChunkKernel, chunks: Iterable[Chunk],
             continue
         if state is None:
             state, carry = kernel.init(chunk.device)
-        nchg, k, head, last, maps = _chunk_halo(chunk, lead_open,
-                                                2 - len(head_rows))
+        with trace.span("fold.halo"):
+            nchg, k, head, last, maps = _chunk_halo(chunk, lead_open,
+                                                    2 - len(head_rows))
         case, act, rv = head["case"], head["act"], head["rv"]
         cont = rows > 0 and int(case[0]) == tail["case"]
         segments += 1 + nchg - (1 if cont else 0)
@@ -635,6 +639,34 @@ def union_columns(column_sets: Iterable[tuple]) -> tuple:
     return tuple(out)
 
 
+def _step_spans(verb: str) -> tuple[str, str, str]:
+    return tuple(f"fold.{step}.{verb}" for step in ("init", "update",
+                                                    "finalize"))
+
+
+def traced(kernel: ChunkKernel, verb: str) -> ChunkKernel:
+    """``kernel`` with its ``init``, each ``update`` and its ``finalize``
+    in the spans ``fold.init.<verb>``, ``fold.update.<verb>`` and
+    ``fold.finalize.<verb>`` (``repro_torch.trace``; no-ops while no
+    profiler records), as :func:`compose` spans its members."""
+    init_span, update_span, finalize_span = _step_spans(verb)
+
+    def init(device):
+        with trace.span(init_span):
+            return kernel.init(device)
+
+    def update(state, carry, chunk):
+        with trace.span(update_span):
+            return kernel.update(state, carry, chunk)
+
+    def finalize(state, carry):
+        with trace.span(finalize_span):
+            return kernel.finalize(state, carry)
+
+    return dataclasses.replace(kernel, init=init, update=update,
+                               finalize=finalize)
+
+
 def compose(kernels: Mapping[str, ChunkKernel]) -> ChunkKernel:
     """Fuse kernels into one that shares a single pass over the stream.
 
@@ -644,25 +676,37 @@ def compose(kernels: Mapping[str, ChunkKernel]) -> ChunkKernel:
     requirements (unknown if any member's is unknown), ``mask_exact`` the
     conjunction, and ``ghost_sketch`` the disjunction — one
     sketch-consuming member is enough for ghost chunks to carry sketches.
+    Each member's init, update and finalize run in the spans
+    ``fold.init.<key>``, ``fold.update.<key>`` and ``fold.finalize.<key>``.
     """
     names = tuple(kernels)
+    spans = {k: _step_spans(k) for k in names}
 
     def init(device):
-        pairs = {k: kernels[k].init(device) for k in names}
+        pairs = {}
+        for k in names:
+            with trace.span(spans[k][0]):
+                pairs[k] = kernels[k].init(device)
         return ({k: s for k, (s, _) in pairs.items()},
                 {k: c for k, (_, c) in pairs.items()})
 
     def update(state, carry, chunk):
         out_s, out_c = {}, {}
         for k in names:
-            out_s[k], out_c[k] = kernels[k].update(state[k], carry[k], chunk)
+            with trace.span(spans[k][1]):
+                out_s[k], out_c[k] = kernels[k].update(state[k], carry[k],
+                                                       chunk)
         return out_s, out_c
 
     def merge(a, b):
         return {k: kernels[k].merge(a[k], b[k]) for k in names}
 
     def finalize(state, carry):
-        return {k: kernels[k].finalize(state[k], carry[k]) for k in names}
+        out = {}
+        for k in names:
+            with trace.span(spans[k][2]):
+                out[k] = kernels[k].finalize(state[k], carry[k])
+        return out
 
     # the fused kernel joins the group-state algebra exactly when every
     # member does: its stitch slices the dict state/carry per member and

@@ -24,6 +24,7 @@ from functools import lru_cache
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels.segment_ops import histogram, segment_reduce
 
 from . import backend as _backend
@@ -44,7 +45,7 @@ def _impl(backend: str | None) -> str | None:
 
 def _seg_carry(device) -> engine.Carry:
     return engine.init_row_carry(
-        device, seg=torch.tensor(-1, dtype=torch.int32, device=device))
+        device, seg=trace.to_device(-1, device, torch.int32))
 
 
 # ------------------------------------------------------------ chunk kernels

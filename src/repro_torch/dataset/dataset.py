@@ -46,6 +46,7 @@ from typing import Any, Iterable, Mapping
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.eventframe import (ACTIVITY, CASE, EventFrame,
                                          concat_frames)
 from repro_torch.query.plan import MultiPlan, check_predicate
@@ -236,7 +237,7 @@ class Dataset:
                     hi = max(hi, int(z["max"]))
             return hi + 1
         acts = self.frame[ACTIVITY]
-        return int(acts.max()) + 1 if acts.numel() else 0
+        return trace.host_read(acts.max(), int) + 1 if acts.numel() else 0
 
     @property
     def num_cases(self) -> int:
@@ -252,7 +253,9 @@ class Dataset:
                     "metadata); pass repro_torch.open(..., num_cases=N)")
             return total
         case = self.frame[CASE]
-        return int((case[1:] != case[:-1]).sum()) + 1 if case.numel() else 0
+        if not case.numel():
+            return 0
+        return trace.host_read((case[1:] != case[:-1]).sum(), int) + 1
 
     def file_sizes(self) -> dict:
         """Summed ``storage.edf.file_sizes`` accounting over the file set."""

@@ -75,6 +75,7 @@ from typing import Any, Iterable, Mapping
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import backend as _backend
 from repro_torch.core import engine as _engine
 from repro_torch.core.eventframe import CASE, EventFrame
@@ -342,30 +343,36 @@ def eager_frame(dataset) -> EventFrame:
     from repro_torch.query.expr import CasePredicate, bind_schema
     from repro_torch.storage import edf
 
-    if dataset.is_files:
-        from repro_torch.core.eventframe import concat_frames
-        from repro_torch.query.exec import check_homogeneous
+    with trace.span("filter"):
+        if dataset.is_files:
+            from repro_torch.core.eventframe import concat_frames
+            from repro_torch.query.exec import check_homogeneous
 
-        check_homogeneous(dataset._readers)     # fail like streaming would
-        frame = concat_frames([edf.read(p, device=dataset.device)[0]
-                               for p in dataset.paths])
-    else:
-        frame = dataset.frame
-    tables = dataset.tables
-    for step in dataset.steps:
-        if isinstance(step, CasePredicate):
-            resolved = step.resolve(tables)
-            kernel = resolved.phase1_kernel(dataset.num_cases)
-            keep = resolved.finalize_keep(_engine.run_single(kernel, frame))
-            seg, _ = ops.segment_ids_sorted(frame[CASE])
-            keep = torch.as_tensor(np.asarray(keep), device=frame.device)
-            frame = ops.proj(frame, keep[seg.long()])
+            check_homogeneous(dataset._readers)  # fail like streaming would
+            frame = concat_frames([edf.read(p, device=dataset.device)[0]
+                                   for p in dataset.paths])
         else:
-            bound = bind_schema(step, dataset.schema)
-            frame = ops.proj(frame, bound.mask(frame))
-    if dataset.projection is not None:
-        frame = frame.select(dataset.projection)
-    return frame
+            frame = dataset.frame
+        tables = dataset.tables
+        for step in dataset.steps:
+            if isinstance(step, CasePredicate):
+                with trace.span("filter.case"):
+                    resolved = step.resolve(tables)
+                    kernel = resolved.phase1_kernel(dataset.num_cases)
+                    with trace.span("filter.case.phase1"):
+                        hits = _engine.run_single(kernel, frame)
+                    with trace.span("filter.case.keep"):
+                        keep = resolved.finalize_keep(hits)
+                        seg, _ = ops.segment_ids_sorted(frame[CASE])
+                        keep = trace.to_device(np.asarray(keep), frame.device)
+                        frame = ops.proj(frame, keep[seg.long()])
+            else:
+                with trace.span("filter.rows"):
+                    bound = bind_schema(step, dataset.schema)
+                    frame = ops.proj(frame, bound.mask(frame))
+        if dataset.projection is not None:
+            frame = frame.select(dataset.projection)
+        return frame
 
 
 def _device_count(device) -> int:
@@ -475,13 +482,14 @@ def _fold_eager(kernel, frame):
     in-memory frame as a single group state and finalize it.  For kernels
     without a stitch this degenerates to ``run_single`` — both are
     ``finalize(update(init, frame))``, bitwise."""
-    if _engine.mergeable(kernel):
-        chunks = [frame] if frame.nrows else []
-        return _engine.finalize_group(
-            kernel, _engine.fold_group(kernel, chunks, frame.device))
-    # a zero-row dataset still finalizes cleanly (like run_streaming)
-    return (_engine.run_single(kernel, frame) if frame.nrows
-            else kernel.finalize(*kernel.init(frame.device)))
+    with trace.span("fold"):
+        if _engine.mergeable(kernel):
+            chunks = [frame] if frame.nrows else []
+            return _engine.finalize_group(
+                kernel, _engine.fold_group(kernel, chunks, frame.device))
+        # a zero-row dataset still finalizes cleanly (like run_streaming)
+        return (_engine.run_single(kernel, frame) if frame.nrows
+                else kernel.finalize(*kernel.init(frame.device)))
 
 
 def _check_engine(engine: str) -> None:
@@ -495,26 +503,26 @@ def collect(dataset, verb: str, *, engine: str = "auto",
     """Resolve the verb through the kernel registry, pick an engine, run
     on the dataset's device."""
     _check_engine(engine)
-    memo_key = _memo_key(dataset, ("collect", verb, engine, num_shards,
-                                   # auto's choice moves with the fitted
-                                   # costs — key them so a recalibration
-                                   # is never served a stale decision
-                                   calibration() if engine == "auto"
-                                   else None,
-                                   tuple(sorted((k, repr(v))
-                                                for k, v in kwargs.items()))))
-    hit = _memo_get(memo_key)
-    if hit is not None:
-        return hit
-    out = _collect(dataset, verb, engine, num_shards, prefetch, kwargs)
-    _memo_put(memo_key, out)
-    return out
+    with trace.span("collect"):
+        memo_key = _memo_key(dataset, (
+            "collect", verb, engine, num_shards,
+            # auto's choice moves with the fitted costs — key them so a
+            # recalibration is never served a stale decision
+            calibration() if engine == "auto" else None,
+            tuple(sorted((k, repr(v)) for k, v in kwargs.items()))))
+        hit = _memo_get(memo_key)
+        if hit is not None:
+            return hit
+        out = _collect(dataset, verb, engine, num_shards, prefetch, kwargs)
+        _memo_put(memo_key, out)
+        return out
 
 
 def _collect(dataset, verb, engine, num_shards, prefetch, kwargs
              ) -> CollectResult:
     spec = spec_for(verb)
-    dims = _engine.Dims(dataset.num_activities, dataset.num_cases)
+    with trace.span("facade.dims"):
+        dims = _engine.Dims(dataset.num_activities, dataset.num_cases)
     est = None
     if engine == "auto":
         est = estimate(dataset) if dataset.is_files else None
@@ -523,7 +531,7 @@ def _collect(dataset, verb, engine, num_shards, prefetch, kwargs
         if dataset.is_files:
             dataset.plan(columns=spec.columns)  # same projection/column
             # validation (and error) the streaming engine would raise
-        kernel = spec.make(dims, **kwargs)
+        kernel = _engine.traced(spec.make(dims, **kwargs), verb)
         result = _fold_eager(kernel, eager_frame(dataset))
         return CollectResult(result, None, "eager", verb, est)
     if engine == "sharded":
@@ -534,7 +542,7 @@ def _collect(dataset, verb, engine, num_shards, prefetch, kwargs
     from repro_torch.query.exec import (execute, execute_grouped,
                                         grouped_eligible)
 
-    kernel = spec.make(dims, **kwargs)
+    kernel = _engine.traced(spec.make(dims, **kwargs), verb)
     plan = dataset.plan(columns=spec.columns)
     if grouped_eligible(kernel, dataset.steps):
         result, report = execute_grouped(plan, kernel,
@@ -588,26 +596,29 @@ def collect_many(dataset, verbs: Iterable[str], *, engine: str = "auto",
     if len(set(verbs)) != len(verbs):
         raise ValueError(f"duplicate verbs in collect_many: {list(verbs)}")
     vk = dict(verb_kwargs or {})
-    memo_key = _memo_key(dataset, (
-        "collect_many", verbs, engine, num_shards,
-        calibration() if engine == "auto" else None,
-        tuple(sorted((v, tuple(sorted((k, repr(x)) for k, x in kw.items())))
-                     for v, kw in vk.items())),
-        tuple(sorted((k, repr(v)) for k, v in common.items()))))
-    hit = _memo_get(memo_key)
-    if hit is not None:
-        return hit
-    out = _collect_many(dataset, verbs, engine, num_shards, prefetch, vk,
-                        common)
-    _memo_put(memo_key, out)
-    return out
+    with trace.span("collect"):
+        memo_key = _memo_key(dataset, (
+            "collect_many", verbs, engine, num_shards,
+            calibration() if engine == "auto" else None,
+            tuple(sorted((v, tuple(sorted((k, repr(x))
+                                          for k, x in kw.items())))
+                         for v, kw in vk.items())),
+            tuple(sorted((k, repr(v)) for k, v in common.items()))))
+        hit = _memo_get(memo_key)
+        if hit is not None:
+            return hit
+        out = _collect_many(dataset, verbs, engine, num_shards, prefetch, vk,
+                            common)
+        _memo_put(memo_key, out)
+        return out
 
 
 def _collect_many(dataset, verbs, engine, num_shards, prefetch, vk, common
                   ) -> CollectManyResult:
     specs = {v: spec_for(v) for v in verbs}
     fused = _engine.compose_specs(specs)
-    dims = _engine.Dims(dataset.num_activities, dataset.num_cases)
+    with trace.span("facade.dims"):
+        dims = _engine.Dims(dataset.num_activities, dataset.num_cases)
     est = None
     if engine == "auto":
         est = estimate(dataset) if dataset.is_files else None

@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from ... import trace
 from .. import _build
 from . import counting
 from .ref import histogram_ref
@@ -55,8 +56,9 @@ def histogram_cuda(values: torch.Tensor, weights: torch.Tensor, num_bins: int,
         return (torch.zeros(num_bins, dtype=torch.int32, device=device)
                 if into is None else into.clone())
     lib, fn = _launcher()
-    out = counting.launch(lib, fn, "histogram", (values,), weights,
-                          (num_bins,), into)
+    with trace.span("kernel.histogram"):
+        out = counting.launch(lib, fn, "histogram", (values,), weights,
+                              (num_bins,), into)
     histogram_cuda.launches += 1
     return out
 

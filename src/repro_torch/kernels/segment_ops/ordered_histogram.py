@@ -22,6 +22,7 @@ import ctypes
 
 import torch
 
+from ... import trace
 from .. import _build
 from .ref import ordered_histogram_ref
 
@@ -106,7 +107,7 @@ def ordered_histogram_cuda(values: torch.Tensor, weights: torch.Tensor,
     bin_start = torch.empty(shapes["bin_start"], dtype=torch.int32, device=device)
     ordered = torch.empty(shapes["sorted"], dtype=torch.float32, device=device)
     lib, fn = _launcher()
-    with torch.cuda.device(device):
+    with trace.span("kernel.ordered_histogram"), torch.cuda.device(device):
         err = fn(values.data_ptr(), weights.data_ptr(), n, num_bins,
                  None if into is None else into.data_ptr(), out.data_ptr(),
                  counts.data_ptr(), bin_start.data_ptr(), ordered.data_ptr(),

@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from ... import trace
 from .. import _build
 from . import counting
 from .ref import pair_count_ref
@@ -57,7 +58,9 @@ def pair_count_cuda(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
         return (torch.zeros(shape, dtype=torch.int32, device=device)
                 if into is None else into.clone())
     lib, fn = _launcher()
-    out = counting.launch(lib, fn, "pair_count", (src, dst), w, shape, into)
+    with trace.span("kernel.pair_count"):
+        out = counting.launch(lib, fn, "pair_count", (src, dst), w, shape,
+                              into)
     pair_count_cuda.launches += 1
     return out
 

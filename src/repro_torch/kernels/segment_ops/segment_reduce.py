@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from ... import trace
 from .. import _build
 from .ref import reduce_identity, segment_reduce_ref
 
@@ -97,7 +98,7 @@ def segment_reduce_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
     out = torch.empty((num_segments,), dtype=torch.int32 if values.dtype == torch.uint32
                       else values.dtype, device=device).view(values.dtype)
     lib, fn = _launcher()
-    with torch.cuda.device(device):
+    with trace.span("kernel.segment_reduce"), torch.cuda.device(device):
         err = fn(segment_ids.data_ptr(), values.data_ptr(), n, num_segments,
                  OPS[op], KINDS[values.dtype], out.data_ptr(),
                  _build.stream_of(out))

@@ -37,6 +37,7 @@ import ctypes
 
 import torch
 
+from ... import trace
 from .. import _build
 from .ref import segmented_affine_ref, segmented_scan_ref
 
@@ -140,7 +141,7 @@ def segmented_polyhash_cuda(values: torch.Tensor, seg_starts: torch.Tensor,
     out = torch.empty((), dtype=torch.int32, device=device)
     scratch = torch.empty(scratch_shape(n), dtype=torch.int32, device=device)
     lib, fn = _launcher("repro_segmented_polyhash")
-    with torch.cuda.device(device):
+    with trace.span("kernel.segmented_polyhash"), torch.cuda.device(device):
         err = fn(values.data_ptr(), int(base) & 0xFFFFFFFF, seg_starts.data_ptr(),
                  carry.data_ptr(), n, ys.data_ptr(), out.data_ptr(),
                  scratch.data_ptr(), _build.stream_of(ys))
@@ -168,7 +169,7 @@ def segmented_affine_cuda(mul: torch.Tensor, add: torch.Tensor,
     out = torch.empty((), dtype=torch.int32, device=device)
     scratch = torch.empty(scratch_shape(n), dtype=torch.int32, device=device)
     lib, fn = _launcher("repro_segmented_affine")
-    with torch.cuda.device(device):
+    with trace.span("kernel.segmented_affine"), torch.cuda.device(device):
         err = fn(mul.data_ptr(), add.data_ptr(), seg_starts.data_ptr(),
                  carry.data_ptr(), n, ys.data_ptr(), out.data_ptr(),
                  scratch.data_ptr(), _build.stream_of(ys))
@@ -204,7 +205,7 @@ def segmented_sum_scan_cuda(values: torch.Tensor, seg_starts: torch.Tensor,
     ys = torch.empty_like(values)
     out = torch.empty_like(carry)
     lib, fn = _launcher("repro_segmented_sum_scan")
-    with torch.cuda.device(device):
+    with trace.span("kernel.segmented_sum_scan"), torch.cuda.device(device):
         err = fn(values.data_ptr(), seg_starts.data_ptr(), carry.data_ptr(), n,
                  k, int(values.dtype == torch.float32), ys.data_ptr(),
                  out.data_ptr(), _build.stream_of(ys))

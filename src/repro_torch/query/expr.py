@@ -42,6 +42,7 @@ from typing import Any, Iterable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.eventframe import ACTIVITY, EventFrame
 
 # tri-state zone-map valuations
@@ -54,7 +55,9 @@ _NEG = {NONE: ALL, SOME: SOME, ALL: NONE}
 
 def _host(x) -> np.ndarray:
     """A kernel result (a tensor on any device) as a host numpy array."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if isinstance(x, torch.Tensor):
+        return trace.host_read(x).numpy()
+    return np.asarray(x)
 
 
 def _zone(meta: dict, name: str) -> dict | None:

@@ -1,0 +1,99 @@
+"""Spans and counters of the collect path.
+
+Spans are ``torch.profiler`` ranges: while a profiler records,
+``span(name)`` enters ``record_function("repro_torch." + name)``, so the
+span is an event of the profiler's own trace, on the clock of the device's
+kernels and copies and nested under the span that caused it.  With no
+profiler running it returns one shared no-op context, after a single check
+of the profiler's state (``record_function`` itself costs microseconds a
+call even with no profiler running).  There is no switch: run
+``torch.profiler`` around the calls to see the spans.
+
+Counters are integer attributes of the functions that do the work, as the
+kernel wrappers' ``.launches`` are.  :func:`host_read` and
+:func:`to_device` make the collect path's copies between host and device
+and count each as a host sync (the host waits for the device's stream)
+with its bytes; they count on every device, so a CPU run counts what a run
+on the card does.  :func:`counters` takes one snapshot of these and of
+every mining kernel wrapper's ``.launches``; the difference of two
+snapshots is what the calls between them did.
+
+The spans of the in-memory collect path (every name under ``repro_torch.``)::
+
+    collect / collect_many's root      collect
+      the capacities (Dims)              facade.dims
+      the filter chain                   filter
+        a row predicate                    filter.rows
+        a case predicate                   filter.case
+          its phase one                      filter.case.phase1
+          its keep mask back on the rows     filter.case.keep
+      the fold and finalize              fold
+        a chunk's halo reads               fold.halo
+        a verb's carry and state           fold.init.<verb>
+        a verb's update                    fold.update.<verb>
+          a hand-written kernel's launch     kernel.<name>
+        a verb's finalize                  fold.finalize.<verb>
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+PREFIX = "repro_torch."
+_OFF = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A ``record_function`` range ``repro_torch.<name>`` while a profiler
+    records; a shared no-op context otherwise."""
+    if not _profiling():
+        return _OFF
+    return torch.profiler.record_function(PREFIX + name)
+
+
+def host_read(t: torch.Tensor, convert=torch.Tensor.cpu):
+    """``convert(t)``: a read of ``t`` back to the host (``Tensor.cpu``,
+    ``Tensor.tolist``, ``int``), counted as one host sync and ``t``'s
+    bytes."""
+    host_read.host_syncs += 1
+    host_read.d2h_bytes += t.numel() * t.element_size()
+    return convert(t)
+
+
+def to_device(data, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``torch.as_tensor(data, dtype=dtype, device=device)``: a host value
+    (a Python number, a numpy array) copied to ``device``, counted as one
+    host sync and its bytes."""
+    t = torch.as_tensor(data, dtype=dtype, device=device)
+    to_device.host_syncs += 1
+    to_device.h2d_bytes += t.numel() * t.element_size()
+    return t
+
+
+host_read.host_syncs = 0
+host_read.d2h_bytes = 0
+to_device.host_syncs = 0
+to_device.h2d_bytes = 0
+
+
+def counters() -> dict[str, int]:
+    """One snapshot: ``host_syncs``, ``d2h_bytes``, ``h2d_bytes`` and
+    ``launches.<kernel>`` for each mining kernel wrapper."""
+    from repro_torch.kernels import segment_ops as k
+
+    wrappers = {
+        "pair_count": k.pair_count_cuda,
+        "histogram": k.histogram_cuda,
+        "segment_reduce": k.segment_reduce_cuda,
+        "ordered_histogram": k.ordered_histogram_cuda,
+        "segmented_polyhash": k.segmented_polyhash_cuda,
+        "segmented_affine": k.segmented_affine_cuda,
+        "segmented_sum_scan": k.segmented_sum_scan_cuda,
+    }
+    out = {"host_syncs": host_read.host_syncs + to_device.host_syncs,
+           "d2h_bytes": host_read.d2h_bytes,
+           "h2d_bytes": to_device.h2d_bytes}
+    out.update({f"launches.{k}": fn.launches for k, fn in wrappers.items()})
+    return out

@@ -128,17 +128,22 @@ def test_histogram_kernel_equals_plain(cuda, b, e):
 
 def _device_events(fn):
     """Device events (kernels, fills, copies) of one call of ``fn``, counted
-    by name, from a ``torch.profiler`` trace."""
+    by name, from a ``torch.profiler`` trace.  The program's spans
+    (``repro_torch.*``), which the profiler also draws on the device's
+    timeline around the kernels they launched, are not device events."""
     from collections import Counter
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import trace
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return Counter({e.key: e.count for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA})
+                    if e.device_type == DeviceType.CUDA
+                    and not e.key.startswith(trace.PREFIX)})
 
 
 def test_dfg_update_counts_in_six_kernel_nodes(cuda):
@@ -1990,3 +1995,131 @@ def test_family_training_moe_second_backward_is_bitwise(cuda):
         (L.moe_apply_dense(leaves, xl, cfg) * w).sum().backward()
         runs.append([xl.grad, *(leaves[k].grad for k in sorted(leaves))])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# ------------------------------------------- the collect path's host syncs
+TRACE_FILTERS = ("none", "cases_containing", "attr_lt", "case_band")
+TRACE_WIDGETS = ("dfg", "variants", "performance_dfg", "activity_counts",
+                 "case_durations", "heuristics", "stats")
+TRACE_PANEL = ("dfg", "activity_counts", "case_sizes", "case_durations",
+               "variants", "performance_dfg", "eventually_follows", "stats")
+TRACE_PAIRS = [(k, (v,)) for k in TRACE_FILTERS for v in TRACE_WIDGETS] + \
+              [(k, TRACE_PANEL) for k in TRACE_FILTERS]
+
+
+@pytest.fixture(scope="module")
+def small_log_on_card():
+    """A 3,000-case log resident on the card, opened with its activity
+    table (as a dashboard holds it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    import repro_torch
+    from repro_torch.data.synthetic import generate
+
+    frame, tables = generate(3_000, 26, seed=5, device="cuda")
+    return repro_torch.open(frame, tables=tables, device="cuda")
+
+
+def _ask(ds, kind, verbs):
+    from repro_torch import cases_containing, col
+    from repro_torch.core.eventframe import CASE
+
+    pred = {"none": None, "cases_containing": cases_containing(3),
+            "attr_lt": col("attr0") < 500,
+            "case_band": col(CASE).between(200, 1_200)}[kind]
+    d = ds if pred is None else ds.filter(pred)
+    if len(verbs) > 1:
+        return d.collect_many(verbs).results
+    return d.collect(verbs[0]).result
+
+
+def _synchronizing_calls(fn) -> list:
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``; the
+    innermost ``repro_torch`` frame of each synchronizing call PyTorch
+    reports.  Other warnings are not counted: among them the prototype
+    notice ``set_sync_debug_mode`` gives once a process."""
+    import traceback
+    import warnings
+
+    sites = []
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()
+                  if "repro_torch" in f.filename]
+        where = frames[-1] if frames else None
+        sites.append(f"{where.filename.split('src/')[-1]}:{where.lineno}"
+                     if where else f"{filename}:{lineno}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+@pytest.mark.parametrize("kind,verbs", TRACE_PAIRS,
+                         ids=[f"{k}-{'+'.join(v) if len(v) == 1 else 'panel'}"
+                              for k, v in TRACE_PAIRS])
+def test_every_sync_of_a_collect_is_counted(small_log_on_card, kind, verbs):
+    """Each synchronizing call PyTorch reports in one request goes through
+    ``repro_torch.trace``'s counting helpers: the count of the calls equals
+    ``host_syncs``' difference."""
+    from collections import Counter
+
+    from repro_torch import trace
+
+    _ask(small_log_on_card, kind, verbs)           # kernels built, warm
+    torch.cuda.synchronize()
+    before = trace.counters()
+    sites = _synchronizing_calls(lambda: _ask(small_log_on_card, kind, verbs))
+    counted = trace.counters()["host_syncs"] - before["host_syncs"]
+    assert len(sites) == counted, sorted(Counter(sites).items())
+
+
+@pytest.mark.parametrize("kind,verbs", [("cases_containing", ("variants",)),
+                                        ("case_band", TRACE_PANEL)],
+                         ids=["cases_containing-variants", "case_band-panel"])
+def test_kernel_spans_sit_in_their_verbs_on_card(small_log_on_card, kind,
+                                                 verbs):
+    """On the card every hand-written kernel's launch is a ``kernel.*``
+    span inside a verb's update or the case filter's phase one, and the
+    launch counters moved by as many."""
+    import json
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
+
+    _ask(small_log_on_card, kind, verbs)
+    before = trace.counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _ask(small_log_on_card, kind, verbs)
+        torch.cuda.synchronize()
+    after = trace.counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/trace.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"][len(trace.PREFIX):])
+             for e in events if e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith(trace.PREFIX)]
+    kernels = 0
+    for s, e, name in spans:
+        if name.startswith("kernel."):
+            holders = [(h1 - h0, n) for h0, h1, n in spans
+                       if (h0, h1, n) != (s, e, name) and h0 <= s and e <= h1]
+            assert min(holders)[1].startswith(
+                ("fold.update.", "fold.finalize.", "filter.case.phase1")), name
+            kernels += 1
+    launched = sum(after[k] - before[k] for k in after
+                   if k.startswith("launches."))
+    assert kernels == launched > 0
