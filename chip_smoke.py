@@ -4471,8 +4471,9 @@ def distributed_path(torch, smi: str, path: str, cpu_plain: dict, case_np,
             same_result(torch, f"collect_many {verb}@{n}", many[verb], streamed[verb])
         same_result(torch, f"collect_many variants@{n}", many["variants"],
                     cpu_plain["variants"])
-        if got[f"dfg@{n}"].result.counts.device.type != "cuda":
-            raise AssertionError("the sharded result left the card")
+        counts = got[f"dfg@{n}"].result.counts
+        if counts.device.type != "cpu" or not counts.is_pinned():
+            raise AssertionError("the sharded answer is not in pinned host memory")
 
     # throughput: the DFG at each shard count beside streaming, memo off
     os.environ[engines.RESULT_CACHE_ENV] = "0"

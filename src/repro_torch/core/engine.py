@@ -375,6 +375,24 @@ def tensor_leaves(tree) -> list[torch.Tensor]:
     return []
 
 
+def map_tensors(fn, tree):
+    """``tree`` with ``fn`` applied to each tensor, through the containers
+    :func:`tensor_leaves` walks (dataclass and namedtuple types kept, dict
+    keys and tuple order too); any other leaf comes back as it is."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        items = [map_tensors(fn, v) for v in tree]
+        return tree._make(items) if hasattr(tree, "_make") else type(tree)(items)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: map_tensors(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    return tree
+
+
 def empty_group_state(kernel: ChunkKernel, device) -> GroupState:
     """The merge identity: the fresh fold of zero rows, on ``device`` (the
     port's ``init`` takes a device; the JAX package's takes none)."""

@@ -66,8 +66,15 @@ def _numpy_dtype(t: torch.Tensor) -> np.dtype:
 
 
 def _allowed(model, device) -> torch.Tensor:
-    """An array-like allowed-relation matrix as a bool tensor on
-    ``device`` (the footprint-fitness operand)."""
+    """The relations a model allows as a bool tensor on ``device`` (the
+    footprint-fitness operand): a heuristics net's dependency graph, an
+    alpha model's footprint, or an array-like matrix."""
+    from repro_torch.core.discovery import AlphaModel, HeuristicsNet
+
+    if isinstance(model, HeuristicsNet):
+        model = model.graph
+    elif isinstance(model, AlphaModel):
+        model = model.footprint.direct
     if not isinstance(model, torch.Tensor):
         model = torch.as_tensor(np.asarray(model))
     return model.to(device=device, dtype=torch.bool)
@@ -380,7 +387,9 @@ class Dataset:
                 num_shards: int | None = None,
                 **kwargs) -> "engines.CollectResult":
         """Run a registered terminal verb; returns result + I/O report +
-        the engine that ran (the named verbs below are sugar over this)."""
+        the engine that ran (the named verbs below are sugar over this).
+        On a card dataset the answer's tensors are in page-locked host
+        memory; ``.to(device)`` continues on the card."""
         return engines.collect(self, verb, engine=engine,
                                num_shards=num_shards, **kwargs)
 
@@ -401,6 +410,8 @@ class Dataset:
         Results are the verbs' raw kernel outputs (``variants`` yields the
         fingerprint triple — post-process with
         ``repro_torch.core.variants._counts_from_fps`` as :meth:`variants` does).
+        On a card dataset the answer's tensors are in page-locked host
+        memory; ``.to(device)`` continues on the card.
         """
         return engines.collect_many(self, verbs, engine=engine,
                                     num_shards=num_shards, prefetch=prefetch,
@@ -514,18 +525,16 @@ class Dataset:
         """Replay the dataset's DFG against a discovered model.
 
         Dispatches on the model type: :class:`HeuristicsNet` -> heuristics
-        fitness, :class:`AlphaModel` -> alpha fitness, anything array-like
-        -> footprint fitness against an allowed-relation matrix.
+        fitness (its dependency graph), :class:`AlphaModel` -> alpha
+        fitness (its footprint), anything array-like -> footprint fitness
+        against an allowed-relation matrix.  The (A, A) score runs where
+        the collected DFG is delivered, the model's matrix copied there.
         """
         from repro_torch.core import conformance as _conformance
-        from repro_torch.core.discovery import AlphaModel, HeuristicsNet
 
         d = self.collect("dfg", engine=engine, method=method, **kw).result
-        if isinstance(model, HeuristicsNet):
-            return _conformance.heuristics_fitness(d, model)
-        if isinstance(model, AlphaModel):
-            return _conformance.alpha_fitness(d, model)
-        return _conformance.footprint_fitness(d, _allowed(model, self.device))
+        return _conformance.footprint_fitness(
+            d, _allowed(model, d.counts.device))
 
     def window(self, by: str = "groups", *, size, step=None):
         """Sliding windows over the dataset (``repro_torch.dataset.window``).

@@ -30,6 +30,10 @@ they cut the stream into units —
 
 Every engine runs on the dataset's ``device`` (default ``"cuda"``): the
 verbs' kernels launch there, or raise; nothing falls back to the CPU.
+The front door (:func:`collect`, :func:`collect_many`) then delivers a
+card answer into page-locked host memory (:func:`_deliver`: one stream
+sync a request, blocks reused through PyTorch's caching host allocator),
+so the client's ``x.cpu().numpy()`` is a zero-copy wrap.
 
 Whole :class:`CollectResult`/:class:`CollectManyResult` values are also
 memoized per process, keyed by the plan fingerprint, each file's content
@@ -465,10 +469,61 @@ def _sharded_many(dataset, specs: Mapping[str, _engine.KernelSpec],
     return results, report
 
 
+# -------------------------------------------------------------- delivery
+_DELIVER_LOCK = threading.Lock()
+
+
+def _deliver(answer):
+    """``answer`` with each CUDA tensor replaced by its own copy in
+    page-locked host memory: ``torch.empty(..., pin_memory=True)`` from
+    PyTorch's caching host allocator, filled by ``copy_(non_blocking=True)``
+    on the current stream, then one synchronize of each source device's
+    stream.  A tensor held twice in one answer is copied once.  An answer
+    that holds no CUDA tensor (a CPU dataset's) is returned as it is.
+
+    A pinned block goes back to the allocator's cache when the client
+    drops the answer holding it, and serves a later answer of its size
+    class without pinning new pages; the cache keeps its high-water mark
+    (blocks rounded up to a power of two) until
+    ``torch.accelerator.empty_host_cache()`` (``torch._C._host_emptyCache()``
+    in builds that lack it) hands the unused blocks back.
+    The result memo holds up to ``_RESULT_CAP`` answers, so a file dataset
+    keeps at most that many answers' blocks pinned beside the client's.
+    Counts the tensors and bytes copied."""
+    copies: dict[int, tuple] = {}
+
+    def pinned(t):
+        if not t.is_cuda:
+            return t
+        if id(t) not in copies:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            copies[id(t)] = (t, host.copy_(t, non_blocking=True))
+        return copies[id(t)][1]
+
+    with trace.span("collect.deliver"):
+        if not any(t.is_cuda for t in _engine.tensor_leaves(answer)):
+            return answer
+        out = _engine.map_tensors(pinned, answer)
+        for dev in {t.device for t, _ in copies.values()}:
+            torch.cuda.current_stream(dev).synchronize()
+    with _DELIVER_LOCK:
+        _deliver.answer_tensors += len(copies)
+        _deliver.answer_d2h_bytes += sum(t.numel() * t.element_size()
+                                         for t, _ in copies.values())
+    return out
+
+
+_deliver.answer_tensors = 0
+_deliver.answer_d2h_bytes = 0
+
+
 # ------------------------------------------------------------- front door
 @dataclasses.dataclass(frozen=True)
 class CollectResult:
-    """A verb's result plus how it ran (I/O report is None for eager)."""
+    """A verb's result plus how it ran (I/O report is None for eager).
+
+    On a card dataset the answer's tensors are in page-locked host memory;
+    ``.to(device)`` continues on the card.  A CPU dataset's are its own."""
 
     result: Any
     report: Any | None
@@ -501,7 +556,8 @@ def collect(dataset, verb: str, *, engine: str = "auto",
             num_shards: int | None = None, prefetch: int | None = None,
             **kwargs) -> CollectResult:
     """Resolve the verb through the kernel registry, pick an engine, run
-    on the dataset's device."""
+    on the dataset's device, deliver the answer to the host
+    (:func:`_deliver`)."""
     _check_engine(engine)
     with trace.span("collect"):
         memo_key = _memo_key(dataset, (
@@ -513,7 +569,8 @@ def collect(dataset, verb: str, *, engine: str = "auto",
         hit = _memo_get(memo_key)
         if hit is not None:
             return hit
-        out = _collect(dataset, verb, engine, num_shards, prefetch, kwargs)
+        out = _deliver(_collect(dataset, verb, engine, num_shards, prefetch,
+                                kwargs))
         _memo_put(memo_key, out)
         return out
 
@@ -560,7 +617,9 @@ class CollectManyResult:
 
     ``results[verb]`` is bitwise equal to ``collect(dataset, verb).result``
     under the same engine; ``report`` is the single scan's I/O accounting
-    (None for eager).  Indexable: ``res["dfg"]``.
+    (None for eager).  Indexable: ``res["dfg"]``.  On a card dataset the
+    answer's tensors are in page-locked host memory; ``.to(device)``
+    continues on the card.
     """
 
     results: dict
@@ -607,8 +666,8 @@ def collect_many(dataset, verbs: Iterable[str], *, engine: str = "auto",
         hit = _memo_get(memo_key)
         if hit is not None:
             return hit
-        out = _collect_many(dataset, verbs, engine, num_shards, prefetch, vk,
-                            common)
+        out = _deliver(_collect_many(dataset, verbs, engine, num_shards,
+                                     prefetch, vk, common))
         _memo_put(memo_key, out)
         return out
 

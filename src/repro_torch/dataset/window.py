@@ -23,7 +23,9 @@ into the paper's "online scenario" without a second mining machinery:
   collect uses, so successive overlapping windows share state.
 
 Windows mine on the dataset's device (group states, merges and the
-scratch path's masked chunks alike).  Every window's result is **bitwise
+scratch path's masked chunks alike); a card dataset's window answers are
+delivered to page-locked host memory, as ``Dataset.collect``'s are.
+Every window's result is **bitwise
 equal** to mining the same rows from scratch — the merge reconstructs the fresh fold exactly (``core.engine``
 invariant), and verbs without a mergeable state (``sojourn_times`` /
 ``performance_dfg`` / ``stats``) transparently re-mine each window
@@ -226,7 +228,8 @@ class Windows:
 
     def _grouped_results(self, kernel, spec_fp, post=None):
         """Fold once, merge per window — or re-mine each window from
-        scratch when the kernel has no mergeable state."""
+        scratch when the kernel has no mergeable state; every window's
+        answer delivered to the host as the front door delivers one."""
         from repro_torch.query.exec import group_states
 
         bounds = self.bounds()
@@ -240,7 +243,7 @@ class Windows:
                 merged = _engine.merge_tree(kernel, states[lo:hi], device)
                 out = _engine.finalize_group(kernel, merged)
                 results.append(post(out) if post else out)
-            return results, bounds, report
+            return engines._deliver(results), bounds, report
         # no stitch: each window folds its rows sequentially from scratch
         units, physicals = self._units(kernel.columns)
         results = []
@@ -251,7 +254,7 @@ class Windows:
                     state, carry = kernel.update(state, carry, chunk)
             out = kernel.finalize(state, carry)
             results.append(post(out) if post else out)
-        return results, bounds, None
+        return engines._deliver(results), bounds, None
 
     def _units(self, columns):
         """The global unit list [(physical, group)] in stream order."""
@@ -271,16 +274,22 @@ class Windows:
         to the *previous* window's — 1.0 means the behavioural relations
         are unchanged, lower means drift — or to a fixed ``reference``
         (a DFG, a :class:`~repro_torch.core.discovery.Footprint`, or any model
-        with one) when given.  The first window scores 1.0 against
+        with one) when given, its footprint copied to where the windows'
+        DFGs are delivered.  The first window scores 1.0 against
         ``reference=None`` (nothing to drift from).
         """
         from repro_torch.core.conformance import footprint_conformance
         from repro_torch.core.dfg import DFG
         from repro_torch.core.discovery import footprint
+        from repro_torch.core.engine import map_tensors
 
         dfgs = self.collect("dfg", **kwargs).results
         ref = footprint(reference, min_count) \
             if isinstance(reference, DFG) else reference
+        if ref is not None and dfgs:
+            dev = dfgs[0].counts.device
+            ref = map_tensors(lambda t: t.to(dev),
+                              getattr(ref, "footprint", ref))
         scores: list[float] = []
         prev = None
         for d in dfgs:
@@ -295,18 +304,11 @@ class Windows:
         """Replay every window's DFG against a discovered model (same
         dispatch as :meth:`Dataset.conformance`): per-window fitness."""
         from repro_torch.core import conformance as _conformance
-        from repro_torch.core.discovery import AlphaModel, HeuristicsNet
 
-        dfgs = self.collect("dfg", **kwargs).results
-        if isinstance(model, HeuristicsNet):
-            return [float(_conformance.heuristics_fitness(d, model))
-                    for d in dfgs]
-        if isinstance(model, AlphaModel):
-            return [float(_conformance.alpha_fitness(d, model))
-                    for d in dfgs]
         from .dataset import _allowed
 
-        allowed = _allowed(model, self.dataset.device)
+        dfgs = self.collect("dfg", **kwargs).results
+        allowed = _allowed(model, dfgs[0].counts.device) if dfgs else None
         return [float(_conformance.footprint_fitness(d, allowed))
                 for d in dfgs]
 

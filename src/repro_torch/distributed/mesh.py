@@ -18,7 +18,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.engine import tensor_leaves, tree_sum
+from repro_torch.core.engine import map_tensors, tensor_leaves, tree_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,23 +53,8 @@ def mesh_for(num_shards: int, device="cuda") -> Mesh:
                       for i in range(n)))
 
 
-def _map(fn, tree):
-    """``fn`` applied to every tensor leaf of a state tree."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_map(fn, v) for v in tree)
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return dataclasses.replace(tree, **{
-            f.name: _map(fn, getattr(tree, f.name))
-            for f in dataclasses.fields(tree)})
-    raise TypeError(f"unsupported state leaf {type(tree).__name__}")
-
-
 def _to(tree, device):
-    return _map(lambda t: t.to(device), tree)
+    return map_tensors(lambda t: t.to(device), tree)
 
 
 def _device(tree) -> torch.device:
@@ -90,7 +75,7 @@ def psum(xs: list) -> list:
 def shift_tails(xs: list, depth: int) -> list:
     """The ``ppermute`` halo: shard *i* gets shard *i-1*'s last ``depth``
     rows, copied to shard *i*'s device; shard 0 gets ``None``."""
-    return [None] + [_map(lambda t, d=_device(nxt): t[-depth:].to(d), x)
+    return [None] + [map_tensors(lambda t, d=_device(nxt): t[-depth:].to(d), x)
                      for x, nxt in zip(xs[:-1], xs[1:])]
 
 

@@ -19,7 +19,11 @@ the mode, so the counts are one device's), and adds up:
 * **peak live bytes** -- the storages the step allocates (each rounded up
   to the caching allocator's 512 bytes), live from their creation to their
   release, the twin of ``memory_analysis``'s temporaries; the arguments are
-  counted apart by the caller;
+  counted apart by the caller.  A storage that only a reference cycle
+  still holds is dead: the cyclic collector runs before any allocation
+  that would raise the peak (over the objects made since the outermost
+  entry, the older ones frozen), so the peak does not follow when the
+  collector happens to run;
 * **collective bytes by mesh axis** -- the result bytes of each functional
   collective DTensor issues (all-gather, all-reduce, reduce-scatter,
   all-to-all), by the mesh axis of its group; a group of one moves nothing.
@@ -47,6 +51,7 @@ bound, every row kept, and ``upper_bound`` names them.
 from __future__ import annotations
 
 import contextlib
+import gc
 import math
 import threading
 import weakref
@@ -303,15 +308,19 @@ class Account(TorchDispatchMode):
                 shared.add(id(t.untyped_storage()))
             except (RuntimeError, NotImplementedError):
                 pass
+        new = {}
         for t in _tensors(out):
             try:
                 st = t.untyped_storage()
             except (RuntimeError, NotImplementedError):
                 continue
             key = id(st)
-            if key in self._seen or key in shared:
+            if key in self._seen or key in shared or key in new:
                 continue
-            n = -(-st.nbytes() // ALLOC_ROUND) * ALLOC_ROUND
+            new[key] = (st, -(-st.nbytes() // ALLOC_ROUND) * ALLOC_ROUND)
+        if self.live + sum(n for _, n in new.values()) > self.peak:
+            gc.collect()            # frees what only reference cycles hold
+        for key, (st, n) in new.items():
             self._seen[key] = n
             self.live += n
             weakref.finalize(st, self._free, key)
@@ -325,6 +334,8 @@ class Account(TorchDispatchMode):
         if self._depth == 0:
             self._stack = contextlib.ExitStack()
             self._stack.enter_context(_skip_propagation())
+            gc.freeze()             # the collections in _alloc skip them
+            self._stack.callback(gc.unfreeze)
         self._depth += 1
         return super().__enter__()
 

@@ -33,6 +33,15 @@ The spans of the in-memory collect path (every name under ``repro_torch.``)::
         a verb's update                    fold.update.<verb>
           a hand-written kernel's launch     kernel.<name>
         a verb's finalize                  fold.finalize.<verb>
+      the answer into host memory        collect.deliver
+
+``collect.deliver`` (``dataset.engines._deliver``) copies a card answer's
+tensors into page-locked host memory; its counters are apart from the
+fold's own copies: ``answer_tensors`` and ``answer_d2h_bytes`` (what it
+copied) and ``answer_pinned_new`` (the blocks the caching host allocator
+pinned anew rather than served from its cache: its ``num_host_alloc``,
+read once a snapshot; the delivery is the port's only pinned allocation,
+so a snapshot's difference is the delivery's).
 """
 from __future__ import annotations
 
@@ -79,8 +88,11 @@ to_device.h2d_bytes = 0
 
 
 def counters() -> dict[str, int]:
-    """One snapshot: ``host_syncs``, ``d2h_bytes``, ``h2d_bytes`` and
-    ``launches.<kernel>`` for each mining kernel wrapper."""
+    """One snapshot: ``host_syncs``, ``d2h_bytes``, ``h2d_bytes``, the
+    delivery's ``answer_tensors``, ``answer_d2h_bytes`` and
+    ``answer_pinned_new``, and ``launches.<kernel>`` for each mining
+    kernel wrapper."""
+    from repro_torch.dataset.engines import _deliver
     from repro_torch.kernels import segment_ops as k
 
     wrappers = {
@@ -94,6 +106,10 @@ def counters() -> dict[str, int]:
     }
     out = {"host_syncs": host_read.host_syncs + to_device.host_syncs,
            "d2h_bytes": host_read.d2h_bytes,
-           "h2d_bytes": to_device.h2d_bytes}
+           "h2d_bytes": to_device.h2d_bytes,
+           "answer_tensors": _deliver.answer_tensors,
+           "answer_d2h_bytes": _deliver.answer_d2h_bytes,
+           "answer_pinned_new": torch.cuda.host_memory_stats().get(
+               "num_host_alloc", 0)}
     out.update({f"launches.{k}": fn.launches for k, fn in wrappers.items()})
     return out

@@ -961,31 +961,42 @@ def test_semiring_dispatch_and_closures_on_card(cuda):
         go.semiring_closure_cuda(torch.zeros((go.CLOSURE_CAPACITY + 1,) * 2, device=cuda))
 
 
-def _same_result(got, want, flow_atol=1e-6):
+def _same_result(got, want, flow_atol=1e-6, where="cuda"):
     """Card result == CPU result: bitwise, except centrality flow (its
-    normalized plus_times matvecs add floats in each lowering's order)."""
+    normalized plus_times matvecs add floats in each lowering's order).
+    Each tensor of ``got`` is on the card (``where="cuda"``), or in
+    page-locked host memory (``where="pinned"``: a front-door answer)."""
     import dataclasses
 
     if dataclasses.is_dataclass(want):
         for f in dataclasses.fields(want):
             g, w = getattr(got, f.name), getattr(want, f.name)
             if f.name == "flow":
+                _on(g, where)
                 assert torch.allclose(g.cpu(), w, rtol=0, atol=flow_atol)
             else:
-                _same_result(g, w)
+                _same_result(g, w, where=where)
     elif isinstance(want, torch.Tensor):
-        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+        _on(got, where)
+        assert torch.equal(got.cpu(), want)
     elif isinstance(want, (tuple, list)) and len(want) and \
             isinstance(want[0], torch.Tensor):
         assert len(got) == len(want)
         for g, w in zip(got, want):
-            _same_result(g, w, flow_atol)
+            _same_result(g, w, flow_atol, where)
     elif isinstance(want, dict):
         assert set(got) == set(want)
         for k in want:
-            _same_result(got[k], want[k], flow_atol)
+            _same_result(got[k], want[k], flow_atol, where)
     else:
         assert got == want
+
+
+def _on(t, where):
+    if where == "pinned":
+        assert t.device.type == "cpu" and (t.is_pinned() or not t.numel())
+    else:
+        assert t.device.type == "cuda"
 
 
 @pytest.mark.parametrize("chunk_rows", [1, 1000, 100_000])
@@ -1473,9 +1484,12 @@ def test_state_cache_never_serves_a_cpu_state_to_a_cuda_collect(cuda, tmp_path):
 def test_dataset_memo_never_serves_a_cpu_result_to_a_cuda_collect(cuda, tmp_path):
     """The result memo's key holds the dataset's device type and lowering:
     a collect on the card after the same collect on the CPU mines again,
-    on the card, and each device then hits its own entry."""
+    on the card (the counting kernels launch), and each device then hits
+    its own entry.  The card's answer is delivered to page-locked host
+    memory, the CPU's stays in ordinary memory."""
     import repro_torch
     from repro_torch.dataset import engines
+    from repro_torch.kernels import segment_ops as so
     from repro_torch.query import statecache
 
     path, _ = _query_log(tmp_path, n_cases=3_000, group_rows=4_096)
@@ -1484,14 +1498,19 @@ def test_dataset_memo_never_serves_a_cpu_result_to_a_cuda_collect(cuda, tmp_path
     for engine in ("eager", "streaming"):
         on_cpu = repro_torch.open(path, device="cpu").collect("dfg", engine=engine)
         assert on_cpu.result.counts.device.type == "cpu"
+        assert not on_cpu.result.counts.is_pinned()
         ds = repro_torch.open(path)                  # the default: the card
+        before = (so.pair_count_cuda.launches, so.histogram_cuda.launches)
         on_card = ds.collect("dfg", engine=engine)
+        assert so.pair_count_cuda.launches > before[0]
+        assert so.histogram_cuda.launches > before[1]
         assert on_card is not on_cpu
-        assert on_card.result.counts.device.type == "cuda"
+        assert on_card.result.counts.device.type == "cpu"
+        assert on_card.result.counts.is_pinned()
         if engine == "streaming":
             assert on_card.report.groups_cached == 0
             assert on_card.report.groups_folded > 0
-        _same_result(on_card.result, on_cpu.result)
+        _same_result(on_card.result, on_cpu.result, where="pinned")
         assert ds.collect("dfg", engine=engine) is on_card
         assert repro_torch.open(path, device="cpu").collect(
             "dfg", engine=engine) is on_cpu
@@ -1517,7 +1536,7 @@ def test_eager_engine_at_seven_million_rows_on_card_equals_cpu(cuda):
     on_cpu = repro_torch.open(frame, tables=tab, device="cpu").profile(engine="eager")
     assert on_card.verbs == on_cpu.verbs and len(on_card.verbs) == 16
     for verb in on_card.verbs:
-        _same_result(on_card[verb], on_cpu[verb])
+        _same_result(on_card[verb], on_cpu[verb], where="pinned")
 
 
 def test_mining_service_on_card_equals_cpu(cuda, tmp_path):
@@ -1574,8 +1593,9 @@ def test_sharded_engine_on_card_equals_streaming_at_8_shards(cuda, tmp_path):
         if verb == "variants":
             assert d[2] == 32 and d[3] == 16, d
         want = cpu.collect(verb, engine="sharded", num_shards=8).result
-        _same_result(got.result, want)
-        _same_result(card.collect(verb, engine="streaming").result, want)
+        _same_result(got.result, want, where="pinned")
+        _same_result(card.collect(verb, engine="streaming").result, want,
+                     where="pinned")
 
 
 def test_shard_updates_never_leave_the_card(cuda, monkeypatch):
@@ -2068,7 +2088,8 @@ def _synchronizing_calls(fn) -> list:
                               for k, v in TRACE_PAIRS])
 def test_every_sync_of_a_collect_is_counted(small_log_on_card, kind, verbs):
     """Each synchronizing call PyTorch reports in one request goes through
-    ``repro_torch.trace``'s counting helpers: the count of the calls equals
+    ``repro_torch.trace``'s counting helpers, but the one stream sync that
+    delivers the answer to the host: the count of the other calls equals
     ``host_syncs``' difference."""
     from collections import Counter
 
@@ -2079,7 +2100,9 @@ def test_every_sync_of_a_collect_is_counted(small_log_on_card, kind, verbs):
     before = trace.counters()
     sites = _synchronizing_calls(lambda: _ask(small_log_on_card, kind, verbs))
     counted = trace.counters()["host_syncs"] - before["host_syncs"]
-    assert len(sites) == counted, sorted(Counter(sites).items())
+    delivery = [s for s in sites if s.startswith("repro_torch/dataset/engines.py")]
+    assert len(delivery) == 1, sorted(Counter(sites).items())
+    assert len(sites) - 1 == counted, sorted(Counter(sites).items())
 
 
 @pytest.mark.parametrize("kind,verbs", [("cases_containing", ("variants",)),
@@ -2123,3 +2146,152 @@ def test_kernel_spans_sit_in_their_verbs_on_card(small_log_on_card, kind,
     launched = sum(after[k] - before[k] for k in after
                    if k.startswith("launches."))
     assert kernels == launched > 0
+
+
+# ---------------------------------- the answer's delivery to host memory
+@pytest.fixture(scope="module")
+def l1_on_card():
+    """The Table-6 L1 log (10^6 cases, ~7 M rows) resident on the card,
+    opened with its activity table, as a dashboard holds it."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    import repro_torch
+    from repro_torch.core import EventFrame
+    from repro_torch.data import synthetic
+
+    cols, tables = synthetic.generate_numpy(**synthetic.paper_table6_config(1))
+    frame = EventFrame.from_numpy(cols, device="cuda")
+    return repro_torch.open(frame, tables=tables, device="cuda")
+
+
+def _answer_tensors(x) -> list:
+    from repro_torch.core.engine import tensor_leaves
+
+    return tensor_leaves(x)
+
+
+@pytest.mark.parametrize("verbs", [TRACE_PANEL] + [(v,) for v in TRACE_WIDGETS],
+                         ids=["panel"] + list(TRACE_WIDGETS))
+def test_deliver_puts_every_answer_tensor_in_pinned_host_memory(l1_on_card, verbs):
+    """A panel's ``collect_many`` and each widget verb over L1 on the card:
+    every tensor of the front door's answer is on the CPU in page-locked
+    memory, bitwise the device answer of ``_collect`` / ``_collect_many``,
+    and ``x.cpu().numpy()`` wraps its memory without a copy; the counters
+    count what was copied."""
+    from repro_torch import trace
+    from repro_torch.dataset import engines
+
+    ds = l1_on_card
+    if len(verbs) > 1:
+        got = ds.collect_many(verbs, engine="eager").results
+        before = trace.counters()
+        got = ds.collect_many(verbs, engine="eager").results
+        after = trace.counters()
+        want = engines._collect_many(ds, verbs, "eager", None, None, {}, {}).results
+    else:
+        got = ds.collect(verbs[0], engine="eager").result
+        before = trace.counters()
+        got = ds.collect(verbs[0], engine="eager").result
+        after = trace.counters()
+        want = engines._collect(ds, verbs[0], "eager", None, None, {}).result
+    host, device = _answer_tensors(got), _answer_tensors(want)
+    assert len(host) == len(device) > 0
+    for h, d in zip(host, device):
+        assert d.device.type == "cuda"
+        assert h.device.type == "cpu" and h.is_pinned()
+        assert h.dtype == d.dtype and h.shape == d.shape
+        assert torch.equal(h, d.cpu())
+        if h.numel():
+            assert np.shares_memory(h.cpu().numpy(), h.numpy())
+            assert h.cpu().numpy().ctypes.data == h.data_ptr()
+    assert len({h.data_ptr() for h in host if h.numel()}) == \
+        sum(1 for h in host if h.numel())           # nothing aliased
+    assert after["answer_tensors"] - before["answer_tensors"] == len(host)
+    assert after["answer_d2h_bytes"] - before["answer_d2h_bytes"] == \
+        sum(h.numel() * h.element_size() for h in host)
+
+
+def test_deliver_an_answer_held_while_five_more_run_is_unchanged(l1_on_card):
+    """A held panel answer's pinned blocks are not handed to the next
+    answers: after five more panels (each dropped) it reads as before."""
+    ds = l1_on_card
+    held = ds.collect_many(TRACE_PANEL, engine="eager").results
+    copies = [t.clone() for t in _answer_tensors(held)]
+    ptrs = [t.data_ptr() for t in _answer_tensors(held)]
+    for _ in range(5):
+        other = ds.collect_many(TRACE_PANEL, engine="eager").results
+        assert not {t.data_ptr() for t in _answer_tensors(other) if t.numel()} \
+            & {p for p, t in zip(ptrs, copies) if t.numel()}
+        del other
+    for t, c in zip(_answer_tensors(held), copies):
+        assert torch.equal(t, c)
+
+
+def test_deliver_reuses_cached_pinned_blocks(l1_on_card):
+    """Once two panels have run and been dropped, twenty more pin no new
+    host block: the caching host allocator serves every copy."""
+    from repro_torch import trace
+
+    ds = l1_on_card
+    for _ in range(2):
+        ds.collect_many(TRACE_PANEL, engine="eager")
+    before = trace.counters()
+    for _ in range(20):
+        ds.collect_many(TRACE_PANEL, engine="eager")
+    after = trace.counters()
+    assert after["answer_tensors"] - before["answer_tensors"] >= 20 * len(TRACE_PANEL)
+    assert after["answer_pinned_new"] == before["answer_pinned_new"]
+
+
+def test_deliver_copies_a_tensor_held_twice_once(cuda):
+    """A tensor that appears twice in one answer gets one pinned copy,
+    which both places hold; a view of it is a tensor of its own."""
+    from repro_torch import trace
+    from repro_torch.dataset import engines
+
+    t = torch.arange(1_000, dtype=torch.int64, device=cuda)
+    before = trace.counters()
+    out = engines._deliver({"a": t, "b": (t, t[:3])})
+    after = trace.counters()
+    assert out["a"] is out["b"][0] and out["a"].is_pinned()
+    assert out["b"][1].is_pinned() and out["b"][1].data_ptr() != out["a"].data_ptr()
+    assert torch.equal(out["a"], t.cpu()) and torch.equal(out["b"][1], t[:3].cpu())
+    assert after["answer_tensors"] - before["answer_tensors"] == 2
+    assert after["answer_d2h_bytes"] - before["answer_d2h_bytes"] == 1_003 * 8
+
+
+def test_conformance_and_drift_of_a_card_dataset_take_models_on_the_card(cuda, tmp_path):
+    """``Dataset.conformance``, ``Windows.conformance`` and ``Windows.drift``
+    of a card dataset (its DFGs delivered to host memory) against models, a
+    footprint, a DFG and a relation matrix made on the card by the core
+    functions, not the front door: each score equals the CPU dataset's
+    against the same models made on the CPU."""
+    import repro_torch
+    from repro_torch.core import discovery
+    from repro_torch.core.dfg import dfg
+
+    a = 26
+    path, frame = _query_log(tmp_path, n_cases=3_000, group_rows=4_096)
+    card, host = repro_torch.open(path), repro_torch.open(path, device="cpu")
+
+    def models(f):
+        d = dfg(f, a)
+        return {"alpha": discovery.alpha(f, a), "heuristics": discovery.heuristics(f, a),
+                "footprint": discovery.footprint(d), "dfg": d,
+                "matrix": d.counts > 0}
+
+    on_card, on_cpu = models(frame.to(cuda)), models(frame)
+    assert on_card["dfg"].counts.is_cuda and on_card["heuristics"].graph.is_cuda
+    assert on_card["alpha"].footprint.direct.is_cuda
+    wc = card.window(by="groups", size=3, step=2)
+    wh = host.window(by="groups", size=3, step=2)
+    assert len(wc.bounds()) >= 2
+    for kind in ("alpha", "heuristics", "matrix"):
+        assert float(card.conformance(on_card[kind])) == \
+            float(host.conformance(on_cpu[kind])), kind
+        assert wc.conformance(on_card[kind]) == wh.conformance(on_cpu[kind]), kind
+    for kind in ("alpha", "footprint", "dfg"):
+        got = wc.drift(reference=on_card[kind])
+        assert got == wh.drift(reference=on_cpu[kind]), kind
+        assert all(0.0 <= x <= 1.0 for x in got)
+    assert wc.drift() == wh.drift()

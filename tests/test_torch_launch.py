@@ -289,6 +289,32 @@ def test_attention_is_counted_as_the_kernel_runs_it():
     assert plain.dot_flops == 4 * d * s * s * b * h
 
 
+@pytest.mark.parametrize("collector", ["enabled", "disabled"])
+def test_account_peak_leaves_out_storages_only_a_cycle_holds(collector):
+    """A storage that only a reference cycle holds is dead when a larger
+    allocation comes, whether or not the cyclic collector would have run:
+    the peak is the larger allocation alone, not its sum with the cycle's."""
+    import gc
+
+    n = 1 << 20                                   # float32 elements, 4 MiB
+    was = gc.isenabled()
+    if collector == "disabled":
+        gc.disable()
+    try:
+        acct = A.Account()
+        with acct:
+            x = torch.ones(n, device="meta")
+            box = [x * 2]
+            box.append(box)                       # x * 2 now held by a cycle
+            del x, box
+            torch.ones(3 * n, device="meta")
+    finally:
+        if was:
+            gc.enable()
+    assert acct.peak == 3 * n * 4
+    assert gc.isenabled() == was
+
+
 def test_train_step_dot_flops_match_jax_hlo_outside_attention():
     """A reduced ``eventlm-100m`` train step (remat "full"): the port's dot
     FLOPs on ``meta`` equal XLA's multiplicity-weighted dots of the JAX step

@@ -69,7 +69,8 @@ def expected_spans(kind, verbs) -> collections.Counter:
     """(span, parent span) of one request, as the table in
     ``repro_torch.trace`` places them."""
     pairs = [("collect", None), ("facade.dims", "collect"),
-             ("filter", "collect"), ("fold", "collect")]
+             ("filter", "collect"), ("fold", "collect"),
+             ("collect.deliver", "collect")]
     if kind == "cases_containing":
         pairs += [("filter.case", "filter"),
                   ("filter.case.phase1", "filter.case"),
@@ -217,6 +218,8 @@ def expected_counts(ds, kind, verbs) -> dict:
         syncs, h2d = syncs + 3 + 2, h2d + 3 * 4
         d2h += 2 * A * 4
     out = {"host_syncs": syncs, "d2h_bytes": d2h, "h2d_bytes": h2d}
+    # a CPU answer is already in host memory: the delivery copies nothing
+    out.update(answer_tensors=0, answer_d2h_bytes=0, answer_pinned_new=0)
     # the CPU takes the kernels' plain versions: nothing launches
     out.update({k: 0 for k in trace.counters() if k.startswith("launches.")})
     return out
