@@ -43,11 +43,13 @@ def readings(root: Path, workload: str, seeds, n_control: int,
     _, _, cfg, mix = harness.load_cell(root, workload)
     dev = torch.device(device)
     for i, seed in enumerate(seeds):
-        cols, ds = harness.prepare(cfg, mix, seed, dev)
-        sampler = harness.Sampler(mix["sample_per_stratum"], seed)
-        win = harness.run_window(ds, traffic.requests(mix, cfg, seed),
-                                 seconds, sampler)
-        del ds
+        with harness.log_dir(cfg) as directory:
+            cols, ds = harness.prepare(cfg, mix, seed, dev, None, directory)
+            sampler = harness.Sampler(mix["sample_per_stratum"], seed)
+            win = harness.run_window(ds, traffic.requests(mix, cfg, seed),
+                                     seconds, sampler)
+            del ds
+        cols = harness.on_device(cols, dev)
         sampled = sampler.items()
         items = [(r, None if a is None else harness.program_answers(r, a))
                  for r, a in sampled]

@@ -13,12 +13,21 @@ The run, in order:
 1. the program's mining kernels are built (in parallel) or loaded;
 2. the log is drawn on the device from ``--seed`` (``pmbench.gen``);
 3. ``repro_torch.open(frame, device=...)`` holds it as an in-memory
-   ``Dataset``;
+   ``Dataset`` -- or, where the configuration has a ``storage`` key
+   (``STORAGE_KEYS``), the log is written as EDF files
+   (``repro_torch.storage.edf.write``: ``files`` contiguous case ranges)
+   into a directory made for the run and removed when the run ends, the
+   reference's columns move to host memory, and
+   ``repro_torch.open(paths, device=...)`` opens the files, its engine
+   chosen by ``auto`` as for any user;
 4. every (filter kind, verb) pair of the mix is asked once (warm-up);
 5. a closed loop of one client asks the mix's requests for ``--seconds``
-   (``--trace 1``: a shorter window under the profiler, with spans);
+   (``--trace 1``: a shorter window under the profiler, with the
+   harness's spans and the program's own spans and counters);
 6. a sample of the answers, drawn from the seed per stratum, is held
-   against the plain reference (``pmbench.reference``);
+   against the plain reference (``pmbench.reference``), on the device;
+   the inputs (the columns, and each file's signature) are held against
+   what they were before the window;
 7. one JSON line.
 
 A request is ``ds.filter(pred).collect(verb)`` (or ``collect_many``), and
@@ -26,6 +35,7 @@ it ends when every tensor of its answer is a numpy array in host memory.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import importlib.util
@@ -33,6 +43,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -47,6 +58,10 @@ MINING_SOURCES = ("pair_count", "histogram", "segment_reduce",
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro", "benchmarks")
 TRACE_SECONDS = 3.0
 GIB = 2.0 ** 30
+# a configuration's ``storage``: the log as EDF files, written as
+# ``edf.write(path, frame, codec=, row_group_rows=, version=)`` into
+# ``files`` contiguous case ranges
+STORAGE_KEYS = ("format", "version", "codec", "row_group_rows", "files")
 
 
 # ------------------------------------------------------------- the data
@@ -63,8 +78,24 @@ def load_cell(root: Path, workload: str) -> tuple[dict, dict, dict, dict]:
         raise KeyError(f"no workload {workload!r} in BENCHMARK.json; "
                        f"one of {sorted(cells)}")
     cell = cells[workload]
-    cfg = load_json(root / "pmbench" / "configs" / f"{cell['config']}.json")
+    cfg = load_config(root, cell["config"])
     return bench, cell, cfg, traffic.load(root, cell["traffic"])
+
+
+def load_config(root: Path, name: str) -> dict:
+    """A configuration; a ``storage`` the harness does not read is
+    refused, never ignored."""
+    cfg = load_json(Path(root) / "pmbench" / "configs" / f"{name}.json")
+    storage = cfg.get("storage")
+    if storage is not None:
+        if set(storage) != set(STORAGE_KEYS):
+            raise ValueError(
+                f"config {name!r}: storage keys {sorted(storage)}; the "
+                f"harness reads exactly {sorted(STORAGE_KEYS)}")
+        if storage["format"] != "edf" or int(storage["files"]) < 1:
+            raise ValueError(f"config {name!r}: storage {storage} is not "
+                             f"EDF files (format 'edf', files >= 1)")
+    return cfg
 
 
 def verb(name: str):
@@ -267,12 +298,53 @@ def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
+def log_dir(cfg: dict):
+    """The directory a run writes its log's files into, removed when the
+    context ends (also on a failure); nothing for a resident log."""
+    if "storage" not in cfg:
+        return contextlib.nullcontext()
+    return tempfile.TemporaryDirectory(prefix="pmbench-edf-")
+
+
+def write_log(cols: dict, cfg: dict, directory) -> list[str]:
+    """The log as ``storage["files"]`` EDF files of contiguous case ranges,
+    in (case, time) order; their paths."""
+    from repro_torch.core.eventframe import EventFrame
+    from repro_torch.storage import edf
+
+    st = cfg["storage"]
+    n, parts = int(cfg["num_cases"]), int(st["files"])
+    case = cols[gen.CASE]
+    cuts = torch.tensor([k * n // parts for k in range(1, parts)],
+                        dtype=case.dtype, device=case.device)
+    bounds = [0, *torch.searchsorted(case, cuts).tolist(), case.shape[0]]
+    paths = []
+    for i, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+        path = os.path.join(directory, f"part-{i:04d}.edf")
+        edf.write(path, EventFrame({k: v[lo:hi] for k, v in cols.items()}),
+                  tables=gen.tables(cfg), codec=st["codec"],
+                  row_group_rows=int(st["row_group_rows"]),
+                  version=int(st["version"]))
+        paths.append(path)
+    return paths
+
+
+def file_sigs(ds) -> list:
+    """Each file's ``edf.file_sig`` (none for a resident log)."""
+    from repro_torch.storage import edf
+
+    return [edf.file_sig(p) for p in ds.paths] if ds.is_files else []
+
+
 def prepare(cfg: dict, mix: dict, seed: int, dev: torch.device,
-            marks: list | None = None):
+            marks: list | None = None, directory=None):
     """The set-up: the mining kernels built or loaded, the log drawn on
-    ``dev``, the in-memory ``Dataset`` opened on it, every (filter, verb)
-    pair of the mix asked once.  Returns ``(columns, dataset)``; appends
-    ``(step, time)`` to ``marks``."""
+    ``dev``, the ``Dataset`` opened on it (in memory, or over the files
+    written into ``directory`` where ``cfg`` has a ``storage``), every
+    (filter, verb) pair of the mix asked once.  Returns ``(columns,
+    dataset)``: the columns on ``dev`` for a resident log, in host memory
+    for a log in files (``on_device`` brings them back for the check).
+    Appends ``(step, time)`` to ``marks``."""
     import repro_torch
     from repro_torch.core.eventframe import EventFrame
 
@@ -285,11 +357,19 @@ def prepare(cfg: dict, mix: dict, seed: int, dev: torch.device,
         torch.cuda.init()
     marks.append(("kernels", time.time()))
     cols = gen.generate(cfg, seed, dev)
-    ds = repro_torch.open(EventFrame(dict(cols)), tables=gen.tables(cfg),
-                          device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    marks.append(("log", time.time()))
+    if "storage" in cfg:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        marks.append(("log", time.time()))
+        cols = {k: v.cpu() for k, v in cols.items()}
+        ds = repro_torch.open(write_log(cols, cfg, directory), device=dev)
+        marks.append(("storage", time.time()))
+    else:
+        ds = repro_torch.open(EventFrame(dict(cols)), tables=gen.tables(cfg),
+                              device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        marks.append(("log", time.time()))
     for req in traffic.warm_requests(mix, cfg):
         to_host(ask(ds, req))
     if dev.type == "cuda":
@@ -298,10 +378,16 @@ def prepare(cfg: dict, mix: dict, seed: int, dev: torch.device,
     return cols, ds
 
 
+def on_device(cols: dict, dev: torch.device) -> dict:
+    """The reference's columns on ``dev`` (where the check runs)."""
+    return {k: v.to(dev) for k, v in cols.items()}
+
+
 @dataclasses.dataclass
 class Result:
     line: dict
     stderr: list
+    data: object = None     # a traced run's trace.TraceData
 
 
 def run_cell(root: Path, workload: str, seed: int, seconds: float,
@@ -310,6 +396,13 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     lines for standard error (the check's numbers last)."""
     root = Path(root)
     bench, cell, cfg, mix = load_cell(root, workload)
+    with log_dir(cfg) as directory:
+        return _run_cell(root, bench, cfg, mix, workload, seed, seconds,
+                         trace, device, t_process, directory)
+
+
+def _run_cell(root, bench, cfg, mix, workload, seed, seconds, trace, device,
+              t_process, directory) -> Result:
     limits = load_json(root / "pmbench" / "limits.json")
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -319,9 +412,10 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
             torch.cuda.synchronize(dev)
 
     marks = [("start", t_process)]
-    cols, ds = prepare(cfg, mix, seed, dev, marks)
+    cols, ds = prepare(cfg, mix, seed, dev, marks, directory)
     rows = int(cols[gen.CASE].shape[0])
     digest = gen.digest(cols)
+    sigs = file_sigs(ds)
     sampler = Sampler(mix["sample_per_stratum"], seed)
     stream = traffic.requests(mix, cfg, seed)
     if cuda:
@@ -329,30 +423,39 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     setup_s = time.time() - t_process
     recorder = data = None
     if trace:
+        from . import program_spans as ps
         from . import trace as tr
 
         recorder = tr.Recorder(sync)
+        sync()
+        before = ps.program_counters()
         with tr.engine_spans(recorder), tr.profiler(dev.type) as prof:
             win = run_window(ds, stream, min(seconds, TRACE_SECONDS),
                              sampler, recorder)
+        sync()
+        after = ps.program_counters()
     else:
         win = run_window(ds, stream, seconds, sampler)
     sync()
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     num_cases = ds.num_cases
+    sigs_changed = file_sigs(ds) != sigs
     del ds
     trace_bytes = 0
     if trace:
         events, trace_bytes = tr.read_events(prof)
-        data = tr.reduce(events, recorder, win.requests, cfg, rows, num_cases)
+        data = tr.reduce(events, recorder, win.requests, cfg, rows, num_cases,
+                         ps.reduce(events, win.requests, before, after))
         del prof, events
 
     items = [(req, None if ans is None else program_answers(req, ans))
              for req, ans in sampler.items()]
     del sampler
+    cols = on_device(cols, dev)
     numbers = check(cols, cfg, items)
     numbers["unanswered"] = win.failed
-    numbers["inputs_changed"] = int(gen.digest(cols) != digest)
+    numbers["inputs_changed"] = int(gen.digest(cols) != digest
+                                    or sigs_changed)
     ok, shown = verdict(numbers, limits)
 
     if trace:
@@ -407,4 +510,4 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     if bad:
         raise SystemExit(f"pmbench: modules of another package were loaded: "
                          f"{bad}")
-    return Result(line, err)
+    return Result(line, err, data)

@@ -28,16 +28,17 @@ The five numbers (means over the window's requests unless said):
   ``fold`` span.
 
 Each is ``None`` where its spans or counters are absent (a program without
-them, a cell without case filters, a run without a device).
+them, a cell without case filters, a run without a device).  A traced run
+of ``pmbench.run`` hands the reduction to every per-layer reader as
+``TraceData.program``; ``pmbench/metrics/<name>.py`` reads each of the five.
+``ProgramTrace.host_s`` and ``.count`` hold every program span's summed
+host seconds and count, so a reader can time a span the program adds.
 
     python -m pmbench.program_spans --workload L1-panel --seed 7
 
-runs one traced window of a cell as ``python -m pmbench.run --trace 1``
-does (the harness's spans, ``torch.profiler``, the same check) and prints
-one JSON line: these five numbers, the seven the harness reads from the
-same window, the device time and idle gaps named by the program's spans.
-``pmbench.run`` does not report them yet: its reduction
-(``pmbench.trace.reduce``) would have to call this module.
+runs a cell traced, as ``python -m pmbench.run --trace 1`` does, and prints
+what its result line does not hold: the counters' differences, and the
+device time, host time and idle gaps named by the program's spans.
 """
 from __future__ import annotations
 
@@ -85,7 +86,8 @@ class ProgramTrace:
 
     requests: list          # the traced window's requests (traffic.Request)
     counters: dict | None   # counter -> difference over the window
-    spans: int              # program spans opened in the window
+    host_s: dict            # program span -> summed host seconds
+    count: dict             # program span -> how many opened in the window
     device_s_in: dict       # program span -> device seconds launched in it
     fold_idle_s: float | None
     case_filter_s: list     # one a filter.case span
@@ -190,9 +192,14 @@ def reduce(events: list[dict], requests: list, before: dict | None,
     counters = None
     if before is not None and after is not None:
         counters = {k: after[k] - before.get(k, 0) for k in after}
+    host_s: dict = {}
+    count: dict = {}
+    for s, e, name in program:
+        if w0 <= s <= w1:
+            host_s[name] = host_s.get(name, 0.0) + (e - s) * 1e-6
+            count[name] = count.get(name, 0) + 1
     return ProgramTrace(
-        requests=requests, counters=counters,
-        spans=sum(1 for s, _, _ in program if w0 <= s <= w1),
+        requests=requests, counters=counters, host_s=host_s, count=count,
         device_s_in=device_s_in, fold_idle_s=fold_idle_s,
         case_filter_s=case_filter_s,
         idle_gaps=[list(kv) for kv in
@@ -257,71 +264,10 @@ def program_counters() -> dict | None:
     return trace.counters()
 
 
-def run(root, workload: str, seed: int, seconds: float, device: str) -> dict:
-    """One traced window of a cell, as ``pmbench.run --trace 1`` runs it;
-    the line this module prints."""
-    import torch
-
-    from pmbench import gen, harness, traffic
-
-    bench, cell, cfg, mix = harness.load_cell(root, workload)
-    limits = harness.load_json(root / "pmbench" / "limits.json")
-    dev = torch.device(device)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    cols, ds = harness.prepare(cfg, mix, seed, dev)
-    rows = int(cols[gen.CASE].shape[0])
-    digest = gen.digest(cols)
-    sampler = harness.Sampler(mix["sample_per_stratum"], seed)
-    stream = traffic.requests(mix, cfg, seed)
-    recorder = harness_trace.Recorder(sync)
-    sync()
-    before = program_counters()
-    with harness_trace.engine_spans(recorder), \
-            harness_trace.profiler(dev.type) as prof:
-        win = harness.run_window(ds, stream,
-                                 min(seconds, harness.TRACE_SECONDS),
-                                 sampler, recorder)
-    sync()
-    after = program_counters()
-    num_cases = ds.num_cases
-    del ds
-    events, _ = harness_trace.read_events(prof)
-    data = harness_trace.reduce(events, recorder, win.requests, cfg, rows,
-                                num_cases)
-    prog = reduce(events, win.requests, before, after)
-    del prof, events
-    accepted = {}
-    for m in bench["per_layer"]:
-        if workload in m.get("workloads", [workload]):
-            value = harness.metric_reader(root, m["name"])(data)
-            if value is not None:
-                accepted[m["name"]] = value
-    items = [(req, None if ans is None else harness.program_answers(req, ans))
-             for req, ans in sampler.items()]
-    checked = harness.check(cols, cfg, items)
-    checked["unanswered"] = win.failed
-    checked["inputs_changed"] = int(gen.digest(cols) != digest)
-    ok, _ = harness.verdict(checked, limits)
-    top = sorted(prog.device_s_in.items(), key=lambda kv: -kv[1])[:12]
-    return {"workload": workload, "seed": seed, "correct": ok,
-            "requests": len(win.requests), "failed": win.failed,
-            "window_s": data.window_s, "busy_s": data.busy_s,
-            "program": numbers(prog), "accepted": accepted,
-            "spans_per_request": prog.spans / max(len(win.requests), 1),
-            "counters": prog.counters,
-            "device_s_by_program_span": [list(kv) for kv in top],
-            "idle_gaps": prog.idle_gaps,
-            "harness_idle_gaps": data.idle_gaps,
-            "card": harness.power_limit() if dev.type == "cuda" else "cpu"}
-
-
 def main(argv=None) -> int:
     import argparse
     import json
+    import time
     from pathlib import Path
 
     ap = argparse.ArgumentParser(prog="python -m pmbench.program_spans")
@@ -332,8 +278,25 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     root = Path(__file__).resolve().parents[1]
     sys.path.insert(0, str(root / "src"))
-    line = run(root, args.workload, args.seed, args.seconds, args.device)
-    print(json.dumps(line), flush=True)
+    from pmbench import harness
+
+    res = harness.run_cell(root, args.workload, args.seed, args.seconds,
+                           True, args.device, time.time())
+    p = res.data.program
+
+    def top(d: dict) -> list:
+        return [list(kv) for kv in
+                sorted(d.items(), key=lambda kv: -kv[1])[:12]]
+
+    print(json.dumps({
+        "workload": args.workload, "seed": args.seed,
+        "correct": res.line["correct"], "requests": len(p.requests),
+        "counters": p.counters,
+        "spans_per_request": sum(p.count.values())
+        / max(len(p.requests), 1),
+        "device_s_by_program_span": top(p.device_s_in),
+        "host_s_by_program_span": top(p.host_s),
+        "idle_gaps": p.idle_gaps}), flush=True)
     return 0
 
 

@@ -1,6 +1,8 @@
 """The reduction of a traced window to the program's spans and counters
 (``pmbench.program_spans``), on hand-written chrome traces; and the
 harness's seven readers, which the program's spans leave as they were."""
+import dataclasses
+
 import pytest
 
 from pmbench import harness, program_spans
@@ -139,12 +141,47 @@ def test_the_harness_readers_read_the_same_with_program_spans():
                      .read_text())
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
 
+    program = {f.__name__ for f in program_spans.READERS}
+
     def read(events):
         data = harness_trace.reduce(events, recorder, [Req()], cfg, 7_000,
                                     1_000)
         return {m["name"]: harness.metric_reader(ROOT, m["name"])(data)
-                for m in bench["per_layer"]}
+                for m in bench["per_layer"] if m["name"] not in program}
 
     without = read(REQUEST + DEVICE)
     assert len(without) == 7 and all(v is not None for v in without.values())
     assert read(REQUEST + PROGRAM + DEVICE) == without
+
+
+@pytest.mark.parametrize("counters", [True, False])
+def test_the_five_readers_read_what_numbers_gives(counters):
+    """Each of ``pmbench/metrics/{the five}.py`` reads, from the reduction
+    the harness hands it, the number ``program_spans.numbers`` gives for
+    the same window; nothing where the run has no program trace."""
+    before = {"host_syncs": 10, "d2h_bytes": 100, "h2d_bytes": 0}
+    after = {"host_syncs": 132, "d2h_bytes": 4_000_100, "h2d_bytes": 500}
+    events = REQUEST + PROGRAM + DEVICE
+    recorder = harness_trace.Recorder(lambda: None)
+    prog = program_spans.reduce(events, ["r0", "r1"],
+                                *((before, after) if counters else (None,
+                                                                    None)))
+    data = harness_trace.reduce(events, recorder, ["r0", "r1"], {}, 7_000,
+                                1_000, prog)
+    want = program_spans.numbers(prog)
+    assert len(want) == (5 if counters else 3)
+    for fn in program_spans.READERS:
+        reader = harness.metric_reader(ROOT, fn.__name__)
+        assert reader(data) == want.get(fn.__name__)
+        assert reader(dataclasses.replace(data, program=None)) is None
+
+
+def test_host_seconds_and_count_of_each_program_span():
+    p = reduced(REQUEST + PROGRAM + DEVICE)
+    assert p.count == {s["name"][len("repro_torch."):]: 1 for s in PROGRAM}
+    assert p.host_s["filter.case"] == pytest.approx(170e-6)
+    assert p.host_s["kernel.ordered_histogram"] == pytest.approx(20e-6)
+    # a span opened outside the window (the warm-up's) is not counted
+    early = span("repro_torch.collect", -500.0, 100.0)
+    q = reduced([early] + REQUEST + PROGRAM + DEVICE)
+    assert q.count == p.count and q.host_s == p.host_s

@@ -11,6 +11,10 @@ read-back (``readback``).  Each span synchronises the device at both ends,
 so its host time holds the device work it launched, and each opens a
 ``torch.profiler.record_function`` range, so the trace can put every
 device kernel into the span that launched it.
+
+The program's own spans and counters (``repro_torch.trace``) are reduced
+from the same window by ``pmbench.program_spans`` and reach the readers as
+``TraceData.program``.
 """
 from __future__ import annotations
 
@@ -105,6 +109,8 @@ class TraceData:
     window_s: float         # the traced window's length
     device_ops: list        # [[name, seconds]] of the busiest device ops
     idle_gaps: list         # [[what the host was doing, idle seconds]]
+    program: object = None  # the program's spans and counters
+    #                         (program_spans.ProgramTrace)
 
     @property
     def has_device(self) -> bool:
@@ -122,7 +128,8 @@ def _union(intervals):
 
 
 def reduce(events: list[dict], recorder: Recorder, requests: list,
-           cfg: dict, rows: int, num_cases: int) -> TraceData:
+           cfg: dict, rows: int, num_cases: int,
+           program=None) -> TraceData:
     spans = {}
     for name, _, t0, t1 in recorder.spans:
         spans[name] = spans.get(name, 0.0) + (t1 - t0)
@@ -187,4 +194,4 @@ def reduce(events: list[dict], recorder: Recorder, requests: list,
         spans=spans, device_s_in=inside, kernels=kernels,
         busy_s=(sum(e - s for s, e in busy) * 1e-6) if device else None,
         window_s=window_s, device_ops=[list(kv) for kv in top],
-        idle_gaps=[list(kv) for kv in idle])
+        idle_gaps=[list(kv) for kv in idle], program=program)
