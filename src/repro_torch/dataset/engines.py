@@ -147,13 +147,22 @@ def _memo_key(dataset, extra) -> tuple | None:
 
 
 def _memo_get(key):
+    """The memoized result of ``key``, or ``None``; counts a file
+    dataset's lookups in ``_memo_get.hits`` / ``.misses``."""
     if key is None:
         return None
     with _RESULTS_LOCK:
         hit = _RESULTS.get(key)
         if hit is not None:
             _RESULTS.move_to_end(key)
+            _memo_get.hits += 1
+        else:
+            _memo_get.misses += 1
         return hit
+
+
+_memo_get.hits = 0
+_memo_get.misses = 0
 
 
 def _memo_put(key, value):
@@ -290,6 +299,11 @@ def estimate(dataset) -> CostEstimate:
     a kept case straddling such a group still forces the real scan to
     read it, so the scan may read slightly more than estimated, never
     less correctly."""
+    with trace.span("scan.plan"):
+        return _estimate(dataset)
+
+
+def _estimate(dataset) -> CostEstimate:
     from repro_torch.query.expr import NONE, CasePredicate
     from repro_torch.query.optimize import compile_plan
 
@@ -469,6 +483,24 @@ def _sharded_many(dataset, specs: Mapping[str, _engine.KernelSpec],
     return results, report
 
 
+# ------------------------------------------------------------ scan counts
+_SCAN_LOCK = threading.Lock()
+SCAN_FIELDS = ("groups_read", "groups_cached", "groups_skipped", "rows_read",
+               "bytes_read")
+
+
+def _count_scan(report) -> None:
+    """Add a streaming collect's ``ScanReport`` to ``_count_scan.<field>``
+    for each of ``SCAN_FIELDS`` (``repro_torch.trace``'s ``scan_*``)."""
+    with _SCAN_LOCK:
+        for f in SCAN_FIELDS:
+            setattr(_count_scan, f,
+                    getattr(_count_scan, f) + getattr(report, f))
+
+
+_count_scan.__dict__.update(dict.fromkeys(SCAN_FIELDS, 0))
+
+
 # -------------------------------------------------------------- delivery
 _DELIVER_LOCK = threading.Lock()
 
@@ -599,15 +631,18 @@ def _collect(dataset, verb, engine, num_shards, prefetch, kwargs
     from repro_torch.query.exec import (execute, execute_grouped,
                                         grouped_eligible)
 
-    kernel = _engine.traced(spec.make(dims, **kwargs), verb)
-    plan = dataset.plan(columns=spec.columns)
-    if grouped_eligible(kernel, dataset.steps):
-        result, report = execute_grouped(plan, kernel,
-                                         _spec_fp(verb, dims, kwargs),
-                                         device=dataset.device)
-    else:
-        result, report = execute(plan, kernel, prefetch=prefetch,
-                                 device=dataset.device)
+    with trace.span("scan"):
+        kernel = _engine.traced(spec.make(dims, **kwargs), verb)
+        with trace.span("scan.plan"):
+            plan = dataset.plan(columns=spec.columns)
+        if grouped_eligible(kernel, dataset.steps):
+            result, report = execute_grouped(plan, kernel,
+                                             _spec_fp(verb, dims, kwargs),
+                                             device=dataset.device)
+        else:
+            result, report = execute(plan, kernel, prefetch=prefetch,
+                                     device=dataset.device)
+    _count_scan(report)
     return CollectResult(result, report, "streaming", verb, est)
 
 
@@ -695,16 +730,19 @@ def _collect_many(dataset, verbs, engine, num_shards, prefetch, vk, common
     from repro_torch.query.exec import (execute, execute_grouped,
                                         grouped_eligible)
 
-    kernel = fused.make(dims, verb_kwargs=vk, **common)
-    plan = dataset.plan(columns=fused.columns)
-    if grouped_eligible(kernel, dataset.steps):
-        fp = _spec_fp("+".join(verbs), dims,
-                      {"verb_kwargs": sorted(vk.items()), **common})
-        results, report = execute_grouped(plan, kernel, fp,
-                                          device=dataset.device)
-    else:
-        results, report = execute(plan, kernel, prefetch=prefetch,
-                                  device=dataset.device)
+    with trace.span("scan"):
+        kernel = fused.make(dims, verb_kwargs=vk, **common)
+        with trace.span("scan.plan"):
+            plan = dataset.plan(columns=fused.columns)
+        if grouped_eligible(kernel, dataset.steps):
+            fp = _spec_fp("+".join(verbs), dims,
+                          {"verb_kwargs": sorted(vk.items()), **common})
+            results, report = execute_grouped(plan, kernel, fp,
+                                              device=dataset.device)
+        else:
+            results, report = execute(plan, kernel, prefetch=prefetch,
+                                      device=dataset.device)
+    _count_scan(report)
     return CollectManyResult(dict(results), report, "streaming", verbs, est)
 
 

@@ -60,6 +60,15 @@ Residual masks are evaluated on the device the chunk lands on; segment
 tracking and the case-level keep broadcast run on the host over the
 decoded case column (no value is read back from the device), and ghost
 chunks are built on the host and copied to the device.
+
+Spans (``repro_torch.trace``, opened on the consumer's thread only, none
+held across a ``yield``): ``scan.plan`` (``compile_plan``), ``scan.wait``
+(the consumer blocked on the read-ahead queue), ``scan.read`` (a
+``read_group_numpy`` on the consumer), ``scan.h2d`` (a decoded group, a
+ghost chunk or a keep mask copied to the device: :func:`_h2d`, whose
+``nbytes`` counts the bytes), ``scan.ghost`` (a ghost chunk built, and
+folded where the scan folds it) and ``scan.merge`` (``merge_tree`` and
+``finalize_group`` of the grouped path).
 """
 from __future__ import annotations
 
@@ -71,6 +80,7 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import backend, engine
 from repro_torch.core.chunked import ChunkedEventFrame
 from repro_torch.core.eventframe import ACTIVITY, CASE, EventFrame
@@ -221,7 +231,8 @@ def _read_ahead(reader: EDFReader, schedule, read_columns, depth: int):
     t.start()
     try:
         while True:
-            got = q.get()
+            with trace.span("scan.wait"):
+                got = q.get()
             if got is _DONE:
                 return
             if isinstance(got, BaseException):
@@ -235,6 +246,34 @@ def _read_ahead(reader: EDFReader, schedule, read_columns, depth: int):
             except queue.Empty:
                 break
         t.join()
+
+
+_H2D_LOCK = threading.Lock()
+
+
+def _h2d(cols: dict, valid: dict | None, device) -> EventFrame:
+    """``EventFrame.from_numpy`` in the span ``scan.h2d``; its bytes are
+    added to ``_h2d.nbytes`` (counted on every device, as
+    ``trace.to_device`` counts, but not as a host sync)."""
+    with trace.span("scan.h2d"):
+        frame = EventFrame.from_numpy(cols, valid, device=device)
+    nbytes = sum(a.nbytes for a in cols.values()) + \
+        sum(a.nbytes for a in (valid or {}).values())
+    with _H2D_LOCK:
+        _h2d.nbytes += nbytes
+    return frame
+
+
+_h2d.nbytes = 0
+
+
+def _read(reader: EDFReader, g: int, columns, device
+          ) -> tuple[EventFrame, np.ndarray | None]:
+    """Row group ``g`` read and decoded on the consumer (``scan.read``) and
+    copied to ``device``; the frame and its host case column."""
+    with trace.span("scan.read"):
+        cols, valid = reader.read_group_numpy(g, columns)
+    return _h2d(cols, valid, device), cols.get(CASE)
 
 
 def _ghost_chunk(item: GhostItem, chunk_columns, reader: EDFReader,
@@ -269,7 +308,7 @@ def _ghost_chunk(item: GhostItem, chunk_columns, reader: EDFReader,
         # kernels (variants) fold these with the affine scan instead of
         # hashing unread rows
         cols.update(sketch_columns(item.sketch, d, d))
-    frame = EventFrame.from_numpy(cols, valid, device=device)
+    frame = _h2d(cols, valid, device)
     return EventFrame(frame.columns, frame.valid,
                       torch.zeros(d, dtype=torch.bool, device=device))
 
@@ -319,14 +358,18 @@ def _masked_chunks(pairs, reader, steps, keeps, chunk_columns, read_columns,
     for item, host in pairs:
         if isinstance(item, GhostItem):
             cont = prev_case is not None and item.first_case == prev_case
-            yield _ghost_chunk(item, chunk_columns, reader, device)
+            with trace.span("scan.ghost"):
+                ghost = _ghost_chunk(item, chunk_columns, reader, device)
+            yield ghost
+            del ghost   # held here, it would stay on the device to the scan's end
             last_seg += int(item.segments) - (1 if cont else 0)
             prev_case = item.tail["values"][CASE]
             continue
         if host is None:
-            host = reader.read_group_numpy(item.index, read_columns)
+            with trace.span("scan.read"):
+                host = reader.read_group_numpy(item.index, read_columns)
         cols, valid = host
-        frame = EventFrame.from_numpy(cols, valid, device=device)
+        frame = _h2d(cols, valid, device)
         mask = _row_mask(frame, steps, item.residual)
         if CASE in cols and frame.nrows:
             case = cols[CASE]
@@ -340,7 +383,7 @@ def _masked_chunks(pairs, reader, steps, keeps, chunk_columns, read_columns,
                         keep = keeps[pos]
                         seg_c = np.minimum(seg, len(keep) - 1)
                         keep_rows &= keep[seg_c] & (seg < len(keep))
-                    mask &= torch.from_numpy(keep_rows).to(device)
+                    mask &= _h2d({"keep": keep_rows}, None, device)["keep"]
                 last_seg = int(seg[-1])
             prev_case = case[-1]
         sel = frame.select(chunk_columns)
@@ -616,9 +659,7 @@ def _single_pass_source(physicals, reports, offsets, total, sk_keeps,
     cell: dict = {"finals": None, "replay": None}
 
     def read(ph, g):
-        cols, valid = ph.reader.read_group_numpy(g, ph.read_columns)
-        return (EventFrame.from_numpy(cols, valid, device=device),
-                cols[CASE])
+        return _read(ph.reader, g, ph.read_columns, device)
 
     def first_pass():
         for rep in all_targets:     # idempotent restart of an abandoned pass
@@ -657,8 +698,10 @@ def _single_pass_source(physicals, reports, offsets, total, sk_keeps,
                     for rep in tg:
                         rep.phase1_groups_read += 1
                         rep.phase1_bytes_read += nb
-                yield _ghost_chunk(_group_ghost(ph, g, sketch),
-                                   ph.read_columns, ph.reader, device)
+                with trace.span("scan.ghost"):
+                    ghost = _ghost_chunk(_group_ghost(ph, g, sketch),
+                                         ph.read_columns, ph.reader, device)
+                yield ghost
                 return
             if got is None:         # never read, or dropped at the cap
                 got = read(ph, g)
@@ -678,7 +721,7 @@ def _single_pass_source(physicals, reports, offsets, total, sk_keeps,
             keep_rows = np.ones(frame.nrows, bool)
             for p in case_pos:
                 keep_rows &= keeps[p][seg]
-            mask &= torch.from_numpy(keep_rows).to(device)
+            mask &= _h2d({"keep": keep_rows}, None, device)["keep"]
             sel = frame.select(ph.chunk_columns)
             yield EventFrame(sel.columns, sel.valid, mask)
 
@@ -718,11 +761,13 @@ def _single_pass_source(physicals, reports, offsets, total, sk_keeps,
                     dirty = True
                     held += 1
                 else:
-                    ghost = _ghost_chunk(_group_ghost(ph, g, p1_sketch),
-                                         ph.read_columns, ph.reader, device)
-                    for pos in data_pos:
-                        st, ca = states[pos]
-                        states[pos] = kernels[pos].update(st, ca, ghost)
+                    with trace.span("scan.ghost"):
+                        ghost = _ghost_chunk(_group_ghost(ph, g, p1_sketch),
+                                             ph.read_columns, ph.reader,
+                                             device)
+                        for pos in data_pos:
+                            st, ca = states[pos]
+                            states[pos] = kernels[pos].update(st, ca, ghost)
                 pending.append([fi, g, glo, ghi, got, want])
                 while held > cap:
                     for entry in pending:
@@ -792,7 +837,8 @@ def multi_pruned_source(mplan: MultiPlan, *, prune: bool = True,
     pruned with complete segment metadata — the classic two-pass schedule
     is the fallback.
     """
-    physicals = [compile_plan(p, prune) for p in mplan.per_file()]
+    with trace.span("scan.plan"):
+        physicals = [compile_plan(p, prune) for p in mplan.per_file()]
     check_homogeneous(ph.reader for ph in physicals)
     reports = [_base_report(ph) for ph in physicals]
     offsets, total = _multi_offsets(physicals)
@@ -929,7 +975,8 @@ def group_states(plan: "Plan | MultiPlan", kernel: engine.ChunkKernel,
     if not engine.mergeable(kernel):
         raise ValueError(f"kernel {kernel.name!r} defines no stitch — it "
                          f"cannot run on the group-state algebra")
-    physicals = [compile_plan(p, prune) for p in plan.per_file()]
+    with trace.span("scan.plan"):
+        physicals = [compile_plan(p, prune) for p in plan.per_file()]
     check_homogeneous(ph.reader for ph in physicals)
     if not grouped_eligible(kernel, physicals[0].steps):
         raise ValueError("group_states: case-level predicates are not "
@@ -943,9 +990,10 @@ def group_states(plan: "Plan | MultiPlan", kernel: engine.ChunkKernel,
         steps = ph.steps
         for item in ph.unit_schedule(sketch=sketch, mask_exact=mask_exact):
             if isinstance(item, GhostItem):
-                ghost = _ghost_chunk(item, ph.chunk_columns, ph.reader,
-                                     device)
-                states.append(engine.fold_group(kernel, [ghost], device))
+                with trace.span("scan.ghost"):
+                    ghost = _ghost_chunk(item, ph.chunk_columns, ph.reader,
+                                         device)
+                    states.append(engine.fold_group(kernel, [ghost], device))
                 continue
             g = item.index
             key = _unit_key(ph, item, spec_fp, device)
@@ -954,7 +1002,7 @@ def group_states(plan: "Plan | MultiPlan", kernel: engine.ChunkKernel,
                 rep.groups_cached += 1
                 states.append(hit)
                 continue
-            frame = ph.reader.read_group(g, ph.read_columns, device=device)
+            frame, _ = _read(ph.reader, g, ph.read_columns, device)
             mask = _row_mask(frame, steps, item.residual)
             sel = frame.select(ph.chunk_columns)
             gs = engine.fold_group(kernel, [EventFrame(sel.columns, sel.valid,
@@ -983,8 +1031,9 @@ def execute_grouped(plan: "Plan | MultiPlan", kernel: engine.ChunkKernel,
     """
     states, report = group_states(plan, kernel, spec_fp, prune=prune,
                                   device=device)
-    merged = engine.merge_tree(kernel, states, device)
-    return engine.finalize_group(kernel, merged), report
+    with trace.span("scan.merge"):
+        merged = engine.merge_tree(kernel, states, device)
+        return engine.finalize_group(kernel, merged), report
 
 
 def grouped_cache_probe(plan: "Plan | MultiPlan", kernel: engine.ChunkKernel,

@@ -27,6 +27,10 @@ Capacity is bounded in bytes (``REPRO_STATE_CACHE_BYTES``, default 256 MiB,
 tensor of the state and carry; eviction is LRU.  Cached states are the
 exact tensors the fold produced — a hit is a reference, never a recompute,
 and the group-state algebra never writes into them.
+
+Each cache counts its ``hits``, ``misses`` and ``evictions`` (``clear``
+starts them again); ``TOTALS`` sums them over every cache since the process
+started and is never reset (``repro_torch.trace``'s ``state_cache_*``).
 """
 from __future__ import annotations
 
@@ -42,6 +46,14 @@ DEFAULT_BYTES = 256 * 1024 * 1024
 
 # per-entry bookkeeping overhead charged on top of the tensor payload
 _ENTRY_OVERHEAD = 512
+
+TOTALS = {"hits": 0, "misses": 0, "evictions": 0}
+_TOTALS_LOCK = threading.Lock()
+
+
+def _total(kind: str) -> None:
+    with _TOTALS_LOCK:
+        TOTALS[kind] += 1
 
 
 def spec_fingerprint(verb: str, dims: Dims, kwargs: dict | None = None) -> tuple:
@@ -72,6 +84,7 @@ class StateCache:
         self.bytes = 0
         self.hits = 0
         self.misses = 0
+        self.evictions = 0
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -81,9 +94,11 @@ class StateCache:
             hit = self._entries.get(key)
             if hit is None:
                 self.misses += 1
+                _total("misses")
                 return None
             self._entries.move_to_end(key)
             self.hits += 1
+            _total("hits")
             return hit[0]
 
     def contains(self, key: Hashable) -> bool:
@@ -106,6 +121,8 @@ class StateCache:
             while self.bytes > self.capacity_bytes and self._entries:
                 _, (_, evicted) = self._entries.popitem(last=False)
                 self.bytes -= evicted
+                self.evictions += 1
+                _total("evictions")
 
     def clear(self) -> None:
         with self._lock:
@@ -113,6 +130,7 @@ class StateCache:
             self.bytes = 0
             self.hits = 0
             self.misses = 0
+            self.evictions = 0
 
 
 _CACHE: StateCache | None = None

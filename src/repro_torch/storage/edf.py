@@ -47,6 +47,7 @@ import os
 import shutil
 import struct
 import threading
+import time
 import zlib
 from collections import OrderedDict
 from contextlib import contextmanager
@@ -648,6 +649,9 @@ def file_sizes(path: str) -> dict:
 
 
 # ---------------------------------------------------------------- reader
+_DECODE_LOCK = threading.Lock()     # EDFReader.decode_ns, from any thread
+
+
 class EDFReader:
     """Cached-header random access to an EDF file — the query planner's view.
 
@@ -660,8 +664,13 @@ class EDFReader:
 
     Reads decode on the host: :meth:`read_group_numpy` returns numpy
     columns (what a prefetch thread runs — it touches no device), and
-    :meth:`read_group` copies them onto ``device``.
+    :meth:`read_group` copies them onto ``device``.  ``EDFReader.decode_ns``
+    sums, over every reader and thread, the nanoseconds spent in
+    :meth:`read_group_numpy` (fetch plus decode; ``repro_torch.trace``'s
+    ``edf_decode_ns``).
     """
+
+    decode_ns = 0
 
     def __init__(self, path: str):
         self.path = path
@@ -762,7 +771,16 @@ class EDFReader:
     def read_group_numpy(self, index: int,
                          columns: Iterable[str] | None = None
                          ) -> tuple[dict, dict]:
-        """One row group's projected columns as numpy ``(columns, valid)``."""
+        """One row group's projected columns as numpy ``(columns, valid)``;
+        its fetch plus decode time is added to ``EDFReader.decode_ns``."""
+        t0 = time.perf_counter_ns()
+        out = self._read_group_numpy(index, columns)
+        ns = time.perf_counter_ns() - t0
+        with _DECODE_LOCK:
+            EDFReader.decode_ns += ns
+        return out
+
+    def _read_group_numpy(self, index: int, columns) -> tuple[dict, dict]:
         if self.version == 1:
             if index != 0:
                 raise IndexError("EDFV0001 has a single row group")

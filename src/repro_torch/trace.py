@@ -42,6 +42,38 @@ copied) and ``answer_pinned_new`` (the blocks the caching host allocator
 pinned anew rather than served from its cache: its ``num_host_alloc``,
 read once a snapshot; the delivery is the port's only pinned allocation,
 so a snapshot's difference is the delivery's).
+
+The spans of the file path (a ``Dataset`` over EDF files; every span on
+the thread that calls ``collect``, none held across a ``yield``; the
+read-ahead thread opens none)::
+
+    collect / collect_many's root      collect
+      auto's zone-map estimate           scan.plan
+      the streaming engine               scan
+        the plan and its compile           scan.plan
+        waiting for the read-ahead         scan.wait
+        a group read on this thread        scan.read
+        a decoded group to the device      scan.h2d
+        a ghost chunk built (and folded)   scan.ghost
+          its copy to the device             scan.h2d
+        a verb's carry and state           fold.init.<verb>
+        a verb's update                    fold.update.<verb>
+          a hand-written kernel's launch     kernel.<name>
+        a verb's finalize                  fold.finalize.<verb>
+        the grouped path's merge           scan.merge
+      the answer into host memory        collect.deliver
+
+``scan.read`` opens where the consumer reads itself (the read-ahead off,
+the grouped path, the single-pass case filter); a case filter's keep mask
+goes to the device in a ``scan.h2d`` too.  Its counters:
+``scan_groups_read``, ``scan_groups_cached``, ``scan_groups_skipped``,
+``scan_rows_read`` and ``scan_bytes_read`` (compressed), the sums of each
+streaming collect's ``ScanReport``; ``scan_h2d_bytes``, what the scan copied
+to the device (not a host sync: ``host_syncs`` keeps its meaning);
+``edf_decode_ns``, the time in ``EDFReader.read_group_numpy`` (fetch plus
+decode) on any thread; ``state_cache_hits``, ``state_cache_misses`` and
+``state_cache_evictions`` of the group-state cache; ``memo_hits`` and
+``memo_misses`` of the result memo (file datasets only).
 """
 from __future__ import annotations
 
@@ -90,10 +122,15 @@ to_device.h2d_bytes = 0
 def counters() -> dict[str, int]:
     """One snapshot: ``host_syncs``, ``d2h_bytes``, ``h2d_bytes``, the
     delivery's ``answer_tensors``, ``answer_d2h_bytes`` and
-    ``answer_pinned_new``, and ``launches.<kernel>`` for each mining
-    kernel wrapper."""
-    from repro_torch.dataset.engines import _deliver
+    ``answer_pinned_new``, ``launches.<kernel>`` for each mining kernel
+    wrapper, and the file path's ``scan_*``, ``edf_decode_ns``,
+    ``state_cache_*`` and ``memo_*``."""
+    from repro_torch.dataset.engines import (SCAN_FIELDS, _count_scan,
+                                             _deliver, _memo_get)
     from repro_torch.kernels import segment_ops as k
+    from repro_torch.query import statecache
+    from repro_torch.query.exec import _h2d
+    from repro_torch.storage.edf import EDFReader
 
     wrappers = {
         "pair_count": k.pair_count_cuda,
@@ -112,4 +149,10 @@ def counters() -> dict[str, int]:
            "answer_pinned_new": torch.cuda.host_memory_stats().get(
                "num_host_alloc", 0)}
     out.update({f"launches.{k}": fn.launches for k, fn in wrappers.items()})
+    out.update({f"scan_{f}": getattr(_count_scan, f) for f in SCAN_FIELDS})
+    out["scan_h2d_bytes"] = _h2d.nbytes
+    out["edf_decode_ns"] = EDFReader.decode_ns
+    out.update({f"state_cache_{k}": v
+                for k, v in statecache.TOTALS.items()})
+    out.update(memo_hits=_memo_get.hits, memo_misses=_memo_get.misses)
     return out

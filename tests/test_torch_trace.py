@@ -11,7 +11,17 @@ and of the fused eight-verb panel, over a small in-memory log:
 * the answers are bitwise the same with the profiler on and off;
 * the counters' difference over the request is pinned: the host syncs and
   the bytes of every copy between host and device that the request makes
-  on a card (the counters count on every device).
+  on a card (the counters count on every device); the file path's
+  counters stay at nought.
+
+And for the same log kept in an EDF file, the panel and its stitching
+members on the streaming engine, with the read-ahead on and off:
+
+* the file path's counters are the sums of the returned ``ScanReport``,
+  the decode time is counted on whichever thread decodes, and a memo hit
+  reads nothing;
+* under a CPU ``torch.profiler`` the ``scan.*`` spans nest as the table in
+  ``repro_torch.trace`` says, all on the calling thread.
 """
 import collections
 import dataclasses
@@ -27,6 +37,9 @@ from repro_torch import cases_containing, col, trace  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.core.eventframe import CASE  # noqa: E402
 from repro_torch.data.synthetic import generate  # noqa: E402
+from repro_torch.dataset import engines  # noqa: E402
+from repro_torch.query import statecache  # noqa: E402
+from repro_torch.storage import edf  # noqa: E402
 
 NC = 300            # cases in the log
 A = 26              # activities
@@ -94,15 +107,20 @@ def mergeable(verbs) -> bool:
                for v in verbs)
 
 
+def program_events(path) -> list[dict]:
+    """The ``repro_torch.`` spans of an exported chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events
+            if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+            and e["name"].startswith(trace.PREFIX)]
+
+
 def traced_spans(path) -> collections.Counter:
     """(span, parent span) of every ``repro_torch.`` span in an exported
     chrome trace; the parent is the innermost span holding it."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
     spans = [(e["ts"], e["ts"] + e["dur"], e["name"][len(trace.PREFIX):])
-             for e in events
-             if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-             and e["name"].startswith(trace.PREFIX)]
+             for e in program_events(path)]
     out = collections.Counter()
     for i, (s, e, name) in enumerate(spans):
         holders = [(h1 - h0, n) for j, (h0, h1, n) in enumerate(spans)
@@ -222,6 +240,8 @@ def expected_counts(ds, kind, verbs) -> dict:
     out.update(answer_tensors=0, answer_d2h_bytes=0, answer_pinned_new=0)
     # the CPU takes the kernels' plain versions: nothing launches
     out.update({k: 0 for k in trace.counters() if k.startswith("launches.")})
+    # a resident log touches nothing of the file path
+    out.update(dict.fromkeys(FILE_COUNTERS, 0))
     return out
 
 
@@ -260,3 +280,182 @@ def test_helpers_do_what_their_call_sites_did():
     after = trace.counters()
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
         == {"host_syncs": 5, "d2h_bytes": 24 + 8 + 24, "h2d_bytes": 3 + 4}
+
+
+# ---------------------------------------------------------- the file path
+FILE_COUNTERS = ("scan_groups_read", "scan_groups_cached",
+                 "scan_groups_skipped", "scan_rows_read", "scan_bytes_read",
+                 "scan_h2d_bytes", "edf_decode_ns", "state_cache_hits",
+                 "state_cache_misses", "state_cache_evictions", "memo_hits",
+                 "memo_misses")
+GROUP_ROWS = 256
+STITCHED = tuple(v for v in PANEL if mergeable((v,)))
+FILE_CASES = [(verbs, prefetch, kind) for verbs in ("panel", "stitched")
+              for prefetch in (0, 1) for kind in ("none", "case_band")]
+FILE_IDS = [f"{v}-prefetch{p}-{k}" for v, p, k in FILE_CASES]
+
+
+@pytest.fixture(scope="module")
+def paths(tmp_path_factory):
+    """The module's log as one EDF file of 256-row groups."""
+    frame, tables = generate(NC, A, seed=5, device="cpu")
+    path = str(tmp_path_factory.mktemp("edf") / "log.edf")
+    edf.write(path, frame, tables=tables, row_group_rows=GROUP_ROWS)
+    return [path]
+
+
+@pytest.fixture
+def fresh(monkeypatch):
+    """An empty result memo and group-state cache."""
+    engines.clear_result_cache()
+    monkeypatch.setattr(statecache, "_CACHE", None)
+    yield
+    engines.clear_result_cache()
+
+
+def ask_files(paths, verbs, prefetch, kind, engine_name="streaming"):
+    ds = repro_torch.open(paths, device="cpu")
+    pred = FILTERS[kind]
+    d = ds if pred is None else ds.filter(pred)
+    return d.collect_many(PANEL if verbs == "panel" else STITCHED,
+                          engine=engine_name, prefetch=prefetch)
+
+
+def changed(fn) -> tuple:
+    """``fn()`` and the counters' difference over it."""
+    before = trace.counters()
+    out = fn()
+    after = trace.counters()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.parametrize("verbs,prefetch,kind", FILE_CASES, ids=FILE_IDS)
+def test_file_counters_are_the_scan_reports(paths, fresh, verbs, prefetch,
+                                            kind):
+    res, got = changed(lambda: ask_files(paths, verbs, prefetch, kind))
+    r = res.report
+    assert {f: got[f"scan_{f}"] for f in engines.SCAN_FIELDS} == \
+        {f: getattr(r, f) for f in engines.SCAN_FIELDS}
+    assert r.groups_read + r.groups_cached + r.groups_skipped \
+        == r.groups_total
+    assert r.groups_read > 0 and got["edf_decode_ns"] > 0
+    assert (got["memo_hits"], got["memo_misses"]) == (0, 1)
+    # the decoded groups go to the device whole; a band adds ghost chunks
+    schema = edf.EDFReader(paths[0]).schema
+    row = sum(np.dtype(schema[c]["dtype"]).itemsize for c in r.columns)
+    if kind == "none":
+        assert got["scan_h2d_bytes"] == r.rows_read * row
+    else:
+        assert r.groups_skipped > 0
+        assert got["scan_h2d_bytes"] > r.rows_read * row
+    grouped = verbs == "stitched"
+    assert (got["state_cache_hits"], got["state_cache_misses"],
+            got["state_cache_evictions"]) == \
+        (0, r.groups_read if grouped else 0, 0)
+    # asked again: the memo answers and nothing is read
+    _, again = changed(lambda: ask_files(paths, verbs, prefetch, kind))
+    assert {k: again[k] for k in FILE_COUNTERS} == \
+        dict(dict.fromkeys(FILE_COUNTERS, 0), memo_hits=1)
+    if grouped:     # the memo cleared, every read group from the cache
+        engines.clear_result_cache()
+        res2, third = changed(lambda: ask_files(paths, verbs, prefetch, kind))
+        assert res2.report.groups_cached == r.groups_read
+        assert (third["scan_groups_cached"], third["state_cache_hits"],
+                third["scan_groups_read"], third["edf_decode_ns"]) == \
+            (r.groups_read, r.groups_read, 0, 0)
+
+
+def expected_scan_spans(verbs, prefetch, kind) -> set:
+    """(span, parent span) of a streaming collect's ``scan*`` spans."""
+    pairs = {("scan", "collect"), ("scan.plan", "scan"), ("scan.h2d", "scan")}
+    if verbs == "stitched":
+        pairs |= {("scan.read", "scan"), ("scan.merge", "scan")}
+    else:
+        pairs.add(("scan.wait", "scan") if prefetch else ("scan.read", "scan"))
+    if kind == "case_band":
+        pairs |= {("scan.ghost", "scan"), ("scan.h2d", "scan.ghost")}
+    return pairs
+
+
+@pytest.mark.parametrize("verbs,prefetch,kind", FILE_CASES, ids=FILE_IDS)
+def test_file_path_spans_nest_as_the_table_says(paths, fresh, tmp_path, verbs,
+                                                prefetch, kind):
+    _, prof = profiled(lambda: ask_files(paths, verbs, prefetch, kind))
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    spans = traced_spans(path)
+    assert {p for p in spans if p[0].startswith("scan")} == \
+        expected_scan_spans(verbs, prefetch, kind)
+    # the plan, then its compile; one copy a read group outside a ghost
+    res = ask_files(paths, verbs, prefetch, kind)
+    assert spans[("scan.plan", "scan")] == 2
+    assert spans[("scan.h2d", "scan")] == res.report.groups_read
+    # the verbs fold inside the scan, as they fold inside ``fold`` in memory
+    assert spans[("fold.update.dfg", "scan")] > 0
+    assert ("filter", "collect") not in spans
+    # every span on the calling thread; the read-ahead opens none
+    assert len({e["tid"] for e in program_events(path)}) == 1
+
+
+def test_autos_estimate_is_a_scan_plan_span(paths, fresh, tmp_path):
+    res, prof = profiled(lambda: ask_files(paths, "panel", 1, "case_band",
+                                           "auto"))
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    spans = traced_spans(path)
+    assert spans[("scan.plan", "collect")] == 1
+    # the tiny log goes eager: filter and fold as in memory, no scan
+    assert res.engine == "eager" and ("filter", "collect") in spans
+    assert not any(p[0] == "scan" for p in spans)
+
+
+def test_file_counters_lose_no_update_across_threads(paths, fresh,
+                                                     monkeypatch):
+    """More threads than cores at a short switch interval: the counters
+    the read-ahead thread and concurrent collects update keep every add
+    (the decode clock faked to advance 1 ns a read on each thread)."""
+    import sys
+    import threading
+
+    from repro_torch.query import exec as qexec
+
+    tick = threading.local()
+
+    def clock():
+        tick.n = getattr(tick, "n", 0) + 1
+        return tick.n
+
+    monkeypatch.setattr(edf.time, "perf_counter_ns", clock)
+    reader = edf.EDFReader(paths[0])
+    cols, valid = reader.read_group_numpy(0)
+    nbytes = sum(a.nbytes for a in cols.values())
+    cache = statecache.StateCache(0)
+    report = type("R", (), dict.fromkeys(engines.SCAN_FIELDS, 1))
+    threads, rounds = 16, 200
+    before = trace.counters()
+
+    def work():
+        for _ in range(rounds):
+            reader.read_group_numpy(0)
+            qexec._h2d(cols, valid, "cpu")
+            cache.get(("no", "such", "key"))
+            engines._count_scan(report)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        pool = [threading.Thread(target=work) for _ in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(interval)
+    after = trace.counters()
+    got = {k: after[k] - before[k] for k in after}
+    n = threads * rounds
+    assert got["edf_decode_ns"] == n
+    assert got["scan_h2d_bytes"] == n * nbytes
+    assert got["state_cache_misses"] == n
+    assert all(got[f"scan_{f}"] == n for f in engines.SCAN_FIELDS)
