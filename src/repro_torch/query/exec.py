@@ -45,16 +45,18 @@ plan (a phase-one scan per predicate, then the final scan).
 (equal to ``filterN(...).compact()``); ``pruned_source`` exposes the
 pruned stream as a re-iterable ``ChunkedEventFrame`` for custom drivers.
 
-**Double buffering** — the scan's wall clock is ``sum(read+decode) +
-sum(kernel update)`` when sequential; a bounded background prefetcher
-(``REPRO_QUERY_PREFETCH``, default 1 group ahead, ``0`` = off) fetches
-and decodes row group *g+1* on the host while the kernel runs on group
-*g*, overlapping the two terms.  Only the file read and the decode to
-host numpy move off the consumer thread (the worker makes no device
+**Read-ahead** — the scan's wall clock is ``sum(read+decode) +
+sum(kernel update)`` when sequential; a process-wide pool of host threads
+(:func:`_decode_pool`) fetches and decodes the next *W* read groups
+concurrently while the kernel runs on group *g*, overlapping the two
+terms and spreading the decode (``zlib`` releases the GIL) over the host's
+cores.  *W* is ``REPRO_QUERY_PREFETCH`` when set (``0`` = off), else the
+pool's size (:func:`prefetch_depth`).  Only the file read and the decode
+to host numpy move off the consumer thread (a worker makes no device
 call): the copy to the device, residual masks, segment tracking and
 ghost-chunk synthesis are order-dependent and stay on the consumer, in
 schedule order, so the chunk stream — and therefore every kernel result —
-is bitwise identical with the prefetcher on or off.
+is bitwise identical with the read-ahead on or off, at any window.
 
 Residual masks are evaluated on the device the chunk lands on; segment
 tracking and the case-level keep broadcast run on the host over the
@@ -63,7 +65,7 @@ chunks are built on the host and copied to the device.
 
 Spans (``repro_torch.trace``, opened on the consumer's thread only, none
 held across a ``yield``): ``scan.plan`` (``compile_plan``), ``scan.wait``
-(the consumer blocked on the read-ahead queue), ``scan.read`` (a
+(the consumer blocked on its next group's decode), ``scan.read`` (a
 ``read_group_numpy`` on the consumer), ``scan.h2d`` (a decoded group, a
 ghost chunk or a keep mask copied to the device: :func:`_h2d`, whose
 ``nbytes`` counts the bytes), ``scan.ghost`` (a ghost chunk built, and
@@ -72,10 +74,11 @@ folded where the scan folds it) and ``scan.merge`` (``merge_tree`` and
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
-import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 import torch
@@ -175,77 +178,101 @@ def _account(report: ScanReport, physical: PhysicalPlan, schedule,
 
 
 # ----------------------------------------------------------- the stream
+_POOL_MAX = 8               # decode threads at most, whatever the host has
+_POOL_LOCK = threading.Lock()
+_pool: tuple | None = None  # (pid, the executor): see _decode_pool
+
+
+def _pool_size() -> int:
+    """Decode threads for this host: the cores the process may run on (all
+    of them where the platform has no affinity call), one left to the
+    consumer, at least 1 and at most ``_POOL_MAX``."""
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except AttributeError:      # no affinity call on this platform
+        cores = os.cpu_count() or 1
+    return min(max(cores - 1, 1), _POOL_MAX)
+
+
+def _decode_pool() -> ThreadPoolExecutor:
+    """The process-wide pool that decodes read-ahead groups, created on
+    first use and again in a forked child (whose copy has no threads).  One
+    pool bounds the threads however many scans run at once."""
+    global _pool
+    with _POOL_LOCK:
+        if _pool is None or _pool[0] != os.getpid():
+            _pool = (os.getpid(), ThreadPoolExecutor(
+                _pool_size(), thread_name_prefix="repro-decode"))
+        return _pool[1]
+
+
 def prefetch_depth(prefetch: int | None = None) -> int:
-    """Resolve the read-ahead depth: explicit argument wins, else the
-    ``REPRO_QUERY_PREFETCH`` env var (default 1 group ahead; 0 disables)."""
+    """Resolve the read-ahead window: explicit argument wins, else the
+    ``REPRO_QUERY_PREFETCH`` env var, else the decode pool's size
+    (:func:`_pool_size`); 0 disables."""
     if prefetch is None:
         try:
-            prefetch = int(os.environ.get("REPRO_QUERY_PREFETCH", "1"))
-        except ValueError:
-            prefetch = 1
+            prefetch = int(os.environ["REPRO_QUERY_PREFETCH"])
+        except (KeyError, ValueError):
+            prefetch = _pool_size()
     return max(int(prefetch), 0)
-
-
-_DONE = object()
 
 
 def _read_ahead(reader: EDFReader, schedule, read_columns, depth: int):
     """Yield ``(item, (columns, valid) | None)`` pairs in schedule order,
-    fetching and decoding up to ``depth`` read groups ahead on a daemon
-    thread (the double buffer: group *g+1* decompresses while the device
-    works on *g*).  The worker returns host numpy and makes no device call.
+    keeping up to ``depth`` read groups in flight on the decode pool (each
+    fetched and decoded concurrently while the consumer works on the group
+    before them).  A worker runs ``read_group_numpy`` and nothing else: it
+    returns host numpy and makes no device call.  Taking group *g* submits
+    group *g + depth*; the consumer then waits for *g* in ``scan.wait``.
     Ghost items pass through with ``None`` — their synthesis is
-    order-dependent and stays on the consumer.  Worker exceptions re-raise
-    at the consumer's matching position; an abandoned consumer (generator
-    closed early) stops the worker via the stop event + queue drain, and
-    the worker is joined before the generator returns."""
-    q: queue.Queue = queue.Queue(maxsize=depth)
-    stop = threading.Event()
+    order-dependent and stays on the consumer.  A worker's exception
+    re-raises at the consumer's matching position.  However the generator
+    ends (exhausted, raising, or closed early by an abandoned consumer),
+    the groups not yet started are cancelled and the running ones waited
+    for before it returns, so no decode touches ``reader`` after it.
 
-    def _put(payload) -> bool:
-        while not stop.is_set():
-            try:
-                q.put(payload, timeout=0.05)
-                return True
-            except queue.Full:
-                continue
-        return False
+    ``_read_ahead.ready`` and ``_read_ahead.waited`` count the groups whose
+    decode had finished when the consumer asked for them, and those it
+    waited on."""
+    pool = _decode_pool()
+    reads = (item for item in schedule if not isinstance(item, GhostItem))
+    pending = collections.deque()   # the futures of the groups in flight
 
-    def worker():
-        try:
-            for item in schedule:
-                if isinstance(item, GhostItem):
-                    out = (item, None)
-                elif stop.is_set():
-                    return
-                else:
-                    out = (item, reader.read_group_numpy(item.index,
-                                                         read_columns))
-                if not _put(out):
-                    return
-            _put(_DONE)
-        except BaseException as exc:  # noqa: BLE001 — re-raised at consumer
-            _put(exc)
+    def submit():
+        item = next(reads, None)
+        if item is not None:
+            pending.append(pool.submit(reader.read_group_numpy, item.index,
+                                       read_columns))
 
-    t = threading.Thread(target=worker, daemon=True, name="repro-prefetch")
-    t.start()
     try:
-        while True:
+        for _ in range(depth):
+            submit()
+        for item in schedule:
+            if isinstance(item, GhostItem):
+                yield item, None
+                continue
+            fut = pending[0]    # stays in flight until its result is in
+            submit()
             with trace.span("scan.wait"):
-                got = q.get()
-            if got is _DONE:
-                return
-            if isinstance(got, BaseException):
-                raise got
-            yield got
+                ready = fut.done()
+                host = fut.result()
+            pending.popleft()
+            with _AHEAD_LOCK:
+                if ready:
+                    _read_ahead.ready += 1
+                else:
+                    _read_ahead.waited += 1
+            yield item, host
     finally:
-        stop.set()
-        while True:  # unblock a worker parked on a full queue
-            try:
-                q.get_nowait()
-            except queue.Empty:
-                break
-        t.join()
+        for fut in pending:
+            fut.cancel()
+        wait(pending)
+
+
+_AHEAD_LOCK = threading.Lock()
+_read_ahead.ready = 0
+_read_ahead.waited = 0
 
 
 _H2D_LOCK = threading.Lock()
@@ -328,10 +355,11 @@ def _iter_chunks(physical: PhysicalPlan, schedule, keeps: dict,
     residual masks, ghost chunks for skipped runs.  Tracks global segment
     numbering sequentially (read groups from their decoded case column,
     ghost runs from metadata), so case-level keep masks broadcast to the
-    right rows.  ``prefetch`` groups are fetched+decoded ahead on a
-    background thread (:func:`prefetch_depth` resolves ``None`` from the
-    environment); the masking below consumes them strictly in schedule
-    order, so the stream is bitwise identical with read-ahead on or off."""
+    right rows.  Up to ``prefetch`` read groups are fetched and decoded
+    ahead, concurrently, on the decode pool (:func:`prefetch_depth`
+    resolves ``None`` from the environment or the pool's size; 0 reads on
+    this thread); the masking below consumes them strictly in schedule
+    order, so the stream is bitwise identical at any window."""
     reader = physical.reader
     steps = physical.steps
     depth = prefetch_depth(prefetch)

@@ -663,7 +663,7 @@ class EDFReader:
     but the synthesis pass reads the data it would later skip).
 
     Reads decode on the host: :meth:`read_group_numpy` returns numpy
-    columns (what a prefetch thread runs — it touches no device), and
+    columns (what a read-ahead thread runs — it touches no device), and
     :meth:`read_group` copies them onto ``device``.  ``EDFReader.decode_ns``
     sums, over every reader and thread, the nanoseconds spent in
     :meth:`read_group_numpy` (fetch plus decode; ``repro_torch.trace``'s

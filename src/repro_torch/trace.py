@@ -45,13 +45,13 @@ so a snapshot's difference is the delivery's).
 
 The spans of the file path (a ``Dataset`` over EDF files; every span on
 the thread that calls ``collect``, none held across a ``yield``; the
-read-ahead thread opens none)::
+read-ahead's decode threads open none)::
 
     collect / collect_many's root      collect
       auto's zone-map estimate           scan.plan
       the streaming engine               scan
         the plan and its compile           scan.plan
-        waiting for the read-ahead         scan.wait
+        waiting for a read-ahead group     scan.wait
         a group read on this thread        scan.read
         a decoded group to the device      scan.h2d
         a ghost chunk built (and folded)   scan.ghost
@@ -71,9 +71,15 @@ goes to the device in a ``scan.h2d`` too.  Its counters:
 streaming collect's ``ScanReport``; ``scan_h2d_bytes``, what the scan copied
 to the device (not a host sync: ``host_syncs`` keeps its meaning);
 ``edf_decode_ns``, the time in ``EDFReader.read_group_numpy`` (fetch plus
-decode) on any thread; ``state_cache_hits``, ``state_cache_misses`` and
-``state_cache_evictions`` of the group-state cache; ``memo_hits`` and
-``memo_misses`` of the result memo (file datasets only).
+decode) summed over the threads that ran it: the read-ahead decodes several
+groups at once on a pool of host threads, so this is thread time, which
+can exceed the wall time it overlaps; ``scan_ahead_ready`` and
+``scan_ahead_waited``, the read-ahead groups whose decode had finished when
+the scan asked for them and those it waited on (``scan.wait``: their share
+says how often the pool keeps ahead); ``state_cache_hits``,
+``state_cache_misses`` and ``state_cache_evictions`` of the group-state
+cache; ``memo_hits`` and ``memo_misses`` of the result memo (file datasets
+only).
 """
 from __future__ import annotations
 
@@ -129,7 +135,7 @@ def counters() -> dict[str, int]:
                                              _deliver, _memo_get)
     from repro_torch.kernels import segment_ops as k
     from repro_torch.query import statecache
-    from repro_torch.query.exec import _h2d
+    from repro_torch.query.exec import _h2d, _read_ahead
     from repro_torch.storage.edf import EDFReader
 
     wrappers = {
@@ -152,6 +158,8 @@ def counters() -> dict[str, int]:
     out.update({f"scan_{f}": getattr(_count_scan, f) for f in SCAN_FIELDS})
     out["scan_h2d_bytes"] = _h2d.nbytes
     out["edf_decode_ns"] = EDFReader.decode_ns
+    out["scan_ahead_ready"] = _read_ahead.ready
+    out["scan_ahead_waited"] = _read_ahead.waited
     out.update({f"state_cache_{k}": v
                 for k, v in statecache.TOTALS.items()})
     out.update(memo_hits=_memo_get.hits, memo_misses=_memo_get.misses)

@@ -22,6 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from torch_scan_helpers import scan_reports_equal as _reports_equal  # noqa: E402
 
 import repro  # noqa: E402
 import repro_torch  # noqa: E402
@@ -33,6 +34,7 @@ from repro_torch.core import filtering as tfilt  # noqa: E402
 from repro_torch.core import ops as tops  # noqa: E402
 from repro_torch.core.eventframe import ACTIVITY, CASE, TIMESTAMP  # noqa: E402
 from repro_torch.dataset import engines as tengines  # noqa: E402
+from repro_torch.query import exec as texec  # noqa: E402
 from repro_torch.storage import edf as tedf  # noqa: E402
 
 A = 7          # activities in the shared fixture
@@ -121,14 +123,6 @@ def _same(got, want, path="result"):
                                        err_msg=path)
         else:
             np.testing.assert_array_equal(g, w, err_msg=path)
-
-
-def _reports_equal(got, want):
-    """ScanReports field by field (None for eager on both sides)."""
-    if want is None:
-        assert got is None
-        return
-    assert got.to_dict() == want.to_dict()
 
 
 def _filtered(pkg, ds, name):
@@ -573,6 +567,18 @@ def _strip(text, *prefixes):
                      if not line.strip().startswith(prefixes))
 
 
+PREFETCH_LINE = re.compile(r"^  prefetch (\d+) group\(s\) ahead$", re.M)
+
+
+def _fused_explains_equal(got, want):
+    """A fused ``explain()`` of the port against JAX's: every line equal
+    but the read-ahead window's, which shows the port's own resolved
+    ``prefetch_depth()`` (its default is the decode pool's size, JAX's 1)."""
+    assert len(PREFETCH_LINE.findall(want)) == 1
+    assert PREFETCH_LINE.findall(got) == [str(texec.prefetch_depth())]
+    assert PREFETCH_LINE.sub("", got) == PREFETCH_LINE.sub("", want)
+
+
 def test_explain_matches_jax(logset, monkeypatch):
     """``explain()`` prints JAX's plan text: line for line without the
     engine and cost lines under each package's own calibration, and every
@@ -589,8 +595,8 @@ def test_explain_matches_jax(logset, monkeypatch):
         assert _strip(tds.explain(verb), "engine", "cost") == \
             _strip(jds.explain(verb), "engine", "cost")
     fused = ["dfg", "stats", "variants"]
-    assert _strip(tds.explain(verbs=fused), "engine", "cost") == \
-        _strip(jds.explain(verbs=fused), "engine", "cost")
+    _fused_explains_equal(_strip(tds.explain(verbs=fused), "engine", "cost"),
+                          _strip(jds.explain(verbs=fused), "engine", "cost"))
     pinned = dict(eager_a=5.0, eager_b=0.5, stream_a=50.0, stream_b=0.25,
                   stream_g=10.0, source="pinned")
     monkeypatch.setattr(tengines, "_CALIBRATION",
@@ -601,7 +607,7 @@ def test_explain_matches_jax(logset, monkeypatch):
     jds.collect("dfg", engine="streaming")
     assert kib.sub("", tds.explain("dfg")) == kib.sub("", jds.explain("dfg"))
     assert "0 freshly decoded" in tds.explain("dfg")
-    assert tds.explain(verbs=fused) == jds.explain(verbs=fused)
+    _fused_explains_equal(tds.explain(verbs=fused), jds.explain(verbs=fused))
     sk = _open(paths).filter(repro_torch.variant_of([0, 1]))
     jsk = repro.open(paths).filter(repro.variant_of([0, 1]))
     assert kib.sub("", sk.explain("dfg")) == kib.sub("", jsk.explain("dfg"))

@@ -8,17 +8,25 @@ port's ``execute`` equals the port's eager filter-then-mine and JAX's
 ``execute``, bitwise (fingerprints compared as uint32), and its
 ``ScanReport`` equals JAX's field by field.  Plus ghost chunks with and
 without sketches, ``execute_grouped`` with its state-cache hits, the
-prefetch thread (the stream is bitwise the same at depth 0, 1 and 2),
+read-ahead pool (the stream is bitwise the same at any window, a decode's
+error reaches the consumer in order, a closed scan leaves no decode
+running, the default window follows the host's cores),
 ``StaleFileError`` after an append, and ``execute_frame``.
 """
 import dataclasses
 import os
+import sys
+import threading
+import time
 import warnings
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from torch_scan_helpers import scan_reports_equal as _reports_equal  # noqa: E402
 
 import repro.core as jcore  # noqa: E402
 import repro.query as jq  # noqa: E402
@@ -29,11 +37,13 @@ from repro.query import statecache as jstatecache  # noqa: E402
 from repro.storage import edf as jedf  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
 import repro_torch.query as tq  # noqa: E402
+from repro_torch import trace  # noqa: E402
 from repro_torch.core import engine as tengine  # noqa: E402
 from repro_torch.core import filtering as tfilt  # noqa: E402
 from repro_torch.core import ops as tops  # noqa: E402
 from repro_torch.core.eventframe import ACTIVITY, CASE, TIMESTAMP  # noqa: E402
 from repro_torch.query import exec as texec  # noqa: E402
+from repro_torch.query.optimize import GhostItem, ReadItem  # noqa: E402
 from repro_torch.query import statecache as tstatecache  # noqa: E402
 from repro_torch.storage import edf as tedf  # noqa: E402
 
@@ -77,10 +87,6 @@ def _same(got, want, msg=""):
             g = g.astype(np.uint32)
         assert g.dtype == w.dtype and g.shape == w.shape, (msg, g.dtype, w.dtype)
         np.testing.assert_array_equal(g, w, err_msg=msg)
-
-
-def _reports_equal(got, want):
-    assert got.to_dict() == want.to_dict()
 
 
 def _port_reference(whole, ncases, name):
@@ -283,7 +289,8 @@ def _stream(src):
 @pytest.mark.parametrize("pred", ["time_range", "variant_in"])
 def test_prefetch_stream_is_bitwise_the_same(log, pred):
     """The chunk stream (every column, epsilon flag and row mask) is the
-    same with the prefetch thread off and 1 or 2 groups ahead."""
+    same with the read-ahead off, 1, 2 or 4 groups ahead and at the default
+    window, over a file of more groups than the window."""
     path, whole, ncases = log
     plan = _plan(tq, path, "time_range")
     if pred == "variant_in":
@@ -292,10 +299,11 @@ def test_prefetch_stream_is_bitwise_the_same(log, pred):
         plan = tq.Plan(path).filter(tq.col(ACTIVITY) != 7).filter(
             tq.variant_in(pairs))
     streams = []
-    for depth in (0, 1, 2):
+    for depth in (0, 1, 2, 4, None):
         src, rep = tq.pruned_source(plan, sketch=True, prefetch=depth,
                                     device="cpu")
-        assert rep.prefetch == depth
+        assert rep.prefetch == texec.prefetch_depth(depth)
+        assert rep.groups_read > rep.prefetch
         streams.append(_stream(src))
     assert len(streams[0]) >= 3
     for other in streams[1:]:
@@ -309,17 +317,230 @@ def test_prefetch_stream_is_bitwise_the_same(log, pred):
             np.testing.assert_array_equal(r0, r1)
 
 
-def test_prefetch_worker_error_reaches_the_consumer(log, monkeypatch):
+def _tracked(reader, monkeypatch, slow=None, fail=None):
+    """Wrap ``reader.read_group_numpy``: the decodes running now and the
+    groups started, group ``fail`` raising, group ``g`` taking
+    ``slow(g)`` seconds first."""
+    real = reader.read_group_numpy
+    lock = threading.Lock()
+    state = {"running": 0, "started": []}
+
+    def read(index, columns=None):
+        with lock:
+            state["running"] += 1
+            state["started"].append(index)
+        try:
+            if slow is not None:
+                time.sleep(slow(index))
+            if index == fail:
+                raise OSError("disk gone")
+            return real(index, columns)
+        finally:
+            with lock:
+                state["running"] -= 1
+
+    monkeypatch.setattr(reader, "read_group_numpy", read)
+    return state
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_prefetch_worker_error_reaches_the_consumer(log, monkeypatch,
+                                                    workers):
+    """A decode failing at group 3 raises at the consumer's group 3, after
+    groups 0..2 arrived as they do without the read-ahead; no decode is
+    left running when the error reaches the consumer."""
     path, _, _ = log
-    reader = tedf.pooled_reader(path)
+    plan = tq.Plan(path)
+    want = _stream(tq.pruned_source(plan, prefetch=0, device="cpu")[0])
+    pool = ThreadPoolExecutor(workers, thread_name_prefix="test-decode")
+    monkeypatch.setattr(texec, "_pool", (os.getpid(), pool))
+    try:
+        state = _tracked(tedf.pooled_reader(path), monkeypatch,
+                         slow=lambda g: 0.02 * (g > 3), fail=3)
+        src, _ = tq.pruned_source(plan, prefetch=workers, device="cpu")
+        got = []
+        with pytest.raises(OSError, match="disk gone"):
+            for ch in src:
+                got.append(ch)
+        assert state["running"] == 0
+    finally:
+        pool.shutdown()
+    got = _stream(got)
+    assert len(got) == 3
+    for (c0, _, r0), (c1, _, r1) in zip(want, got):
+        for k in c0:
+            np.testing.assert_array_equal(c0[k], c1[k])
+        np.testing.assert_array_equal(r0, r1)
 
-    def boom(index, columns=None):
-        raise OSError("disk gone")
 
-    monkeypatch.setattr(reader, "read_group_numpy", boom)
-    src, _ = tq.pruned_source(tq.Plan(path), prefetch=1, device="cpu")
-    with pytest.raises(OSError, match="disk gone"):
-        list(src)
+def test_an_abandoned_scan_leaves_no_decode_running(log, monkeypatch):
+    """A consumer that takes one chunk of four groups ahead and closes the
+    stream: ``close()`` returns with no decode running and none starts
+    after it, and the process's pool has no more threads than its size."""
+    path, _, _ = log
+    state = _tracked(tedf.pooled_reader(path), monkeypatch,
+                     slow=lambda g: 0.3 * (g > 0))
+    src, _ = tq.pruned_source(tq.Plan(path), prefetch=4, device="cpu")
+    stream = iter(src)
+    next(stream)
+    stream.close()
+    assert state["running"] == 0
+    started = list(state["started"])
+    assert started[0] == 0 and len(started) <= 1 + 4 + 1
+    time.sleep(0.1)
+    assert state["started"] == started
+    pool = texec._decode_pool()
+    threads = [t for t in threading.enumerate()
+               if t.name.startswith("repro-decode")]
+    assert 0 < len(threads) <= pool._max_workers == texec._pool_size()
+
+
+class _Refusing:
+    """A pool that takes ``n`` submissions and then refuses, as one does
+    once the interpreter shuts down."""
+
+    def __init__(self, pool, n):
+        self.pool, self.n = pool, n
+
+    def submit(self, fn, *args):
+        if self.n == 0:
+            raise RuntimeError("cannot schedule new futures")
+        self.n -= 1
+        return self.pool.submit(fn, *args)
+
+
+def test_a_refused_submit_leaves_no_decode_running(log, monkeypatch):
+    """The pool refusing group 2's submission while group 0 still decodes:
+    the error reaches the consumer, and no decode is running by then —
+    group 0's among them, though it was the one being taken."""
+    path, _, _ = log
+    state = _tracked(tedf.pooled_reader(path), monkeypatch,
+                     slow=lambda g: 0.3 * (g == 0))
+    pool = ThreadPoolExecutor(2, thread_name_prefix="test-decode")
+    monkeypatch.setattr(texec, "_decode_pool", lambda: _Refusing(pool, 2))
+    try:
+        src, _ = tq.pruned_source(tq.Plan(path), prefetch=2, device="cpu")
+        with pytest.raises(RuntimeError, match="cannot schedule"):
+            for _ in src:
+                pass
+        assert state["running"] == 0
+        assert sorted(state["started"]) == [0, 1]
+    finally:
+        pool.shutdown()
+
+
+class _Decoded:
+    """A reader whose group ``g`` decodes to ``g``."""
+
+    @staticmethod
+    def read_group_numpy(index, columns=None):
+        return index
+
+
+class _RunAtOnce:
+    """A pool that decodes each group when it is submitted, and records it."""
+
+    def __init__(self):
+        self.submitted = []
+
+    def submit(self, fn, *args):
+        self.submitted.append(args[0])
+        fut = Future()
+        fut.set_result(fn(*args))
+        return fut
+
+
+@pytest.mark.parametrize("reads", [3, 12])
+@pytest.mark.parametrize("cores,window", [(1, 1), (4, 3), (64, 8)])
+def test_the_default_window_follows_the_host_cores(monkeypatch, cores,
+                                                   window, reads):
+    """The default window is the cores the process may use less one, 1 to
+    8; the env var and an explicit argument win, and 0 disables.  Taking
+    read group *k* leaves the next ``window`` groups submitted, bounded by
+    the groups the schedule reads; ghosts pass through on the consumer."""
+    monkeypatch.delenv("REPRO_QUERY_PREFETCH", raising=False)
+    monkeypatch.setattr(os, "sched_getaffinity",
+                        lambda pid: set(range(cores)))
+    assert texec.prefetch_depth() == window
+    assert (texec.prefetch_depth(5), texec.prefetch_depth(0)) == (5, 0)
+    monkeypatch.setenv("REPRO_QUERY_PREFETCH", "2")
+    assert (texec.prefetch_depth(), texec.prefetch_depth(3)) == (2, 3)
+    monkeypatch.setenv("REPRO_QUERY_PREFETCH", "0")
+    assert texec.prefetch_depth() == 0
+    monkeypatch.delenv("REPRO_QUERY_PREFETCH")
+
+    pool = _RunAtOnce()
+    monkeypatch.setattr(texec, "_decode_pool", lambda: pool)
+    ghost = GhostItem((99,), 1, 0, {})
+    schedule = [ReadItem(g, (), ()) for g in range(reads)]
+    schedule.insert(1, ghost)
+    ready = texec._read_ahead.ready
+    taken = []
+    for item, host in texec._read_ahead(_Decoded, schedule, (),
+                                        texec.prefetch_depth()):
+        if item is ghost:
+            assert host is None
+            continue
+        taken.append(host)
+        assert len(pool.submitted) == min(window + len(taken), reads)
+    assert taken == pool.submitted == list(range(reads))
+    assert texec._read_ahead.ready - ready == reads
+
+
+@pytest.mark.parametrize("cpus,window", [(None, 1), (1, 1), (4, 3),
+                                         (64, 8)])
+def test_the_default_window_without_an_affinity_call(monkeypatch, cpus,
+                                                     window):
+    """Where the platform has no ``os.sched_getaffinity``, the default
+    window counts every core ``os.cpu_count`` sees (none known: one)."""
+    monkeypatch.delenv("REPRO_QUERY_PREFETCH", raising=False)
+    monkeypatch.delattr(os, "sched_getaffinity", raising=False)
+    monkeypatch.setattr(os, "cpu_count", lambda: cpus)
+    assert texec._pool_size() == texec.prefetch_depth() == window
+
+
+def test_concurrent_scans_share_the_pool(log):
+    """Twelve scans at once, the interpreter switching threads every 10
+    microseconds: each stream is the serial one, the read-ahead counted
+    every group once, and the pool's threads stay at its size."""
+    path, _, _ = log
+    plan = tq.Plan(path)
+    src, rep = tq.pruned_source(plan, prefetch=0, device="cpu")
+    want = _stream(src)
+    before = trace.counters()
+    got, errors = {}, []
+
+    def scan(i):
+        try:
+            got[i] = _stream(tq.pruned_source(plan, device="cpu")[0])
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=scan, args=(i,))
+                   for i in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors
+    after = trace.counters()
+    assert (after["scan_ahead_ready"] + after["scan_ahead_waited"]
+            - before["scan_ahead_ready"] - before["scan_ahead_waited"]) \
+        == 12 * rep.groups_read
+    for i in range(12):
+        assert len(got[i]) == len(want)
+        for (c0, v0, r0), (c1, v1, r1) in zip(want, got[i]):
+            for k in c0:
+                np.testing.assert_array_equal(c0[k], c1[k])
+            np.testing.assert_array_equal(r0, r1)
+    pool = texec._decode_pool()
+    assert len([t for t in threading.enumerate()
+                if t.name.startswith("repro-decode")]) <= pool._max_workers
 
 
 def test_variant_in_resolves_from_header_sketches(log):

@@ -38,6 +38,7 @@ from repro.storage import edf as jedf  # noqa: E402
 from repro_torch.core.eventframe import (ACTIVITY, CASE, TIMESTAMP,  # noqa: E402
                                          EventFrame)
 from repro_torch.dataset import engines as tengines  # noqa: E402
+from repro_torch.query.exec import prefetch_depth  # noqa: E402
 from repro_torch.query.statecache import state_cache as tcache  # noqa: E402
 from repro_torch.service import (Ingestor, MiningService,  # noqa: E402
                                  ServiceError, serve, to_jsonable)
@@ -92,13 +93,19 @@ def _dumps(obj):
 
 def _json_same(got, want, path="json"):
     """Two JSON payloads equal value for value (so their dumps are equal),
-    centrality ``flow`` within 1e-6 of JAX's (summation order)."""
+    centrality ``flow`` within 1e-6 of JAX's (summation order), and a scan
+    report's read-ahead window ``prefetch`` the port's own resolved
+    ``prefetch_depth()`` where JAX's scan read ahead (the port's default is
+    its decode pool's size, JAX's 1)."""
     if isinstance(want, dict):
         assert set(got) == set(want), path
         for k in want:
             if k == "flow":
                 np.testing.assert_allclose(got[k], want[k], rtol=0,
                                            atol=1e-6, err_msg=path)
+            elif k == "prefetch" and "per_file" in want:
+                assert got[k] == (prefetch_depth() if want[k] else 0), \
+                    (path, got[k], want[k])
             else:
                 _json_same(got[k], want[k], f"{path}.{k}")
     elif isinstance(want, list):

@@ -18,8 +18,8 @@ And for the same log kept in an EDF file, the panel and its stitching
 members on the streaming engine, with the read-ahead on and off:
 
 * the file path's counters are the sums of the returned ``ScanReport``,
-  the decode time is counted on whichever thread decodes, and a memo hit
-  reads nothing;
+  the decode time is counted on whichever thread decodes, the read-ahead's
+  counters count the groups it delivered, and a memo hit reads nothing;
 * under a CPU ``torch.profiler`` the ``scan.*`` spans nest as the table in
   ``repro_torch.trace`` says, all on the calling thread.
 """
@@ -285,7 +285,8 @@ def test_helpers_do_what_their_call_sites_did():
 # ---------------------------------------------------------- the file path
 FILE_COUNTERS = ("scan_groups_read", "scan_groups_cached",
                  "scan_groups_skipped", "scan_rows_read", "scan_bytes_read",
-                 "scan_h2d_bytes", "edf_decode_ns", "state_cache_hits",
+                 "scan_h2d_bytes", "edf_decode_ns", "scan_ahead_ready",
+                 "scan_ahead_waited", "state_cache_hits",
                  "state_cache_misses", "state_cache_evictions", "memo_hits",
                  "memo_misses")
 GROUP_ROWS = 256
@@ -349,6 +350,10 @@ def test_file_counters_are_the_scan_reports(paths, fresh, verbs, prefetch,
         assert r.groups_skipped > 0
         assert got["scan_h2d_bytes"] > r.rows_read * row
     grouped = verbs == "stitched"
+    # the read-ahead delivers every read group of the sequential scan, and
+    # none where the scan reads itself (prefetch 0, the grouped path)
+    ahead = r.groups_read if prefetch and not grouped else 0
+    assert got["scan_ahead_ready"] + got["scan_ahead_waited"] == ahead
     assert (got["state_cache_hits"], got["state_cache_misses"],
             got["state_cache_evictions"]) == \
         (0, r.groups_read if grouped else 0, 0)

@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from helpers import random_log, sorted_frame  # noqa: E402
+from torch_scan_helpers import scan_reports_equal as _reports_equal  # noqa: E402
 
 import repro  # noqa: E402
 import repro_torch  # noqa: E402
@@ -75,13 +76,6 @@ def _same(got, want, path="result"):
                                        err_msg=path)
         else:
             np.testing.assert_array_equal(g, w, err_msg=path)
-
-
-def _reports_equal(got, want):
-    if want is None:
-        assert got is None
-        return
-    assert got.to_dict() == want.to_dict()
 
 
 def _fresh():
